@@ -1,0 +1,401 @@
+"""Pair-centric tile rasterization: binning and the compositing kernels.
+
+Counterpart of ``geosplatting_tpu/ops/rasterize_pairs.py``.
+
+1. ``bin_pairs`` expands every Gaussian to its covered (tile, depth) pairs
+   inside a static ``max_pairs`` budget, with the JAX package's depth-
+   priority overflow drop, exact circle prune and packed ``tile | log-depth``
+   sort key, so pair sets, ``total_pairs`` and ``pair_fill`` mean the same.
+   Each tile's pairs are one contiguous range ``[seg_start[t],
+   seg_start[t+1])`` of the sorted pair array (the TPU's chunk list and its
+   SMEM bit-packing are not needed).
+2. ``composite_pairs`` is an autograd Function over kernel K1 (forward) and
+   K2 (backward), ``csrc/rasterize_pairs.cu``. The backward writes one
+   gradient row per sorted pair; the rows go back to generation order and
+   are reduced per Gaussian with ``contiguous_segment_sum`` (kernel K3), as
+   in the JAX package.
+
+Beside each kernel is its plain PyTorch version (same gate order, rank gate
+and clamps), which runs for CPU tensors only.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from .. import _kernels
+from .projection import Projected
+from .segment_rows import contiguous_segment_sum
+
+TRANSMITTANCE_EPS = 1e-4
+MIN_ALPHA = 1.0 / 255.0
+MAX_ALPHA = 0.999
+HDR = 7            # packed pair row: mu2 | conic3 | opacity | depth | color C
+MAX_CHANNELS = 16  # csrc/common.cuh kMaxChannels
+
+
+def tile_wh(tile_size) -> tuple[int, int]:
+    """Tile spec (int, "WxH" string or (w, h)) -> (tile_w, tile_h) pixels."""
+    if isinstance(tile_size, str):
+        parts = tile_size.split("x")
+        tsx = int(parts[0])
+        tsy = int(parts[1]) if len(parts) > 1 else tsx
+    elif isinstance(tile_size, (tuple, list)):
+        tsx, tsy = int(tile_size[0]), int(tile_size[1])
+    else:
+        tsx = tsy = int(tile_size)
+    return tsx, tsy
+
+
+class TileGrid(NamedTuple):
+    tw: int
+    th: int
+    tsx: int
+    tsy: int
+
+    @property
+    def num_tiles(self) -> int:
+        return self.tw * self.th
+
+    @property
+    def pixels(self) -> int:
+        return self.tsx * self.tsy
+
+
+def tile_grid(width: int, height: int, tile_size) -> TileGrid:
+    tsx, tsy = tile_wh(tile_size)
+    return TileGrid(-(-width // tsx), -(-height // tsy), tsx, tsy)
+
+
+class PairBins(NamedTuple):
+    """Static-shape binning of (tile, depth)-sorted Gaussian pairs."""
+
+    sorted_gid: torch.Tensor          # [max_pairs] gaussian id per sorted pair (N = invalid)
+    seg_start: torch.Tensor           # [T+1] first sorted pair of each tile; [T] ends the valid pairs
+    sorted_row_of_slot: torch.Tensor  # [max_pairs] sorted position of each generated slot
+    # per-gaussian contiguous slot runs in generation (depth-priority) order:
+    # gaussian order[i]'s pairs occupy slots [gs_start[i], gs_start[i] + gs_count[i])
+    gs_start: torch.Tensor            # [N]
+    gs_count: torch.Tensor            # [N]
+    gs_inv: torch.Tensor              # [N] original gaussian id -> run index
+    total_pairs: torch.Tensor         # [] true pair count (overflow check)
+
+
+def bin_pairs(
+    proj: Projected,
+    width: int,
+    height: int,
+    *,
+    tile_size,
+    max_pairs: int,
+    near: float = 0.01,
+    far: float = 1e10,
+) -> PairBins:
+    grid = tile_grid(width, height, tile_size)
+    tw, th, tsx, tsy = grid
+    num_tiles = grid.num_tiles
+    n = proj.means2d.shape[0]
+    dev = proj.means2d.device
+
+    means2d = proj.means2d.detach()
+    depths = proj.depths.detach()
+    valid = proj.radii > 0
+    rx = proj.extents[:, 0].detach()
+    ry = proj.extents[:, 1].detach()
+    prune_r = proj.prune_r.detach()
+
+    tx0 = torch.floor((means2d[:, 0] - rx) / tsx).clamp(0, tw).long()
+    ty0 = torch.floor((means2d[:, 1] - ry) / tsy).clamp(0, th).long()
+    tx1 = torch.ceil((means2d[:, 0] + rx) / tsx).clamp(0, tw).long()
+    ty1 = torch.ceil((means2d[:, 1] + ry) / tsy).clamp(0, th).long()
+    bw = (tx1 - tx0).clamp(min=0)
+    ntiles = torch.where(valid, bw * (ty1 - ty0).clamp(min=0), 0)
+
+    # depth-priority budget: when the pairs overflow max_pairs, slots go to
+    # Gaussians near-to-far, so the overflow drops the farthest ones
+    iota = torch.arange(n, device=dev)
+    by_depth = torch.argsort(
+        torch.where(ntiles > 0, depths, torch.inf), stable=True
+    )
+    order = torch.where(ntiles.sum() > max_pairs, by_depth, iota)
+    order_inv = torch.empty_like(order)
+    order_inv[order] = iota
+
+    tile_bits = max(int(num_tiles + 1).bit_length(), 1)
+    depth_bits = min(31 - tile_bits, 19)
+    if depth_bits < 14:
+        raise ValueError(f"too many tiles for packed-key binning: {num_tiles}")
+    log_span = float(math.log(max(far / near, 1.0 + 1e-6)))
+    dq = (
+        torch.log(torch.clamp(depths / near, min=1e-6)) / log_span
+        * ((1 << depth_bits) - 1)
+    ).to(torch.int32).long().clamp(0, (1 << depth_bits) - 1)
+
+    counts = ntiles[order]
+    offsets = torch.cumsum(counts, 0)
+    total = offsets[-1]
+    starts = offsets - counts
+    slot = torch.arange(max_pairs, device=dev)
+    rank = torch.searchsorted(offsets, slot, right=True).clamp(max=n - 1)
+    gid = order[rank]
+    local = slot - starts[rank]
+    bw1 = bw.clamp(min=1)[gid]
+    tile_xi = tx0[gid] + local % bw1
+    tile_yi = ty0[gid] + local // bw1
+    tile_id = tile_yi * tw + tile_xi
+    in_range = slot < torch.clamp(total, max=max_pairs)
+    # per-pair circle prune: a tile whose rect lies beyond prune_r of the mean
+    # is entirely below the 1/255 alpha cutoff, so dropping it is exact
+    mx, my = means2d[gid, 0], means2d[gid, 1]
+    r = prune_r[gid]
+    x0 = tile_xi.to(torch.float32) * tsx
+    y0 = tile_yi.to(torch.float32) * tsy
+    dx = mx - torch.minimum(torch.maximum(mx, x0), x0 + tsx)
+    dy = my - torch.minimum(torch.maximum(my, y0), y0 + tsy)
+    in_range = in_range & (dx * dx + dy * dy <= r * r)
+    tile_id = torch.where(in_range, tile_id, num_tiles)
+    pair_gid = torch.where(in_range, gid, n)
+
+    key = tile_id * (1 << depth_bits) + torch.where(in_range, dq[gid], 0)
+    sorted_key, perm = torch.sort(key, stable=True)
+    sorted_tile = sorted_key >> depth_bits
+    seg_start = torch.searchsorted(
+        sorted_tile, torch.arange(num_tiles + 1, device=dev)
+    )
+    sorted_row_of_slot = torch.empty_like(perm)
+    sorted_row_of_slot[perm] = slot
+    return PairBins(
+        sorted_gid=pair_gid[perm],
+        seg_start=seg_start,
+        sorted_row_of_slot=sorted_row_of_slot,
+        gs_start=starts,
+        gs_count=counts,
+        gs_inv=order_inv,
+        total_pairs=total,
+    )
+
+
+# --- plain versions of K1 and K2 ------------------------------------------------
+
+_PLAIN_GROUP_ELEMS = 1 << 24  # bounds each [tiles, pairs, pixels] temporary
+
+
+def _tile_groups(seg_start: torch.Tensor, npx: int):
+    """Yield (t0, t1, idx [G, K], live [G, K]) over groups of tiles, each
+    with its tiles' sorted pair indices padded to the group's longest tile."""
+    counts = seg_start[1:] - seg_start[:-1]
+    num_tiles = counts.shape[0]
+    kmax_all = int(counts.max()) if num_tiles else 0
+    if kmax_all == 0:
+        return
+    group = max(1, _PLAIN_GROUP_ELEMS // (kmax_all * npx))
+    for t0 in range(0, num_tiles, group):
+        t1 = min(t0 + group, num_tiles)
+        kmax = int(counts[t0:t1].max())
+        if kmax == 0:
+            continue
+        k = torch.arange(kmax, device=seg_start.device)
+        idx = seg_start[t0:t1, None] + k
+        live = k < counts[t0:t1, None]
+        yield t0, t1, idx, live
+
+
+def _pixel_centers(grid: TileGrid, t0: int, t1: int, device):
+    tiles = torch.arange(t0, t1, device=device)[:, None]
+    flat = torch.arange(grid.pixels, device=device)[None, :]
+    px = ((tiles % grid.tw) * grid.tsx + flat % grid.tsx).to(torch.float32) + 0.5
+    py = ((tiles // grid.tw) * grid.tsy + flat // grid.tsx).to(torch.float32) + 0.5
+    return px[:, None, :], py[:, None, :]      # [G, 1, P]
+
+
+def _alphas(p: torch.Tensor, live: torch.Tensor, px, py):
+    """[G, K, W] pair rows -> per (pair, pixel) dx, dy, sigma, raw alpha, keep."""
+    dx = p[..., 0:1] - px
+    dy = p[..., 1:2] - py
+    sigma = 0.5 * (p[..., 2:3] * dx * dx + p[..., 4:5] * dy * dy) + p[..., 3:4] * dx * dy
+    alpha_raw = torch.clamp(p[..., 5:6] * torch.exp(-sigma), max=MAX_ALPHA)
+    keep = (sigma >= 0) & (alpha_raw >= MIN_ALPHA) & live[..., None]
+    return dx, dy, sigma, alpha_raw, keep
+
+
+def _colmat(p: torch.Tensor, channels: int) -> torch.Tensor:
+    """[G, K, C+2] per-pair accumulation columns: colors | depth | 1."""
+    return torch.cat(
+        (p[..., HDR:HDR + channels], p[..., 6:7], torch.ones_like(p[..., :1])), -1
+    )
+
+
+def composite_fwd_plain(pairs, seg_start, grid: TileGrid, channels: int):
+    """Plain version of K1. Returns (out [T, C+2, P], t_final [T, P],
+    n_contrib [T, P] int32)."""
+    num_tiles, npx = grid.num_tiles, grid.pixels
+    dev = pairs.device
+    out = torch.zeros((num_tiles, channels + 2, npx), device=dev)
+    t_final = torch.ones((num_tiles, npx), device=dev)
+    n_contrib = torch.zeros((num_tiles, npx), dtype=torch.int32, device=dev)
+    for t0, t1, idx, live in _tile_groups(seg_start, npx):
+        p = pairs[idx]
+        px, py = _pixel_centers(grid, t0, t1, dev)
+        _, _, _, alpha_raw, keep = _alphas(p, live, px, py)
+        alpha = torch.where(keep, alpha_raw, 0.0)
+        trans = torch.cumprod(1.0 - alpha, dim=1)                  # inclusive
+        t_excl = torch.cat((torch.ones_like(trans[:, :1]), trans[:, :-1]), 1)
+        # the gate precedes the contribution: T before the pair > 1e-4
+        gate = (t_excl > TRANSMITTANCE_EPS) & live[..., None]
+        w = torch.where(gate, alpha * t_excl, 0.0)
+        out[t0:t1] = torch.einsum("gkc,gkp->gcp", _colmat(p, channels), w)
+        cnt = gate.sum(1)
+        last = trans.gather(1, (cnt - 1).clamp(min=0)[:, None, :])[:, 0]
+        t_final[t0:t1] = torch.where(cnt > 0, last, 1.0)
+        n_contrib[t0:t1] = cnt.to(torch.int32)
+    return out, t_final, n_contrib
+
+
+def composite_bwd_plain(pairs, seg_start, grid: TileGrid, channels: int,
+                        grad_out, t_final, n_contrib, max_pairs: int):
+    """Plain version of K2, written from K2's formulas (not autograd of the
+    forward). Returns d_pairs [max_pairs, 7+C] in sorted pair order."""
+    width = HDR + channels
+    dev = pairs.device
+    d_pairs = torch.zeros((max_pairs, width), device=dev)
+    for t0, t1, idx, live in _tile_groups(seg_start, grid.pixels):
+        p = pairs[idx]
+        px, py = _pixel_centers(grid, t0, t1, dev)
+        dx, dy, sigma, alpha_raw, keep = _alphas(p, live, px, py)
+        alpha = torch.where(keep, alpha_raw, 0.0)
+        one_minus = 1.0 - alpha
+        # rank gate: pair k is live for a pixel iff k < its contributor count
+        k = torch.arange(p.shape[1], device=dev)[None, :, None]
+        lv = k < n_contrib[t0:t1, None, :]
+        # T before pair k = T after the last contributor / prod_{j>=k} (1 - a_j)
+        suf_prod = torch.flip(torch.cumprod(torch.flip(torch.where(lv, one_minus, 1.0), [1]), 1), [1])
+        t_excl = t_final[t0:t1, None, :] / suf_prod
+        w = torch.where(lv, alpha * t_excl, 0.0)
+        g = grad_out[t0:t1]                                         # [G, C+2, P]
+        s = torch.einsum("gkc,gcp->gkp", _colmat(p, channels), g)
+        ws = w * s
+        suffix_after = torch.flip(torch.cumsum(torch.flip(ws, [1]), 1), [1]) - ws
+        d_alpha = torch.where(lv, t_excl * s - suffix_after / torch.clamp(one_minus, min=1e-6), 0.0)
+        d_alpha = torch.where(keep & (alpha_raw < MAX_ALPHA), d_alpha, 0.0)
+        d_sigma = -alpha * d_alpha
+        ca, cb, cc = p[..., 2:3], p[..., 3:4], p[..., 4:5]
+        d_op = torch.where(keep, torch.exp(-sigma) * d_alpha, 0.0).sum(-1)
+        rows = torch.cat(
+            (
+                (d_sigma * (ca * dx + cb * dy)).sum(-1, keepdim=True),
+                (d_sigma * (cc * dy + cb * dx)).sum(-1, keepdim=True),
+                (0.5 * d_sigma * dx * dx).sum(-1, keepdim=True),
+                (d_sigma * dx * dy).sum(-1, keepdim=True),
+                (0.5 * d_sigma * dy * dy).sum(-1, keepdim=True),
+                torch.where(p[..., 5] > 0, d_op, 0.0)[..., None],
+                torch.einsum("gkp,gp->gk", w, g[:, channels])[..., None],
+                torch.einsum("gkp,gcp->gkc", w, g[:, :channels]),
+            ),
+            -1,
+        )
+        d_pairs[idx[live]] = rows[live]
+    return d_pairs
+
+
+# --- kernel wrappers -------------------------------------------------------------
+
+
+def _check_grid(grid: TileGrid, channels: int) -> None:
+    if grid.pixels > 256 or grid.pixels % 32:
+        raise ValueError(f"tile {grid.tsx}x{grid.tsy}: pixels must be a multiple of 32, <= 256")
+    if not 1 <= channels <= MAX_CHANNELS:
+        raise ValueError(f"channels={channels}: the kernels take 1..{MAX_CHANNELS}")
+
+
+def composite_fwd(pairs, seg_start, grid: TileGrid, channels: int):
+    """K1 for CUDA tensors, its plain version for CPU tensors. Returns
+    (out [T, C+2, P], t_final [T, P], n_contrib [T, P] int32)."""
+    if pairs.device.type == "cpu":
+        return composite_fwd_plain(pairs, seg_start, grid, channels)
+    _check_grid(grid, channels)
+    num_tiles, npx = grid.num_tiles, grid.pixels
+    _kernels.check_cuda_tensor(pairs, "pairs", torch.float32)
+    if pairs.dim() != 2 or pairs.shape[1] != HDR + channels:
+        raise ValueError(f"pairs: expected [M, {HDR + channels}], got {tuple(pairs.shape)}")
+    _kernels.check_cuda_tensor(seg_start, "seg_start", torch.int64, (num_tiles + 1,))
+    out = torch.empty((num_tiles, channels + 2, npx), device=pairs.device)
+    t_final = torch.empty((num_tiles, npx), device=pairs.device)
+    n_contrib = torch.empty((num_tiles, npx), dtype=torch.int32, device=pairs.device)
+    _kernels.launch(
+        "k1_composite_fwd", pairs.data_ptr(), seg_start.data_ptr(), num_tiles,
+        grid.tw, grid.tsx, grid.tsy, channels, out.data_ptr(), t_final.data_ptr(),
+        n_contrib.data_ptr(), _kernels.stream_of(pairs),
+    )
+    return out, t_final, n_contrib
+
+
+def composite_bwd(pairs, seg_start, grid: TileGrid, channels: int,
+                  grad_out, t_final, n_contrib, max_pairs: int):
+    """K2 for CUDA tensors, its plain version for CPU tensors. Returns
+    d_pairs [max_pairs, 7+C] in sorted pair order (zero for pairs outside
+    every tile and behind every pixel's last contributor)."""
+    if pairs.device.type == "cpu":
+        return composite_bwd_plain(pairs, seg_start, grid, channels,
+                                   grad_out, t_final, n_contrib, max_pairs)
+    _check_grid(grid, channels)
+    num_tiles, npx = grid.num_tiles, grid.pixels
+    width = HDR + channels
+    _kernels.check_cuda_tensor(pairs, "pairs", torch.float32, (max_pairs, width))
+    _kernels.check_cuda_tensor(seg_start, "seg_start", torch.int64, (num_tiles + 1,))
+    _kernels.check_cuda_tensor(grad_out, "grad_out", torch.float32, (num_tiles, channels + 2, npx))
+    _kernels.check_cuda_tensor(t_final, "t_final", torch.float32, (num_tiles, npx))
+    _kernels.check_cuda_tensor(n_contrib, "n_contrib", torch.int32, (num_tiles, npx))
+    d_pairs = torch.empty((max_pairs, width), device=pairs.device)
+    _kernels.launch(
+        "k2_composite_bwd", pairs.data_ptr(), seg_start.data_ptr(), num_tiles,
+        grid.tw, grid.tsx, grid.tsy, channels, grad_out.data_ptr(),
+        t_final.data_ptr(), n_contrib.data_ptr(), d_pairs.data_ptr(), max_pairs,
+        _kernels.stream_of(pairs),
+    )
+    return d_pairs
+
+
+def pack_pairs(bins: PairBins, means2d, conics, opacities, colors, depths) -> torch.Tensor:
+    """[max_pairs, 7+C] pair rows in sorted order (zero rows for invalid pairs)."""
+    packed = torch.cat(
+        (means2d, conics, opacities[:, None], depths[:, None], colors), -1
+    )
+    packed = torch.cat((packed, packed.new_zeros((1, packed.shape[1]))))
+    return packed[bins.sorted_gid].contiguous()
+
+
+class _CompositePairs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, means2d, conics, opacities, colors, depths, bins: PairBins, grid: TileGrid):
+        channels = colors.shape[-1]
+        pairs = pack_pairs(bins, means2d, conics, opacities, colors, depths)
+        out, t_final, n_contrib = composite_fwd(pairs, bins.seg_start, grid, channels)
+        ctx.save_for_backward(pairs, t_final, n_contrib)
+        ctx.bins = bins
+        ctx.grid = grid
+        color = out[:, :channels, :].transpose(1, 2).contiguous()   # [T, P, C]
+        return color, out[:, channels + 1, :], out[:, channels, :]  # color, alpha, depth
+
+    @staticmethod
+    def backward(ctx, g_color, g_alpha, g_depth):
+        pairs, t_final, n_contrib = ctx.saved_tensors
+        bins, grid = ctx.bins, ctx.grid
+        channels = g_color.shape[-1]
+        grad_out = torch.cat(
+            (g_color.transpose(1, 2), g_depth[:, None, :], g_alpha[:, None, :]), 1
+        ).contiguous()
+        d_sorted = composite_bwd(pairs, bins.seg_start, grid, channels, grad_out,
+                                 t_final, n_contrib, pairs.shape[0])
+        # generation order is gaussian-major: one contiguous run per gaussian
+        d_pair = d_sorted[bins.sorted_row_of_slot]
+        d_g = contiguous_segment_sum(d_pair, bins.gs_start, bins.gs_count)[bins.gs_inv]
+        return (d_g[:, 0:2], d_g[:, 2:5], d_g[:, 5], d_g[:, HDR:], d_g[:, 6], None, None)
+
+
+def composite_pairs(bins: PairBins, grid: TileGrid, means2d, conics, opacities,
+                    colors, depths):
+    """Differentiable composite of binned pairs. Returns per-tile
+    (color [T, P, C], alpha [T, P], accumulated depth [T, P])."""
+    return _CompositePairs.apply(means2d, conics, opacities, colors, depths, bins, grid)
