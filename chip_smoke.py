@@ -7,20 +7,23 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
 1. toolchain: torch / CUDA / nvcc versions, the card, and the kernel build
    from csrc/ with ptxas' register / shared-memory / spill report;
 2. K3 (prefix sum) against torch.cumsum at [1.4M, 10];
-3. K1 / K2 (compositing forward / backward) against their plain versions on
-   a seeded 2k-Gaussian scene at 128x128, 16x16 and 16x8 tiles; then the
-   main path's render at a small size on the card against the CPU path;
+3. K1 / K2 (compositing forward / backward, two passes each over chunks of
+   each tile's pairs) against their plain versions on a seeded 2k-Gaussian
+   scene at 128x128, 16x16 and 16x8 tiles and 32-pair chunks; then the main
+   path's render at a small size on the card against the CPU path;
 4. the stage-1 slice at full width: GeoSplatter(resolution=96, scale=0.8,
    pairs_budget=1.4M), 8 orbit cameras at 800x800, an analytic-sphere
    ground truth and the SDF sphere init, trained by GeoSplatTrainer for one
    vertex-sampling step at step 0 and three face-sampling steps from step
    200 — every loss finite, no non-finite gradients, pair_fill <= 1, and
-   K1 / K2 launched once per camera and K3 at least once per camera on
-   every step;
-5. the kernels line: each kernel held to its tolerance against its plain
-   version at the slice's own inputs, its launches, its CUDA-event time
-   there, the plain
-   version's time, its least possible time (bound) and a library yardstick.
+   each pass of K1 / K2 launched once per camera and K3 at least once per
+   camera on every step;
+5. the kernels line: each kernel pass held to its tolerance against its
+   plain version at the slice's own inputs (and K1 to its own bits on a
+   second run), its launches, its CUDA-event time there, the plain
+   version's time, its least possible time (bound) for the work these
+   inputs need (walked and kept pair-pixels, chunks) and a library
+   yardstick.
 The last three lines are the card's name and power limit, the kernels JSON
 line and the result JSON line. Without a CUDA device it exits non-zero
 before printing any result.
@@ -68,19 +71,51 @@ def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# FP32 operations per live (pair, pixel), counting an FMA as 2 and expf as 1
-# (the inner loops of csrc/rasterize_pairs.cu):
-#   K1: offsets 2, sigma 9, exp 1, alpha/keep 4, weight 1, T update 2,
-#       accumulation 2 (C + 2)
-#   K2: K1's evaluation 16, T rebuild 2, s 2 (C + 2), d_alpha + suffix 6,
-#       geometry terms 14, exp 1 + 1, color/depth terms C + 1, and the
-#       pair's 7 + C per-pixel terms summed across the tile
-def k1_ops_per_pair_px(c: int) -> int:
-    return 17 + 2 * (c + 2)
+# FP32 operations per (pair, pixel), counting an FMA as 2 and expf as 1
+# (csrc/rasterize_fwd.cu, csrc/rasterize_bwd.cu). Every walked pair-pixel
+# pays the evaluation (offsets 2, sigma 9, exp 1, alpha / keep 4); only a
+# kept one pays the rest:
+#   K1 products: 1 - alpha and the product, 2;
+#   K1 compositing: weight 1, T update 2, accumulation 2 (C + 2);
+#   K2 suffix: s 2 (C + 2), w 2, sum 2, T update 2;
+#   K2 gradients: reciprocal and T rebuild 2, w 1, s 2 (C + 2), d_alpha 4,
+#       suffix 2, d_sigma 1, geometry terms 14, d_opacity 1, colour and depth
+#       terms C + 1, and the pair's 7 + C terms summed across the tile.
+EVAL_OPS = 16
 
 
-def k2_ops_per_pair_px(c: int) -> int:
-    return 40 + 2 * (c + 2) + (c + 1) + (7 + c)
+def kept_ops(kernel: str, c: int) -> int:
+    return {
+        "k1_chunk_products": 2,
+        "k1_composite_fwd": 3 + 2 * (c + 2),
+        "k2_chunk_suffix": 6 + 2 * (c + 2),
+        "k2_composite_bwd": 25 + 2 * (c + 2) + (c + 1) + (7 + c),
+    }[kernel]
+
+
+def pair_pixel_counts(pairs, seg_start, grid, n_contrib) -> dict:
+    """What these inputs need of K1 and K2: the walked (pair, pixel)
+    evaluations (each pixel's pairs up to its contributor count), the kept
+    ones among them (sigma >= 0 and alpha >= 1/255), all (pair, pixel) of
+    the pairs in some tile, the tiles holding a pair and the largest tile."""
+    import torch
+
+    from geosplatting_tpu_torch.ops import rasterize_pairs as rp
+
+    kept = 0
+    for t0, t1, idx, live in rp._tile_groups(seg_start, grid.pixels):
+        px, py = rp._pixel_centers(grid, t0, t1, pairs.device)
+        keep = rp._alphas(pairs[idx], live, px, py)[-1]
+        rank = torch.arange(idx.shape[1], device=pairs.device)[None, :, None]
+        kept += int((keep & (rank < n_contrib[t0:t1, None, :])).sum())
+    counts = seg_start[1:] - seg_start[:-1]
+    return {
+        "walked_pair_pixels": int(n_contrib.long().sum()),
+        "kept_pair_pixels": kept,
+        "tile_pair_pixels": int(seg_start[-1]) * grid.pixels,
+        "tiles_with_pairs": int((counts > 0).sum()),
+        "max_pairs_per_tile": int(counts.max()),
+    }
 
 
 def toolchain(kernels) -> str:
@@ -96,7 +131,7 @@ def toolchain(kernels) -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    lib, log = kernels.build()
+    libs, log = kernels.build()
     kernels.library()
     build_s = time.perf_counter() - t0
     report = []
@@ -109,13 +144,19 @@ def toolchain(kernels) -> str:
         if m and fn:
             report.append({"kernel": fn, "spill_stores": int(m.group(1)),
                            "spill_loads": int(m.group(2))})
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and report:
-            report[-1].update(registers=int(m.group(1)), smem_bytes=int(m.group(2)))
+            report[-1].update(registers=int(m.group(1)), smem_bytes=int(m.group(2) or 0))
+    # the compositing kernels are instantiated for C = 1..16: show C = 3 (the
+    # main path's) and the largest register count and spills of any C
+    shown = [r for r in report if "ILi3E" in r["kernel"] or "ILi" not in r["kernel"]]
     phase("toolchain", nvcc=nvcc, nvidia_smi=smi, build_s=round(build_s, 3),
-          library=str(lib.name), ptxas=report)
-    if len(report) < 4:
-        raise RuntimeError(f"expected 4 compiled kernels in the ptxas report, got {report}")
+          libraries=[lib.name for lib in libs], compiled_kernels=len(report),
+          max_registers=max((r.get("registers", 0) for r in report), default=0),
+          spill_bytes=sum(r["spill_stores"] + r["spill_loads"] for r in report),
+          ptxas_c3=shown)
+    if len(report) < 4 * 16 + 1 + 3:
+        raise RuntimeError(f"expected 68 compiled kernels in the ptxas report, got {report}")
     return smi
 
 
@@ -156,39 +197,82 @@ def small_scene(device, gen, num=2000, width=128, height=128):
     return means, quats, scales, opac, colors, cam
 
 
+def check_passes(pairs, seg_start, grid, channels, chunks, grad_out) -> dict:
+    """Each pass of K1 and K2 on these inputs against its plain version.
+    Raises where one disagrees; returns the errors and the kernels' outputs.
+    Tolerances: K1's products 2e-5 * |x| + 1e-7 (at most 256 factors, each
+    rounding by up to 2^-24, multiplied in another order); K1's
+    image atol 1e-3 and under 1 % of contributor counts flipped (the kernel
+    starts each chunk from a product of chunk products, so a pixel at the
+    T = 1e-4 cutoff may flip, tests/test_rasterize_pallas.py:53); K2's suffix
+    sums and per-pair gradients, fed the kernel's saved state so the rank
+    gates agree, 2e-3 * max|x| + 2e-3 * |x| (they scale with the loss)."""
+    import torch
+
+    from geosplatting_tpu_torch.ops import rasterize_pairs as rp
+
+    prod = rp.chunk_products(pairs, seg_start, grid, channels, chunks)
+    out, tf, nc = rp.composite_fwd(pairs, seg_start, grid, channels, chunks, prod)
+    suffix = rp.chunk_suffix(pairs, seg_start, grid, channels, chunks, prod, grad_out, nc)
+    d = rp.composite_bwd(pairs, seg_start, grid, channels, grad_out, tf, nc, pairs.shape[0],
+                         chunks, prod, suffix)
+    prod_p = rp.chunk_products_plain(pairs, seg_start, grid, chunks)
+    out_p, _, nc_p = rp.composite_fwd_plain(pairs, seg_start, grid, channels)
+    suffix_p = rp.chunk_suffix_plain(pairs, seg_start, grid, channels, chunks, grad_out, nc)
+    d_p = rp.composite_bwd_plain(pairs, seg_start, grid, channels, grad_out, tf, nc,
+                                 pairs.shape[0])
+    torch.cuda.synchronize()
+
+    def over(x, x_p):
+        return float(((x - x_p).abs() > 2e-3 * float(x_p.abs().max()) + 2e-3 * x_p.abs())
+                     .float().mean())
+
+    errors = {
+        "k1_chunk_products": float((prod - prod_p).abs().max()),
+        "k1_composite_fwd": float((out - out_p).abs().max()),
+        "k2_chunk_suffix": float((suffix - suffix_p).abs().max()),
+        "k2_composite_bwd": float((d - d_p).abs().max()),
+    }
+    checks = {
+        "contributor_count_flips": float((nc != nc_p).float().mean()),
+        "k2_suffix_share_over_tol": over(suffix, suffix_p),
+        "k2_grad_share_over_tol": over(d, d_p),
+        "k2_max_abs_grad": float(d_p.abs().max()),
+    }
+    checks["k1_products_share_over_tol"] = float(
+        ((prod - prod_p).abs() > 2e-5 * prod_p.abs() + 1e-7).float().mean())
+    ok = (checks["k1_products_share_over_tol"] == 0 and errors["k1_composite_fwd"] <= 1e-3
+          and checks["contributor_count_flips"] < 0.01
+          and checks["k2_suffix_share_over_tol"] == 0 and checks["k2_grad_share_over_tol"] == 0)
+    return {"errors": errors, "checks": checks, "ok": ok, "out": (out, tf, nc, prod, suffix)}
+
+
 def check_k1_k2(device, gen) -> dict:
     import torch
 
     from geosplatting_tpu_torch.ops import rasterize_pairs as rp
     from geosplatting_tpu_torch.ops.projection import project
 
-    worst = {"k1": 0.0, "k2": 0.0}
+    worst = {}
     means, quats, scales, opac, colors, cam = small_scene(device, gen)
     proj = project(means, quats, scales, opac, cam.view_matrix, cam.intrinsic_matrix,
                    cam.width, cam.height)
-    for tile in ("16", "16x8"):
+    for tile, kc in (("16", rp.CHUNK_PAIRS), ("16x8", rp.CHUNK_PAIRS), ("16", 32)):
         grid = rp.tile_grid(cam.width, cam.height, tile)
         bins = rp.bin_pairs(proj, cam.width, cam.height, tile_size=(grid.tsx, grid.tsy),
                             max_pairs=1 << 16)
         pairs = rp.pack_pairs(bins, proj.means2d, proj.conics, proj.opacities, colors,
                               proj.depths)
-        out, tf, nc = rp.composite_fwd(pairs, bins.seg_start, grid, 3)
-        out_p, _, nc_p = rp.composite_fwd_plain(pairs, bins.seg_start, grid, 3)
-        g = torch.rand(out.shape, generator=gen, device=device)
-        d = rp.composite_bwd(pairs, bins.seg_start, grid, 3, g, tf, nc, pairs.shape[0])
-        d_p = rp.composite_bwd_plain(pairs, bins.seg_start, grid, 3, g, tf, nc, pairs.shape[0])
-        torch.cuda.synchronize()
-        e1 = float((out - out_p).abs().max())
-        flips = float((nc != nc_p).float().mean())
-        e2 = float((d - d_p).abs().max())
-        over2 = float(((d - d_p).abs() > 2e-3 + 2e-3 * d_p.abs()).float().sum())
-        phase("k1_k2_vs_plain", tile=tile, pairs=int(bins.total_pairs), k1_max_abs_err=e1,
-              contributor_count_flips=flips, k2_max_abs_err=e2, k2_over_tol=over2,
-              tol={"k1_atol": 1e-3, "k2_atol": 2e-3, "k2_rtol": 2e-3})
-        if not (e1 <= 1e-3 and flips < 0.01 and over2 == 0):
-            raise AssertionError(f"K1/K2 disagree with their plain versions ({tile})")
-        worst["k1"] = max(worst["k1"], e1)
-        worst["k2"] = max(worst["k2"], e2)
+        chunks = rp.chunk_list(bins.seg_start, pairs.shape[0], kc)
+        g = torch.rand((grid.num_tiles, 5, grid.pixels), generator=gen, device=device)
+        res = check_passes(pairs, bins.seg_start, grid, 3, chunks, g)
+        phase("k1_k2_vs_plain", tile=tile, kc=kc, pairs=int(bins.total_pairs),
+              chunks=int(chunks.tile_chunk_start[-1]), max_abs_err=res["errors"],
+              **res["checks"])
+        if not res["ok"]:
+            raise AssertionError(f"K1/K2 disagree with their plain versions ({tile}, kc={kc})")
+        for k, v in res["errors"].items():
+            worst[k] = max(worst.get(k, 0.0), v)
     return worst
 
 
@@ -299,8 +383,7 @@ def train_slice(device, seed, kernels) -> tuple[dict, dict]:
     totals = {k: 0 for k in kernels.KERNELS}
     # step 0 samples the vertices (warm-up), steps from 200 the faces
     face_seconds, steps = [], [0, 200, 201, 202]
-    recorders = [Recorder(rp, "composite_fwd"), Recorder(rp, "composite_bwd"),
-                 Recorder(sr, "cumsum_rows")]
+    recorders = [Recorder(rp, "composite_bwd"), Recorder(sr, "cumsum_rows")]
     last = {}
     for i, step in enumerate(steps):
         sampling = trainer.sampling_at(step)
@@ -323,7 +406,7 @@ def train_slice(device, seed, kernels) -> tuple[dict, dict]:
             raise AssertionError(f"non-finite loss at step {step}: {metrics}")
         if metrics["nonfinite_grads"] != 0 or not metrics["pair_fill"] <= 1.0:
             raise AssertionError(f"step {step}: {metrics}")
-        if not (counts["k1_composite_fwd"] == batch and counts["k2_composite_bwd"] == batch
+        if not (all(counts[k] == batch for k in kernels.KERNELS[:4])
                 and counts["k3_cumsum_rows"] >= batch):
             raise AssertionError(f"step {step}: kernel launches {counts} for {batch} cameras")
         for k in totals:
@@ -333,7 +416,7 @@ def train_slice(device, seed, kernels) -> tuple[dict, dict]:
         last = metrics
     for r in recorders:
         r.__exit__()
-    captured = {"fwd": recorders[0].args, "bwd": recorders[1].args, "k3": recorders[2].args}
+    captured = {"bwd": recorders[0].args, "k3": recorders[1].args}
     summary = {"launches": totals, "face_step_seconds": face_seconds, "last": last,
                "steps": len(steps)}
     return summary, captured
@@ -345,69 +428,80 @@ def kernel_line(captured, slice_summary, errors) -> dict:
     from geosplatting_tpu_torch.ops import rasterize_pairs as rp
     from geosplatting_tpu_torch.ops import segment_rows as sr
 
-    pairs, seg_start, grid, channels = captured["fwd"]
-    (b_pairs, b_seg, b_grid, b_ch, grad_out, t_final, n_contrib, max_pairs) = captured["bwd"]
+    (pairs, seg_start, grid, channels, grad_out, _, _, max_pairs, chunks, _, _) = captured["bwd"]
     (k3_in,) = captured["k3"]
-    width = rp.HDR + channels
     tiles, npx = grid.num_tiles, grid.pixels
-    live = float(n_contrib.double().sum())           # live (pair, pixel) evaluations
-    in_tiles = int(seg_start[-1])                      # pairs inside some tile
     steps = slice_summary["steps"]
     launches = slice_summary["launches"]
 
-    out, _, _ = rp.composite_fwd(pairs, seg_start, grid, channels)
-    out_p, _, _ = rp.composite_fwd_plain(pairs, seg_start, grid, channels)
-    d = rp.composite_bwd(*captured["bwd"])
-    d_p = rp.composite_bwd_plain(*captured["bwd"])
+    res = check_passes(pairs, seg_start, grid, channels, chunks, grad_out)
+    out, t_final, n_contrib, prod, suffix = res["out"]
+    # K1 sums no floats atomically: a second run gives the same bits
+    again = rp.composite_fwd(pairs, seg_start, grid, channels, chunks,
+                             rp.chunk_products(pairs, seg_start, grid, channels, chunks))
+    bitwise = all(torch.equal(a, b) for a, b in zip((out, t_final, n_contrib), again))
     k3 = sr.cumsum_rows(k3_in)
     torch.cuda.synchronize()
-    # the tolerances of check_k1_k2 / check_k3, at the main path's own inputs;
-    # K2's per-pair gradients scale with the loss, so its atol is relative to
-    # the largest one
-    k1_err = float((out - out_p).abs().max())
-    d_scale = float(d_p.abs().max())
-    k2_over = float(((d - d_p).abs() > 2e-3 * d_scale + 2e-3 * d_p.abs()).float().mean())
     k3_rel = float(((k3.double() - torch.cumsum(k3_in.double(), 0)).abs()
                     / (torch.cumsum(k3_in.abs().double(), 0) + 1e-6)).max())
-    phase("kernels_vs_plain_at_slice", k1_max_abs_err=k1_err, k2_share_over_tol=k2_over,
-          k2_max_abs_grad=d_scale, k3_rel_to_abs_prefix=k3_rel,
-          tol={"k1_atol": 1e-3, "k2_atol": "2e-3 * max|d|", "k2_rtol": 2e-3,
-               "k3_rel": 1e-5})
-    if not (k1_err <= 1e-3 and k2_over == 0.0 and k3_rel <= 1e-5):
+    counts = pair_pixel_counts(pairs, seg_start, grid, n_contrib)
+    n_chunks = int(chunks.tile_chunk_start[-1])
+    counts.update(chunks=n_chunks, chunk_slots=int(chunks.chunk_tile.shape[0]), kc=chunks.kc)
+    phase("kernels_vs_plain_at_slice", max_abs_err=res["errors"], **res["checks"],
+          k1_bitwise_repeatable=bitwise, k3_rel_to_abs_prefix=k3_rel, **counts,
+          tol={"k1_products": "2e-5 * |x| + 1e-7", "k1_atol": 1e-3, "count_flips": 0.01,
+               "k2_atol": "2e-3 * max|x|", "k2_rtol": 2e-3, "k3_rel": 1e-5})
+    if not (res["ok"] and bitwise and k3_rel <= 1e-5):
         raise AssertionError("a kernel disagrees with its plain version at the slice's inputs")
 
+    # bytes each pass must move: inputs read once, outputs written once
+    f = 4
+    pair_bytes = int(seg_start[-1]) * rp.row_stride(channels) * f
+    list_bytes = (tiles + 1) * 8 + (tiles + 1) * 4 + chunks.chunk_tile.shape[0] * 4
+    per_chunk = n_chunks * npx * f          # prod or suffix of the real chunks
+    per_tile = tiles * npx * f              # t_final, n_contrib, one row of out or grad_out
+    passes = {
+        "k1_chunk_products": (
+            lambda: rp.chunk_products(pairs, seg_start, grid, channels, chunks),
+            lambda: rp.chunk_products_plain(pairs, seg_start, grid, chunks),
+            pair_bytes + list_bytes + per_chunk, counts["tile_pair_pixels"],
+            "geosplatting_tpu/ops/rasterize_pairs.py:483"),
+        "k1_composite_fwd": (
+            lambda: rp.composite_fwd(pairs, seg_start, grid, channels, chunks, prod),
+            lambda: rp.composite_fwd_plain(pairs, seg_start, grid, channels),
+            pair_bytes + list_bytes + per_chunk + per_tile * (channels + 4),
+            counts["walked_pair_pixels"], "geosplatting_tpu/ops/rasterize_pairs.py:483"),
+        "k2_chunk_suffix": (
+            lambda: rp.chunk_suffix(pairs, seg_start, grid, channels, chunks, prod, grad_out,
+                                    n_contrib),
+            lambda: rp.chunk_suffix_plain(pairs, seg_start, grid, channels, chunks, grad_out,
+                                          n_contrib),
+            pair_bytes + list_bytes + 2 * per_chunk + per_tile * (channels + 3),
+            counts["walked_pair_pixels"], "geosplatting_tpu/ops/rasterize_pairs.py:548"),
+        "k2_composite_bwd": (
+            lambda: rp.composite_bwd(pairs, seg_start, grid, channels, grad_out, t_final,
+                                     n_contrib, max_pairs, chunks, prod, suffix),
+            lambda: rp.composite_bwd_plain(pairs, seg_start, grid, channels, grad_out, t_final,
+                                           n_contrib, max_pairs),
+            pair_bytes + list_bytes + 2 * per_chunk + per_tile * (channels + 4)
+            + max_pairs * (rp.HDR + channels) * f,
+            counts["walked_pair_pixels"], "geosplatting_tpu/ops/rasterize_pairs.py:548"),
+    }
     entries = []
-    k1_bytes = in_tiles * width * 4 + (tiles + 1) * 8 + tiles * npx * (channels + 4) * 4
-    k1_bound, k1_by = bound_ms(k1_bytes, live * k1_ops_per_pair_px(channels))
-    entries.append({
-        "name": "k1_composite_fwd", "route": "cuda",
-        "source": "geosplatting_tpu_torch/csrc/rasterize_pairs.cu",
-        "replaces": "geosplatting_tpu/ops/rasterize_pairs.py:483",
-        "launches": launches["k1_composite_fwd"],
-        "launches_per_step": launches["k1_composite_fwd"] / steps,
-        "max_abs_err": k1_err,
-        "max_abs_err_small_scene": errors["k1"],
-        "ms": cuda_ms(lambda: rp.composite_fwd(pairs, seg_start, grid, channels), 20),
-        "plain_ms": cuda_ms(lambda: rp.composite_fwd_plain(pairs, seg_start, grid, channels), 3),
-        "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
-        "live_pair_pixels": live,
-    })
-    k2_bytes = (in_tiles * width * 4 + (tiles + 1) * 8 + tiles * npx * (channels + 4) * 4
-                + max_pairs * width * 4)
-    k2_bound, k2_by = bound_ms(k2_bytes, live * k2_ops_per_pair_px(channels))
-    entries.append({
-        "name": "k2_composite_bwd", "route": "cuda",
-        "source": "geosplatting_tpu_torch/csrc/rasterize_pairs.cu",
-        "replaces": "geosplatting_tpu/ops/rasterize_pairs.py:548",
-        "launches": launches["k2_composite_bwd"],
-        "launches_per_step": launches["k2_composite_bwd"] / steps,
-        "max_abs_err": float((d - d_p).abs().max()),
-        "max_abs_err_small_scene": errors["k2"],
-        "ms": cuda_ms(lambda: rp.composite_bwd(*captured["bwd"]), 20),
-        "plain_ms": cuda_ms(lambda: rp.composite_bwd_plain(*captured["bwd"]), 3),
-        "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
-        "live_pair_pixels": live,
-    })
+    for name, (kernel, plain, nbytes, evaluated, replaces) in passes.items():
+        ops = evaluated * EVAL_OPS + counts["kept_pair_pixels"] * kept_ops(name, channels)
+        bound, by = bound_ms(nbytes, ops)
+        src = "rasterize_fwd.cu" if name.startswith("k1") else "rasterize_bwd.cu"
+        entries.append({
+            "name": name, "route": "cuda", "source": f"geosplatting_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": launches[name],
+            "launches_per_step": launches[name] / steps,
+            "max_abs_err": res["errors"][name],
+            "max_abs_err_small_scene": errors[name],
+            "ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 3),
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "bytes": nbytes, "ops": ops, **counts,
+        })
     m, c = k3_in.shape
     k3_bound, k3_by = bound_ms(2 * m * c * 4, m * c)
     cumsum = cuda_ms(lambda: torch.cumsum(k3_in, 0), 20)

@@ -1,10 +1,11 @@
 """Build, load and launch bookkeeping for the hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ONE ``nvcc`` call into a shared
-library with a plain C interface, loaded with ``ctypes``. The build happens
-at first use, into ``_build/`` beside this file, under a name derived from
-the sources' content, so an edited source rebuilds and an unchanged one is
-reused. Nothing here runs at import time.
+Every ``csrc/*.cu`` source is compiled into its own shared library with a
+plain C interface, loaded with ``ctypes``; the ``nvcc`` calls for all
+sources start together and run in parallel. The build happens at first use,
+into ``_build/`` beside this file, under names derived from the sources'
+content, so an edited source rebuilds and an unchanged one is reused.
+Nothing here runs at import time.
 
 Each kernel wrapper adds one to ``launches[<kernel>]`` right after it
 launches its kernel, and nowhere else, so a run can show that its main path
@@ -31,24 +32,27 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNELS = ("k1_composite_fwd", "k2_composite_bwd", "k3_cumsum_rows")
+KERNELS = ("k1_chunk_products", "k1_composite_fwd", "k2_chunk_suffix", "k2_composite_bwd",
+           "k3_cumsum_rows")
 launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "k1_composite_fwd": (_I, [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]),
-    "k2_composite_bwd": (
-        _I, [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _L, _P]
-    ),
+    # pairs, seg_start, chunk_tile, tile_chunk_start, num_tiles, num_slots,
+    # tw, tsx, tsy, channels, kc, then each kernel's own operands, stream
+    "k1_chunk_products": (_I, [_P, _P, _P, _P, *[_I] * 7, _P, _P]),
+    "k1_composite_fwd": (_I, [_P, _P, _P, _P, *[_I] * 7, *[_P] * 8]),
+    "k2_chunk_suffix": (_I, [_P, _P, _P, _P, *[_I] * 7, *[_P] * 5]),
+    "k2_composite_bwd": (_I, [_P, _P, _P, _P, *[_I] * 7, *[_P] * 6, _L, _P]),
     "k3_cumsum_rows": (_I, [_P, _P, _P, _L, _I, _P]),
     "k3_scratch_floats": (_L, [_L, _I]),
     "geosplat_error_string": (ctypes.c_char_p, [_I]),
 }
 
 _lock = threading.Lock()
-_library: ctypes.CDLL | None = None
+_library: dict | None = None
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -77,45 +81,55 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _sources() -> list[Path]:
-    return sorted(SOURCE_DIR.glob("*.cu"))
-
-
-def build() -> tuple[Path, str]:
-    """Compile the kernels if this content has not been built yet. Returns
-    (library path, the compiler's output including ``-Xptxas -v``)."""
-    files = sorted(SOURCE_DIR.glob("*.cu*"))
+def build() -> tuple[list[Path], str]:
+    """Compile the kernels whose content has not been built yet, one ``nvcc``
+    process per source, all started together. Returns (library paths, the
+    compilers' output including ``-Xptxas -v``)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in files:
+    for f in sorted(SOURCE_DIR.glob("*.cuh")):  # every source includes the headers
         digest.update(f.name.encode())
         digest.update(f.read_bytes())
-    lib = BUILD_DIR / f"libgeosplat_kernels_{digest.hexdigest()[:16]}.so"
-    log = lib.with_suffix(".log")
-    if not lib.exists():
+    libs, procs = [], []
+    for src in sorted(SOURCE_DIR.glob("*.cu")):
+        d = digest.copy()
+        d.update(src.read_bytes())
+        lib = BUILD_DIR / f"lib{src.stem}_{d.hexdigest()[:16]}.so"
+        libs.append(lib)
+        if lib.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs.append((lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for lib, tmp, proc in procs:
+        out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        log.write_text(proc.stdout + proc.stderr)
+            failed.append(f"{lib.name}: nvcc failed ({proc.returncode}):\n{out}")
+            continue
+        lib.with_suffix(".log").write_text(out)
         os.replace(tmp, lib)
-    return lib, log.read_text() if log.exists() else ""
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    logs = [lib.with_suffix(".log") for lib in libs]
+    return libs, "".join(log.read_text() for log in logs if log.exists())
 
 
-def library() -> ctypes.CDLL:
+def library() -> dict[str, ctypes._CFuncPtr]:
+    """The kernels' C entry points by name, typed (builds at first use)."""
     global _library
     with _lock:
         if _library is None:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
+            paths, _ = build()
+            loaded = [ctypes.CDLL(str(path)) for path in paths]
+            entry = {}
             for name, (restype, argtypes) in _SIGNATURES.items():
-                fn = getattr(lib, name)
+                fn = next(getattr(lib, name) for lib in loaded if hasattr(lib, name))
                 fn.restype = restype
                 fn.argtypes = argtypes
-            _library = lib
+                entry[name] = fn
+            _library = entry
     return _library
 
 
@@ -124,9 +138,9 @@ def launch(name: str, *args) -> None:
     non-zero CUDA status (a refused launch never runs, so it must be
     checked right here)."""
     lib = library()
-    status = getattr(lib, name)(*args)
+    status = lib[name](*args)
     if status != 0:
-        msg = lib.geosplat_error_string(status).decode()
+        msg = lib["geosplat_error_string"](status).decode()
         raise RuntimeError(f"{name}: CUDA error {status} ({msg})")
     launches[name] += 1
 

@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from .. import _kernels
 from . import gmath
 
 
@@ -96,9 +97,12 @@ class Cameras:
         radius: float,
         elevation_degrees: float,
         num_samples: int,
-        device: str | torch.device = "cpu",
+        device: str | torch.device | None = None,
         **kwargs,
     ) -> "Cameras":
+        """Cameras on a circle around ``center``; on the card unless
+        ``device`` names another device (raises without one)."""
+        device = _kernels.resolve_device(device)
         center = torch.as_tensor(center, dtype=torch.float32, device=device)
         phi = torch.arange(num_samples, dtype=torch.float32, device=device) * (
             2.0 * math.pi / num_samples

@@ -9,14 +9,22 @@ Counterpart of ``geosplatting_tpu/ops/rasterize_pairs.py``.
    Each tile's pairs are one contiguous range ``[seg_start[t],
    seg_start[t+1])`` of the sorted pair array (the TPU's chunk list and its
    SMEM bit-packing are not needed).
-2. ``composite_pairs`` is an autograd Function over kernel K1 (forward) and
-   K2 (backward), ``csrc/rasterize_pairs.cu``. The backward writes one
-   gradient row per sorted pair; the rows go back to generation order and
-   are reduced per Gaussian with ``contiguous_segment_sum`` (kernel K3), as
-   in the JAX package.
+2. ``chunk_list`` cuts every tile's range into chunks of at most
+   ``CHUNK_PAIRS`` pairs (an empty tile is one chunk of none) inside the
+   static budget ``num_tiles + ceil(max_pairs / kc)`` slots, on the device.
+3. ``composite_pairs`` is an autograd Function over kernel K1 (forward:
+   ``chunk_products`` then ``composite_fwd``, ``csrc/rasterize_fwd.cu``) and
+   K2 (backward: ``chunk_suffix`` then ``composite_bwd``,
+   ``csrc/rasterize_bwd.cu``), whose passes run every chunk of a tile in
+   parallel. The backward writes one gradient row per sorted pair; the rows
+   go back to generation order and are reduced per Gaussian with
+   ``contiguous_segment_sum`` (kernel K3), as in the JAX package.
 
-Beside each kernel is its plain PyTorch version (same gate order, rank gate
-and clamps), which runs for CPU tensors only.
+Pair rows are packed with a stride of a multiple of 4 floats (``row_stride``)
+so the kernels stage them in 16-byte copies. Beside each kernel pass is its
+plain PyTorch version (same gate order, rank gate and clamps), which runs for
+CPU tensors only; the plain compositing passes work per tile and need no
+chunk state.
 """
 from __future__ import annotations
 
@@ -34,6 +42,12 @@ MIN_ALPHA = 1.0 / 255.0
 MAX_ALPHA = 0.999
 HDR = 7            # packed pair row: mu2 | conic3 | opacity | depth | color C
 MAX_CHANNELS = 16  # csrc/common.cuh kMaxChannels
+CHUNK_PAIRS = 256  # pairs per chunk: the kernels' work unit
+
+
+def row_stride(channels: int) -> int:
+    """Floats per packed pair row: 7 + C rounded up to a multiple of 4."""
+    return -(-(HDR + channels) // 4) * 4
 
 
 def tile_wh(tile_size) -> tuple[int, int]:
@@ -177,6 +191,30 @@ def bin_pairs(
     )
 
 
+class Chunks(NamedTuple):
+    """Static-size chunk list over the tiles' sorted pair ranges."""
+
+    tile_chunk_start: torch.Tensor  # [T+1] int32 slot of each tile's first chunk; [T] = chunk count
+    chunk_tile: torch.Tensor        # [slots] int32 tile of each slot (T past the chunk count)
+    kc: int                         # pairs per chunk, at most
+
+
+def chunk_list(seg_start: torch.Tensor, max_pairs: int, kc: int = CHUNK_PAIRS) -> Chunks:
+    """Cut every tile's pairs into chunks of at most ``kc``, on the device and
+    without a host sync: ``num_tiles + ceil(max_pairs / kc)`` slots always
+    hold them, since a tile of n pairs takes max(1, ceil(n / kc)) chunks."""
+    num_tiles = seg_start.shape[0] - 1
+    counts = seg_start[1:] - seg_start[:-1]
+    per_tile = torch.clamp(torch.div(counts + kc - 1, kc, rounding_mode="floor"), min=1)
+    ends = torch.cumsum(per_tile, 0)
+    slots = torch.arange(num_tiles + -(-max_pairs // kc), device=seg_start.device)
+    return Chunks(
+        tile_chunk_start=torch.cat((ends.new_zeros(1), ends)).to(torch.int32),
+        chunk_tile=torch.searchsorted(ends, slots, right=True).to(torch.int32),
+        kc=kc,
+    )
+
+
 # --- plain versions of K1 and K2 ------------------------------------------------
 
 _PLAIN_GROUP_ELEMS = 1 << 24  # bounds each [tiles, pairs, pixels] temporary
@@ -197,8 +235,10 @@ def _tile_groups(seg_start: torch.Tensor, npx: int):
         if kmax == 0:
             continue
         k = torch.arange(kmax, device=seg_start.device)
-        idx = seg_start[t0:t1, None] + k
         live = k < counts[t0:t1, None]
+        # padding past a tile's pairs points at some pair in a tile: never
+        # past the array's end
+        idx = torch.clamp(seg_start[t0:t1, None] + k, max=seg_start[-1] - 1)
         yield t0, t1, idx, live
 
 
@@ -299,68 +339,179 @@ def composite_bwd_plain(pairs, seg_start, grid: TileGrid, channels: int,
     return d_pairs
 
 
+def _fold_chunks(x: torch.Tensor, kc: int, fill: float, reduce) -> torch.Tensor:
+    """[G, K, P] per-pair values -> [G, ceil(K / kc), P] reduced per chunk."""
+    g, k, p = x.shape
+    nck = -(-k // kc)
+    x = torch.nn.functional.pad(x, (0, 0, 0, nck * kc - k), value=fill)
+    return reduce(x.reshape(g, nck, kc, p), 2)
+
+
+def _chunk_slots(chunks: Chunks, seg_start, t0: int, t1: int, nck: int):
+    """[G, nck] slot of tile t's j-th chunk, and whether the tile has it."""
+    counts = seg_start[t0 + 1:t1 + 1] - seg_start[t0:t1]
+    j = torch.arange(nck, device=counts.device)
+    have = j * chunks.kc < counts[:, None]
+    return chunks.tile_chunk_start[t0:t1, None].long() + j, have
+
+
+def chunk_products_plain(pairs, seg_start, grid: TileGrid, chunks: Chunks):
+    """Plain version of K1's first pass. Returns [slots, P]: each chunk's
+    per-pixel product of (1 - alpha) over its pairs, with no gate (1 for an
+    empty tile's chunk, 0 for the slots past the chunk count)."""
+    dev = pairs.device
+    prod = torch.zeros((chunks.chunk_tile.shape[0], grid.pixels), device=dev)
+    prod[chunks.tile_chunk_start[:-1].long()] = 1.0
+    for t0, t1, idx, live in _tile_groups(seg_start, grid.pixels):
+        px, py = _pixel_centers(grid, t0, t1, dev)
+        _, _, _, alpha_raw, keep = _alphas(pairs[idx], live, px, py)
+        cp = _fold_chunks(torch.where(keep, 1.0 - alpha_raw, 1.0), chunks.kc, 1.0, torch.prod)
+        slot, have = _chunk_slots(chunks, seg_start, t0, t1, cp.shape[1])
+        prod[slot[have]] = cp[have]
+    return prod
+
+
+def chunk_suffix_plain(pairs, seg_start, grid: TileGrid, channels: int, chunks: Chunks,
+                       grad_out, n_contrib):
+    """Plain version of K2's first pass. Returns [slots, P]: each chunk's
+    per-pixel sum of w * s over its rank-live pairs; 0 for a tile's first
+    chunk (only earlier chunks read a sum) and for the slots past the chunk
+    count."""
+    dev = pairs.device
+    suffix = torch.zeros((chunks.chunk_tile.shape[0], grid.pixels), device=dev)
+    for t0, t1, idx, live in _tile_groups(seg_start, grid.pixels):
+        p = pairs[idx]
+        px, py = _pixel_centers(grid, t0, t1, dev)
+        _, _, _, alpha_raw, keep = _alphas(p, live, px, py)
+        alpha = torch.where(keep, alpha_raw, 0.0)
+        k = torch.arange(p.shape[1], device=dev)[None, :, None]
+        lv = k < n_contrib[t0:t1, None, :]
+        trans = torch.cumprod(torch.where(lv, 1.0 - alpha, 1.0), 1)
+        t_excl = torch.cat((torch.ones_like(trans[:, :1]), trans[:, :-1]), 1)
+        s = torch.einsum("gkc,gcp->gkp", _colmat(p, channels), grad_out[t0:t1])
+        cs = _fold_chunks(torch.where(lv, alpha * t_excl * s, 0.0), chunks.kc, 0.0, torch.sum)
+        slot, have = _chunk_slots(chunks, seg_start, t0, t1, cs.shape[1])
+        have &= slot > chunks.tile_chunk_start[t0:t1, None].long()
+        suffix[slot[have]] = cs[have]
+    return suffix
+
+
 # --- kernel wrappers -------------------------------------------------------------
 
 
-def _check_grid(grid: TileGrid, channels: int) -> None:
+def _chunk_args(pairs, seg_start, grid: TileGrid, channels: int, chunks: Chunks) -> tuple:
+    """Check the operands every compositing pass takes; return their C
+    arguments (pairs .. kc)."""
     if grid.pixels > 256 or grid.pixels % 32:
         raise ValueError(f"tile {grid.tsx}x{grid.tsy}: pixels must be a multiple of 32, <= 256")
     if not 1 <= channels <= MAX_CHANNELS:
         raise ValueError(f"channels={channels}: the kernels take 1..{MAX_CHANNELS}")
+    num_tiles = grid.num_tiles
+    _kernels.check_cuda_tensor(pairs, "pairs", torch.float32)
+    if pairs.dim() != 2 or pairs.shape[1] != row_stride(channels):
+        raise ValueError(
+            f"pairs: expected [M, {row_stride(channels)}], got {tuple(pairs.shape)}")
+    if pairs.data_ptr() % 16:
+        raise ValueError("pairs: the kernels copy rows in 16 bytes; align the tensor to 16")
+    _kernels.check_cuda_tensor(seg_start, "seg_start", torch.int64, (num_tiles + 1,))
+    slots = num_tiles + -(-pairs.shape[0] // chunks.kc)
+    _kernels.check_cuda_tensor(chunks.tile_chunk_start, "tile_chunk_start", torch.int32,
+                               (num_tiles + 1,))
+    _kernels.check_cuda_tensor(chunks.chunk_tile, "chunk_tile", torch.int32, (slots,))
+    return (pairs.data_ptr(), seg_start.data_ptr(), chunks.chunk_tile.data_ptr(),
+            chunks.tile_chunk_start.data_ptr(), num_tiles, slots, grid.tw, grid.tsx,
+            grid.tsy, channels, chunks.kc)
 
 
-def composite_fwd(pairs, seg_start, grid: TileGrid, channels: int):
-    """K1 for CUDA tensors, its plain version for CPU tensors. Returns
-    (out [T, C+2, P], t_final [T, P], n_contrib [T, P] int32)."""
+def chunk_products(pairs, seg_start, grid: TileGrid, channels: int, chunks: Chunks):
+    """K1's first pass for CUDA tensors, its plain version for CPU tensors.
+    Returns [slots, P] per-chunk products of (1 - alpha)."""
+    if pairs.device.type == "cpu":
+        return chunk_products_plain(pairs, seg_start, grid, chunks)
+    args = _chunk_args(pairs, seg_start, grid, channels, chunks)
+    prod = torch.zeros((chunks.chunk_tile.shape[0], grid.pixels), device=pairs.device)
+    _kernels.launch("k1_chunk_products", *args, prod.data_ptr(), _kernels.stream_of(pairs))
+    return prod
+
+
+def composite_fwd(pairs, seg_start, grid: TileGrid, channels: int, chunks: Chunks, prod):
+    """K1's compositing pass for CUDA tensors, its plain version for CPU
+    tensors. Returns (out [T, C+2, P], t_final [T, P], n_contrib [T, P] int32)."""
     if pairs.device.type == "cpu":
         return composite_fwd_plain(pairs, seg_start, grid, channels)
-    _check_grid(grid, channels)
-    num_tiles, npx = grid.num_tiles, grid.pixels
-    _kernels.check_cuda_tensor(pairs, "pairs", torch.float32)
-    if pairs.dim() != 2 or pairs.shape[1] != HDR + channels:
-        raise ValueError(f"pairs: expected [M, {HDR + channels}], got {tuple(pairs.shape)}")
-    _kernels.check_cuda_tensor(seg_start, "seg_start", torch.int64, (num_tiles + 1,))
-    out = torch.empty((num_tiles, channels + 2, npx), device=pairs.device)
-    t_final = torch.empty((num_tiles, npx), device=pairs.device)
-    n_contrib = torch.empty((num_tiles, npx), dtype=torch.int32, device=pairs.device)
+    args = _chunk_args(pairs, seg_start, grid, channels, chunks)
+    slots, npx = chunks.chunk_tile.shape[0], grid.pixels
+    _kernels.check_cuda_tensor(prod, "prod", torch.float32, (slots, npx))
+    dev = pairs.device
+    out = torch.empty((grid.num_tiles, channels + 2, npx), device=dev)
+    t_final = torch.empty((grid.num_tiles, npx), device=dev)
+    n_contrib = torch.empty((grid.num_tiles, npx), dtype=torch.int32, device=dev)
+    # per-chunk partials of the tiles with several chunks, combined in order
+    part = torch.empty((slots, channels + 2, npx), device=dev)
+    part_t = torch.empty((slots, npx), device=dev)
+    part_n = torch.empty((slots, npx), dtype=torch.int32, device=dev)
     _kernels.launch(
-        "k1_composite_fwd", pairs.data_ptr(), seg_start.data_ptr(), num_tiles,
-        grid.tw, grid.tsx, grid.tsy, channels, out.data_ptr(), t_final.data_ptr(),
-        n_contrib.data_ptr(), _kernels.stream_of(pairs),
+        "k1_composite_fwd", *args, prod.data_ptr(), out.data_ptr(), t_final.data_ptr(),
+        n_contrib.data_ptr(), part.data_ptr(), part_t.data_ptr(), part_n.data_ptr(),
+        _kernels.stream_of(pairs),
     )
     return out, t_final, n_contrib
 
 
-def composite_bwd(pairs, seg_start, grid: TileGrid, channels: int,
-                  grad_out, t_final, n_contrib, max_pairs: int):
-    """K2 for CUDA tensors, its plain version for CPU tensors. Returns
-    d_pairs [max_pairs, 7+C] in sorted pair order (zero for pairs outside
-    every tile and behind every pixel's last contributor)."""
+def chunk_suffix(pairs, seg_start, grid: TileGrid, channels: int, chunks: Chunks, prod,
+                 grad_out, n_contrib):
+    """K2's first pass for CUDA tensors, its plain version for CPU tensors.
+    Returns [slots, P] per-chunk sums of w * s over rank-live pairs."""
+    if pairs.device.type == "cpu":
+        return chunk_suffix_plain(pairs, seg_start, grid, channels, chunks, grad_out, n_contrib)
+    args = _chunk_args(pairs, seg_start, grid, channels, chunks)
+    slots, npx = chunks.chunk_tile.shape[0], grid.pixels
+    _kernels.check_cuda_tensor(prod, "prod", torch.float32, (slots, npx))
+    _kernels.check_cuda_tensor(grad_out, "grad_out", torch.float32,
+                               (grid.num_tiles, channels + 2, npx))
+    _kernels.check_cuda_tensor(n_contrib, "n_contrib", torch.int32, (grid.num_tiles, npx))
+    suffix = torch.zeros((slots, npx), device=pairs.device)
+    _kernels.launch(
+        "k2_chunk_suffix", *args, prod.data_ptr(), grad_out.data_ptr(), n_contrib.data_ptr(),
+        suffix.data_ptr(), _kernels.stream_of(pairs),
+    )
+    return suffix
+
+
+def composite_bwd(pairs, seg_start, grid: TileGrid, channels: int, grad_out, t_final,
+                  n_contrib, max_pairs: int, chunks: Chunks, prod, suffix):
+    """K2's gradient pass for CUDA tensors, its plain version for CPU
+    tensors. Returns d_pairs [max_pairs, 7+C] in sorted pair order (zero for
+    pairs outside every tile and behind every pixel's last contributor)."""
     if pairs.device.type == "cpu":
         return composite_bwd_plain(pairs, seg_start, grid, channels,
                                    grad_out, t_final, n_contrib, max_pairs)
-    _check_grid(grid, channels)
-    num_tiles, npx = grid.num_tiles, grid.pixels
-    width = HDR + channels
-    _kernels.check_cuda_tensor(pairs, "pairs", torch.float32, (max_pairs, width))
-    _kernels.check_cuda_tensor(seg_start, "seg_start", torch.int64, (num_tiles + 1,))
-    _kernels.check_cuda_tensor(grad_out, "grad_out", torch.float32, (num_tiles, channels + 2, npx))
-    _kernels.check_cuda_tensor(t_final, "t_final", torch.float32, (num_tiles, npx))
-    _kernels.check_cuda_tensor(n_contrib, "n_contrib", torch.int32, (num_tiles, npx))
-    d_pairs = torch.empty((max_pairs, width), device=pairs.device)
+    args = _chunk_args(pairs, seg_start, grid, channels, chunks)
+    slots, npx = chunks.chunk_tile.shape[0], grid.pixels
+    if pairs.shape[0] != max_pairs:
+        raise ValueError(f"pairs: expected {max_pairs} rows, got {pairs.shape[0]}")
+    _kernels.check_cuda_tensor(grad_out, "grad_out", torch.float32,
+                               (grid.num_tiles, channels + 2, npx))
+    _kernels.check_cuda_tensor(t_final, "t_final", torch.float32, (grid.num_tiles, npx))
+    _kernels.check_cuda_tensor(n_contrib, "n_contrib", torch.int32, (grid.num_tiles, npx))
+    _kernels.check_cuda_tensor(prod, "prod", torch.float32, (slots, npx))
+    _kernels.check_cuda_tensor(suffix, "suffix", torch.float32, (slots, npx))
+    d_pairs = torch.empty((max_pairs, HDR + channels), device=pairs.device)
     _kernels.launch(
-        "k2_composite_bwd", pairs.data_ptr(), seg_start.data_ptr(), num_tiles,
-        grid.tw, grid.tsx, grid.tsy, channels, grad_out.data_ptr(),
-        t_final.data_ptr(), n_contrib.data_ptr(), d_pairs.data_ptr(), max_pairs,
-        _kernels.stream_of(pairs),
+        "k2_composite_bwd", *args, grad_out.data_ptr(), t_final.data_ptr(),
+        n_contrib.data_ptr(), prod.data_ptr(), suffix.data_ptr(), d_pairs.data_ptr(),
+        max_pairs, _kernels.stream_of(pairs),
     )
     return d_pairs
 
 
 def pack_pairs(bins: PairBins, means2d, conics, opacities, colors, depths) -> torch.Tensor:
-    """[max_pairs, 7+C] pair rows in sorted order (zero rows for invalid pairs)."""
+    """[max_pairs, row_stride(C)] pair rows in sorted order: 7 + C columns,
+    zero padding, and zero rows for invalid pairs."""
+    pad = row_stride(colors.shape[-1]) - HDR - colors.shape[-1]
     packed = torch.cat(
-        (means2d, conics, opacities[:, None], depths[:, None], colors), -1
+        (means2d, conics, opacities[:, None], depths[:, None], colors,
+         colors.new_zeros((colors.shape[0], pad))), -1
     )
     packed = torch.cat((packed, packed.new_zeros((1, packed.shape[1]))))
     return packed[bins.sorted_gid].contiguous()
@@ -371,23 +522,29 @@ class _CompositePairs(torch.autograd.Function):
     def forward(ctx, means2d, conics, opacities, colors, depths, bins: PairBins, grid: TileGrid):
         channels = colors.shape[-1]
         pairs = pack_pairs(bins, means2d, conics, opacities, colors, depths)
-        out, t_final, n_contrib = composite_fwd(pairs, bins.seg_start, grid, channels)
-        ctx.save_for_backward(pairs, t_final, n_contrib)
+        chunks = chunk_list(bins.seg_start, pairs.shape[0])
+        prod = chunk_products(pairs, bins.seg_start, grid, channels, chunks)
+        out, t_final, n_contrib = composite_fwd(pairs, bins.seg_start, grid, channels, chunks,
+                                                prod)
+        ctx.save_for_backward(pairs, t_final, n_contrib, prod)
         ctx.bins = bins
         ctx.grid = grid
+        ctx.chunks = chunks
         color = out[:, :channels, :].transpose(1, 2).contiguous()   # [T, P, C]
         return color, out[:, channels + 1, :], out[:, channels, :]  # color, alpha, depth
 
     @staticmethod
     def backward(ctx, g_color, g_alpha, g_depth):
-        pairs, t_final, n_contrib = ctx.saved_tensors
-        bins, grid = ctx.bins, ctx.grid
+        pairs, t_final, n_contrib, prod = ctx.saved_tensors
+        bins, grid, chunks = ctx.bins, ctx.grid, ctx.chunks
         channels = g_color.shape[-1]
         grad_out = torch.cat(
             (g_color.transpose(1, 2), g_depth[:, None, :], g_alpha[:, None, :]), 1
         ).contiguous()
+        suffix = chunk_suffix(pairs, bins.seg_start, grid, channels, chunks, prod, grad_out,
+                              n_contrib)
         d_sorted = composite_bwd(pairs, bins.seg_start, grid, channels, grad_out,
-                                 t_final, n_contrib, pairs.shape[0])
+                                 t_final, n_contrib, pairs.shape[0], chunks, prod, suffix)
         # generation order is gaussian-major: one contiguous run per gaussian
         d_pair = d_sorted[bins.sorted_row_of_slot]
         d_g = contiguous_segment_sum(d_pair, bins.gs_start, bins.gs_count)[bins.gs_inv]

@@ -44,7 +44,7 @@ def cumsum_rows(values: torch.Tensor) -> torch.Tensor:
     if m == 0:
         return out
     lib = _kernels.library()
-    n_scratch = lib.k3_scratch_floats(m, c)
+    n_scratch = lib["k3_scratch_floats"](m, c)
     if n_scratch < 0:
         raise ValueError(f"cumsum_rows: unsupported width C={c} (1 <= C <= 256)")
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=values.device)

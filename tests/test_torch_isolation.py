@@ -9,6 +9,7 @@ import pytest
 import torch
 
 import geosplatting_tpu_torch
+from geosplatting_tpu_torch.graphics.cameras import Cameras
 from geosplatting_tpu_torch.models.geosplat import GeoSplatter
 
 from .torch_parity import one_torch_thread  # noqa: F401
@@ -57,3 +58,20 @@ def test_chip_smoke_refuses_without_a_card():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_orbit_cameras_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=2.0, elevation_degrees=15.0,
+                           num_samples=3)
+
+
+def test_orbit_cameras_on_the_cpu_when_asked():
+    cams = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=2.0, elevation_degrees=15.0,
+                              num_samples=3, width=32, height=24, device="cpu")
+    assert cams.c2w.device.type == "cpu" and cams.c2w.shape == (3, 3, 4)
+    # every camera sits on the orbit and looks at its center
+    eye = cams.camera_pos
+    torch.testing.assert_close(eye.norm(dim=-1), torch.full((3,), 2.0))
+    torch.testing.assert_close(cams.c2w[:, :3, 2], eye / 2.0)

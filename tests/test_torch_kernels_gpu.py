@@ -86,28 +86,103 @@ def binned(device, channels, tile, **kw):
     return pairs, bins, grid
 
 
-@pytest.mark.parametrize("channels,tile,saturated", [
-    (3, 16, False), (3, (16, 8), False), (14, 16, False), (3, 16, True),
-])
-def test_k1_k2_match_plain(cuda_device, channels, tile, saturated):
-    pairs, bins, grid = binned(cuda_device, channels, tile, saturated=saturated)
-    before = dict(_kernels.launches)
-    out, tf, nc = rp.composite_fwd(pairs, bins.seg_start, grid, channels)
-    out_p, tf_p, nc_p = rp.composite_fwd_plain(pairs, bins.seg_start, grid, channels)
+PASSES = ("k1_chunk_products", "k1_composite_fwd", "k2_chunk_suffix", "k2_composite_bwd")
+
+
+def check_passes(pairs, seg_start, grid, channels, kc):
+    """Every K1 / K2 pass once on the card against its plain version; returns
+    the kernels' (out, t_final, n_contrib)."""
+    before = {k: _kernels.launches[k] for k in PASSES}
+    chunks = rp.chunk_list(seg_start, pairs.shape[0], kc)
+    prod = rp.chunk_products(pairs, seg_start, grid, channels, chunks)
+    out, tf, nc = rp.composite_fwd(pairs, seg_start, grid, channels, chunks, prod)
+    g = torch.rand(out.shape, generator=torch.Generator().manual_seed(1)).to(pairs.device)
+    suffix = rp.chunk_suffix(pairs, seg_start, grid, channels, chunks, prod, g, nc)
+    d = rp.composite_bwd(pairs, seg_start, grid, channels, g, tf, nc, pairs.shape[0], chunks,
+                         prod, suffix)
     torch.cuda.synchronize()
-    # the plain version's cumprod runs as a parallel scan on the card, so a
-    # pixel at the T = 1e-4 cutoff may flip (tests/test_rasterize_pallas.py:53)
+    assert {k: _kernels.launches[k] - before[k] for k in PASSES} == dict.fromkeys(PASSES, 1)
+    # products of at most kc <= 256 factors, each rounding by up to 2^-24,
+    # multiplied in another order
+    np.testing.assert_allclose(n(prod), n(rp.chunk_products_plain(pairs, seg_start, grid, chunks)),
+                               rtol=2e-5, atol=1e-7)
+    out_p, _, nc_p = rp.composite_fwd_plain(pairs, seg_start, grid, channels)
+    # the plain version's cumprod runs as a parallel scan on the card, and the
+    # kernel starts each chunk from a product of chunk products, so a pixel at
+    # the T = 1e-4 cutoff may flip (tests/test_rasterize_pallas.py:53)
     np.testing.assert_allclose(n(out), n(out_p), atol=1e-3)
     assert float((nc != nc_p).float().mean()) < 0.01
-    g = torch.rand(out.shape, device=cuda_device)
-    # feed both backwards the kernel's saved state, so the rank gates agree
-    d = rp.composite_bwd(pairs, bins.seg_start, grid, channels, g, tf, nc, pairs.shape[0])
-    d_p = rp.composite_bwd_plain(pairs, bins.seg_start, grid, channels, g, tf, nc,
-                                 pairs.shape[0])
-    torch.cuda.synchronize()
+    # feed the plain backward passes the kernel's saved state, so the rank
+    # gates agree
+    suffix_p = rp.chunk_suffix_plain(pairs, seg_start, grid, channels, chunks, g, nc)
+    scale = float(suffix_p.abs().max())
+    np.testing.assert_allclose(n(suffix), n(suffix_p), atol=2e-3 * scale, rtol=2e-3)
+    d_p = rp.composite_bwd_plain(pairs, seg_start, grid, channels, g, tf, nc, pairs.shape[0])
     np.testing.assert_allclose(n(d), n(d_p), atol=2e-3, rtol=2e-3)
-    assert _kernels.launches["k1_composite_fwd"] == before.get("k1_composite_fwd", 0) + 1
-    assert _kernels.launches["k2_composite_bwd"] == before.get("k2_composite_bwd", 0) + 1
+    return out, tf, nc
+
+
+@pytest.mark.parametrize("channels,tile,saturated,kc", [
+    (3, 16, False, 256), (3, (16, 8), False, 256), (14, 16, False, 256), (3, 16, True, 256),
+    (1, 16, False, 32), (3, 16, True, 32), (14, (16, 8), True, 32), (16, 16, False, 32),
+    (16, (16, 8), True, 64),
+])
+def test_k1_k2_match_plain(cuda_device, channels, tile, saturated, kc):
+    pairs, bins, grid = binned(cuda_device, channels, tile, saturated=saturated)
+    check_passes(pairs, bins.seg_start, grid, channels, kc)
+
+
+def one_tile(device, opacity, conic=0.0, channels=3, seed=0):
+    """The pairs of one 16x16 tile, all centred on it: opacity [M] per pair,
+    conic a = c (0: the same alpha at every pixel)."""
+    m = opacity.shape[0]
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((m, rp.row_stride(channels)), np.float32)
+    rows[:, 0:2] = 8.0 + rng.uniform(-2, 2, (m, 2))
+    rows[:, 2] = rows[:, 4] = conic
+    rows[:, 5] = opacity
+    rows[:, 6] = np.linspace(0.5, 3.0, m)
+    rows[:, rp.HDR:rp.HDR + channels] = rng.uniform(size=(m, channels))
+    pairs = torch.from_numpy(np.concatenate((rows, np.zeros((5, rows.shape[1]), np.float32))))
+    seg_start = torch.tensor([0, m], dtype=torch.int64)
+    return pairs.to(device), seg_start.to(device), rp.TileGrid(1, 1, 16, 16)
+
+
+@pytest.mark.parametrize("case", ["never_saturates", "saturates_mid_chunk", "at_boundary"])
+def test_one_tile_of_several_chunks(cuda_device, case):
+    kc = 16
+    if case == "never_saturates":
+        pairs, seg, grid = one_tile(cuda_device, np.full(5 * kc, 0.01), conic=0.002)
+    elif case == "saturates_mid_chunk":
+        pairs, seg, grid = one_tile(cuda_device, np.full(6 * kc, 0.3), conic=0.002)
+    else:
+        # T after chunk 0 = 0.05 * 0.001 <= 1e-4 at every pixel: chunk 1's
+        # first pair is the first one gated out
+        op = np.full(4 * kc, 0.5)
+        op[:kc - 1] = 1.0 - 0.05 ** (1.0 / (kc - 1))
+        op[kc - 1] = 0.999
+        pairs, seg, grid = one_tile(cuda_device, op)
+    _, _, nc = check_passes(pairs, seg, grid, 3, kc)
+    count = int(seg[1])
+    if case == "never_saturates":
+        assert bool((nc == count).all())
+    elif case == "saturates_mid_chunk":
+        assert kc < int(nc.min()) and int(nc.max()) < count and bool((nc % kc != 0).any())
+    else:
+        assert bool((nc == kc).all())
+
+
+def test_k1_is_the_same_bit_for_bit_from_run_to_run(cuda_device):
+    pairs, bins, grid = binned(cuda_device, 3, 16, saturated=True)
+    chunks = rp.chunk_list(bins.seg_start, pairs.shape[0], 32)
+    runs = []
+    for _ in range(2):
+        prod = rp.chunk_products(pairs, bins.seg_start, grid, 3, chunks)
+        runs.append((prod, *rp.composite_fwd(pairs, bins.seg_start, grid, 3, chunks, prod)))
+    torch.cuda.synchronize()
+    assert int(chunks.tile_chunk_start[-1]) > grid.num_tiles  # some tile holds several chunks
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_rasterize_gradients_card_vs_cpu(cuda_device):

@@ -172,5 +172,10 @@ def test_cpu_path_never_launches():
     pairs = rp.pack_pairs(bins, proj.means2d, proj.conics, proj.opacities, t(colors),
                           proj.depths)
     before = dict(_kernels.launches)
-    rp.composite_fwd(pairs, bins.seg_start, grid, 3)
+    chunks = rp.chunk_list(bins.seg_start, pairs.shape[0], kc=32)
+    prod = rp.chunk_products(pairs, bins.seg_start, grid, 3, chunks)
+    out, t_final, n_contrib = rp.composite_fwd(pairs, bins.seg_start, grid, 3, chunks, prod)
+    suffix = rp.chunk_suffix(pairs, bins.seg_start, grid, 3, chunks, prod, out, n_contrib)
+    rp.composite_bwd(pairs, bins.seg_start, grid, 3, out, t_final, n_contrib,
+                     pairs.shape[0], chunks, prod, suffix)
     assert dict(_kernels.launches) == before
