@@ -19,11 +19,22 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
    each pass of K1 / K2 launched once per camera and K3 at least once per
    camera on every step;
 5. the kernels line: each kernel pass held to its tolerance against its
-   plain version at the slice's own inputs (and K1 to its own bits on a
-   second run), its launches, its CUDA-event time there, the plain
+   plain version at the slice's own inputs (and K1 and K3 to their own bits
+   on a second run), its launches, its CUDA-event time there, the plain
    version's time, its least possible time (bound) for the work these
    inputs need (walked and kept pair-pixels, chunks) and a library
-   yardstick.
+   yardstick; K3's row also gives PyTorch's inner-dimension scan of the
+   transposed copy as a second yardstick;
+6. product: the stage-1 product path as a user runs it. A Blender-layout
+   scene of the analytic sphere (800x800 PNGs, 16 train, 2 val, 2 test
+   views) is written to a temporary directory, and GeoSplatTrainTask runs
+   on it at the slice's width (grid 96, 8 cameras a batch, pairs budget
+   1.4M, light resolution 512): 4 steps with a checkpoint at 2 and at 4 and
+   an exact-quality validation and the export at 4, then a resume to 6
+   steps, then the export read back and held key by key against the last
+   checkpoint's parameters. It prints the validation PSNR, the seconds per
+   step, the validation render's time, the export's keys and shapes, and
+   the kernels' launches in this phase.
 The last three lines are the card's name and power limit, the kernels JSON
 line and the result JSON line. Without a CUDA device it exits non-zero
 before printing any result.
@@ -36,7 +47,9 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, FP32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -48,21 +61,31 @@ def phase(name: str, **fields) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of fn() over reps runs, after one warm-up."""
+    """Device milliseconds per call of fn(): the mean over reps calls queued
+    behind a device-side sleep, after one warm-up call. The host enqueues
+    all of them while the device sleeps, so the CUDA events bracket device
+    time only, not the wrappers' host work (allocation, checks, ctypes); a
+    single call bracketed alone measures that host work wherever it exceeds
+    the kernel's time. The sleep doubles until the queue outlasts the
+    enqueueing."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+    cycles = 20_000_000
+    while True:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
+        held = not start.query()   # the sleep still runs: nothing waited on the host
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
+        if held or cycles > 10**10:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
 
 
 def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -155,8 +178,9 @@ def toolchain(kernels) -> str:
           max_registers=max((r.get("registers", 0) for r in report), default=0),
           spill_bytes=sum(r["spill_stores"] + r["spill_loads"] for r in report),
           ptxas_c3=shown)
-    if len(report) < 4 * 16 + 1 + 3:
-        raise RuntimeError(f"expected 68 compiled kernels in the ptxas report, got {report}")
+    # K1's two passes and combine and K2's two passes for C = 1..16, and K3
+    if len(report) != 5 * 16 + 1:
+        raise RuntimeError(f"expected 81 compiled kernels in the ptxas report, got {report}")
     return smi
 
 
@@ -294,6 +318,70 @@ def sphere_gt(cams):
     rgb = torch.where(hit[..., None], shade[..., None] * 0.8, 0.0).expand(*hit.shape, 3)
     a = hit[..., None].float()
     return torch.cat((images.rgb2srgb(rgb) * a, a), -1)
+
+
+def write_sphere_scene(root, counts: dict, render_res: int, device) -> None:
+    """A Blender-layout scene of the analytic sphere (sphere_gt) under root:
+    transforms_<split>.json with views on a circle at height 0.35 x 3 of
+    radius 0.94 x 3 (the Blender parser scales them by 2/3), val and test
+    views offset by 0.3 of a step, and 800x800 RGBA PNGs rendered at
+    render_res and upsampled by pixel replication."""
+    import numpy as np
+
+    from geosplatting_tpu_torch.data.dataparsers.blender_family import (
+        IMAGE_WH, BlenderDataparser,
+    )
+    from geosplatting_tpu_torch.data.dataset import cameras_of
+    from geosplatting_tpu_torch.data.io import dump_float32_image
+
+    root = Path(root)
+    rep = IMAGE_WH // render_res
+    for split, num in counts.items():
+        (root / split).mkdir(parents=True, exist_ok=True)
+        frames = []
+        for i in range(num):
+            th = 2 * np.pi * (i + (0.3 if split != "train" else 0)) / num
+            eye = 3.0 * np.array([np.cos(th) * 0.94, np.sin(th) * 0.94, 0.35])
+            fwd = -eye / np.linalg.norm(eye)
+            right = np.cross(fwd, [0.0, 0.0, 1.0])
+            right /= np.linalg.norm(right)
+            c2w = np.eye(4)
+            c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = right, np.cross(right, fwd), -fwd, eye
+            frames.append({"file_path": f"./{split}/r_{i}", "transform_matrix": c2w.tolist()})
+        with open(root / f"transforms_{split}.json", "w") as f:
+            json.dump({"camera_angle_x": 0.8, "frames": frames}, f)
+        cams = cameras_of(BlenderDataparser().parse(root, split), render_res / IMAGE_WH, device)
+        gt = sphere_gt(cams).cpu().numpy()
+        for i in range(num):
+            dump_float32_image(root / split / f"r_{i}.png",
+                               np.kron(gt[i], np.ones((rep, rep, 1), np.float32)))
+
+
+class Timed:
+    """Wraps a method of a class for the duration of a with-block: each call
+    is synchronised and its host seconds appended to ``seconds``."""
+
+    def __init__(self, cls, name):
+        self.cls, self.name = cls, name
+        self.fn = getattr(cls, name)
+        self.seconds = []
+
+    def __enter__(self):
+        import torch
+
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.cls, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.fn)
 
 
 class Recorder:
@@ -441,6 +529,8 @@ def kernel_line(captured, slice_summary, errors) -> dict:
                              rp.chunk_products(pairs, seg_start, grid, channels, chunks))
     bitwise = all(torch.equal(a, b) for a, b in zip((out, t_final, n_contrib), again))
     k3 = sr.cumsum_rows(k3_in)
+    # K3 sums each tile's carry in a fixed order: a second run gives the same bits
+    k3_bitwise = bool(torch.equal(k3, sr.cumsum_rows(k3_in)))
     torch.cuda.synchronize()
     k3_rel = float(((k3.double() - torch.cumsum(k3_in.double(), 0)).abs()
                     / (torch.cumsum(k3_in.abs().double(), 0) + 1e-6)).max())
@@ -448,10 +538,11 @@ def kernel_line(captured, slice_summary, errors) -> dict:
     n_chunks = int(chunks.tile_chunk_start[-1])
     counts.update(chunks=n_chunks, chunk_slots=int(chunks.chunk_tile.shape[0]), kc=chunks.kc)
     phase("kernels_vs_plain_at_slice", max_abs_err=res["errors"], **res["checks"],
-          k1_bitwise_repeatable=bitwise, k3_rel_to_abs_prefix=k3_rel, **counts,
+          k1_bitwise_repeatable=bitwise, k3_rel_to_abs_prefix=k3_rel,
+          k3_bitwise_repeatable=k3_bitwise, **counts,
           tol={"k1_products": "2e-5 * |x| + 1e-7", "k1_atol": 1e-3, "count_flips": 0.01,
                "k2_atol": "2e-3 * max|x|", "k2_rtol": 2e-3, "k3_rel": 1e-5})
-    if not (res["ok"] and bitwise and k3_rel <= 1e-5):
+    if not (res["ok"] and bitwise and k3_bitwise and k3_rel <= 1e-5):
         raise AssertionError("a kernel disagrees with its plain version at the slice's inputs")
 
     # bytes each pass must move: inputs read once, outputs written once
@@ -517,8 +608,100 @@ def kernel_line(captured, slice_summary, errors) -> dict:
         "ms": cuda_ms(lambda: sr.cumsum_rows(k3_in), 20),
         "plain_ms": cumsum,   # the plain version is torch.cumsum itself
         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": cumsum,
+        "yardstick": {"expr": "torch.cumsum(x.t().contiguous(), 1)", "calls": 3,
+                      "ms": cuda_ms(lambda: torch.cumsum(k3_in.t().contiguous(), 1), 20)},
+        "bitwise_repeatable": k3_bitwise,
     })
     return {"kernels": entries}
+
+
+PRODUCT = dict(views={"train": 16, "val": 2, "test": 2}, steps=4, save_every=2, resume_to=6)
+
+
+def product(device, seed, kernels) -> dict:
+    """The stage-1 product path (phase 6 of the docstring). Raises on any
+    failed check."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from geosplatting_tpu_torch.convert import params_to_numpy
+    from geosplatting_tpu_torch.engine.stage_io import load_export
+    from geosplatting_tpu_torch.engine.train_task import GeoSplatTrainTask
+    from geosplatting_tpu_torch.utils.config import load_dataclass
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_product_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        write_sphere_scene(tmp / "scene", PRODUCT["views"], 800, device)
+        scene_s = time.perf_counter() - t0
+        task = GeoSplatTrainTask(
+            dataset_path=tmp / "scene", experiment_name="product", seed=seed,
+            num_steps=PRODUCT["steps"], batch_size=SLICE["cameras"],
+            num_steps_per_save=PRODUCT["save_every"], num_steps_per_val=PRODUCT["steps"],
+            num_val_images=2, resolution=SLICE["grid"], light_resolution=512,
+            scene_scale=0.8, pairs_budget=SLICE["pairs_budget"], device=str(device),
+        )
+        runs = []
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with Timed(GeoSplatTrainTask, "step_fn") as steps, \
+                Timed(GeoSplatTrainTask, "val_render") as val:
+            out = task.run()
+            run_dir = Path(out["output_dir"]).resolve()
+            runs.append(out)
+            # resume from the last checkpoint, as `resume --dir` does, to 6 steps
+            again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
+                                        num_steps=PRODUCT["resume_to"])
+            out2 = again.run(resume_dir=run_dir)
+            runs.append(out2)
+        launches = {k: kernels.launches[k] for k in kernels.KERNELS}
+        log = (run_dir / "log.txt").read_text()
+        files = sorted(str(p.relative_to(run_dir)) for p in run_dir.rglob("*") if p.is_file())
+        exported = load_export(run_dir)
+        ckpt = torch.load(run_dir / "ckpts" / f"{PRODUCT['resume_to']}.pt", map_location="cpu")
+
+    # the export against the last checkpoint's parameters, key by key
+    params = params_to_numpy(ckpt["model"])
+    want = {**{k: params[k] for k in ("sdf", "deform", "weights", "cubemap", "exposure")},
+            "ks_enc/planes": params["field"]["planes"],
+            **{f"ks_enc/ks/{k}": v for k, v in params["field"]["ks"].items()},
+            "initial_guess": np.array([-3.0, -3.0], np.float32),
+            "geom_scale": np.asarray(0.8), "resolution": np.asarray(SLICE["grid"]),
+            "min_roughness": np.asarray(0.1), "max_metallic": np.asarray(1.0)}
+
+    def flat(d, prefix=""):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", v
+
+    got = dict(flat(exported))
+    shapes = {k: list(np.shape(v)) for k, v in got.items()}
+    mismatched = sorted(k for k in want if k not in got or not np.array_equal(got[k], want[k]))
+    extra = sorted(set(got) - set(want))
+    val_psnr = [r["val_psnr"] for r in runs]
+    summary = {
+        "scene_seconds": scene_s, "output_files": files,
+        "val_psnr": val_psnr, "loss": [r["loss"] for r in runs],
+        "pair_fill": [r["pair_fill"] for r in runs], "face_fill": [r["face_fill"] for r in runs],
+        "step_seconds": steps.seconds, "val_render_seconds": val.seconds,
+        "export_shapes": shapes,
+        "export_mismatched": mismatched, "export_extra": extra, "launches": launches,
+        "resumed": "resumed from step 4" in log, "log_tail": log.splitlines()[-4:],
+    }
+    phase("product", **summary)
+    need = {"task.py", "export.npz", "log.txt", "ckpts/2.pt", "ckpts/4.pt", "ckpts/6.pt"}
+    if not (all(math.isfinite(v) for v in val_psnr + summary["loss"])
+            and len(steps.seconds) == PRODUCT["resume_to"] and len(val.seconds) == 2
+            and not mismatched and not extra and summary["resumed"]
+            and f"step {PRODUCT['resume_to']}:" in log and need <= set(files)
+            and any(f.startswith("dump/val/") for f in files)
+            and all(launches[k] > 0 for k in kernels.KERNELS)):
+        raise AssertionError(f"the product path failed a check: {summary}")
+    return summary
 
 
 def main() -> int:
@@ -546,6 +729,8 @@ def main() -> int:
           median_face_step_s=sorted(face)[len(face) // 2], card=smi,
           peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
     line = kernel_line(captured, summary, errors)
+    del captured
+    product(device, args.seed, _kernels)
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,259 @@
+"""The stage-1 training task and the shared training loop.
+
+Counterpart of ``geosplatting_tpu/engine/train_task.py`` (``resume``,
+``ResumeTask``, ``_TrainTaskBase.run`` and ``GeoSplatTrainTask``): the loop
+with validation PSNR and image dumps on the val split, ``log.txt`` lines,
+the pair-fill alarm, checkpoints and the export that the next stage loads.
+Each run writes its config as ``task.py`` into its output directory, so
+``resume`` can rebuild it.
+
+Randomness: one ``torch.Generator`` on the task's device, seeded from
+``seed``, builds the model and draws every step's noise. A checkpoint
+(``ckpts/<step>.pt``, ``torch.save``) holds the model's and the
+optimizers' state, the step and the generator's state, so a resumed run
+draws what the uninterrupted run would have drawn.
+
+Options of the JAX task without a meaning in the port yet are left out:
+``backend``, ``tile_capacity`` and ``data_parallel`` (multi-GPU), and
+``dashboard``, ``turntable`` and ``vis_export_every`` (tooling).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from ..data.dataset import Dataset
+from ..graphics import images as gimages
+from ..utils.config import dump_dataclass_as_str, load_dataclass
+from .experiment import Experiment
+from .stage_io import save_export
+
+
+def save_checkpoint(ckpt_dir: Path, step: int, trainer, generator: torch.Generator) -> Path:
+    path = Path(ckpt_dir) / f"{step}.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    opt = trainer.optimizers
+    torch.save({
+        "step": step,
+        "model": trainer.model.state_dict(),
+        "optimizer": opt.adam.state_dict(),
+        "optimizer_count": opt.count,
+        "generator": generator.get_state(),
+    }, path)
+    return path
+
+
+def load_checkpoint(ckpt_dir: Path, trainer, generator: torch.Generator,
+                    step: int | None = None) -> int:
+    """Restore the latest (or the given) checkpoint into ``trainer`` and
+    ``generator``; returns its step."""
+    steps = sorted(int(p.stem) for p in Path(ckpt_dir).glob("*.pt") if p.stem.isdigit())
+    if not steps:
+        raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    step = steps[-1] if step is None else step
+    state = torch.load(Path(ckpt_dir) / f"{step}.pt", map_location="cpu")
+    trainer.model.load_state_dict(state["model"])
+    trainer.optimizers.adam.load_state_dict(state["optimizer"])
+    trainer.optimizers.count = state["optimizer_count"]
+    generator.set_state(state["generator"])
+    return state["step"]
+
+
+def resume(output_dir: Path, step: int | None = None) -> dict:
+    """Continue a run from its output directory: rebuild the task from the
+    dumped ``task.py`` and restore the latest (or given) checkpoint."""
+    output_dir = Path(output_dir)
+    task = load_dataclass(output_dir / "task.py")
+    return task.run(resume_dir=output_dir, resume_step=step)
+
+
+@dataclasses.dataclass
+class ResumeTask:
+    """CLI resume: continue a run from its output directory."""
+
+    dir: Path = Path(".")
+    step: int | None = None
+
+    def run(self) -> dict:
+        return resume(self.dir, self.step)
+
+
+def _psnr(pred: np.ndarray, gt: np.ndarray) -> float:
+    mse = float(np.mean((pred - gt) ** 2))
+    return -10.0 * float(np.log10(max(mse, 1e-12)))
+
+
+@dataclasses.dataclass
+class _TrainTaskBase:
+    """The training loop; subclasses build the model and trainer."""
+
+    dataset_path: Path = Path(".")
+    experiment_name: str = "task"
+    seed: int = 0
+    num_steps: int = 500
+    batch_size: int = 8
+    num_steps_per_save: int = 250
+    num_steps_per_val: int = 100
+    num_val_images: int = 2
+    scale_factor: float | None = None
+    device: str | None = None       # the card unless "cpu"
+
+    # ---- subclass hooks ----------------------------------------------------
+    def build(self, dataset: Dataset, generator: torch.Generator):
+        """-> (model, trainer) on the dataset's device."""
+        raise NotImplementedError
+
+    def step_fn(self, trainer, cams, gt, generator, step: int) -> dict:
+        raise NotImplementedError
+
+    def val_render(self, model, cams) -> torch.Tensor:
+        """-> [B, H, W, 4] premultiplied-sRGB rgba prediction."""
+        raise NotImplementedError
+
+    def export(self, model) -> dict | None:
+        return None
+
+    # ---- the loop ----------------------------------------------------------
+    def run(self, resume_dir: Path | None = None, resume_step: int | None = None) -> dict:
+        device = _kernels.resolve_device(self.device)
+        dataset = Dataset(self.dataset_path, scale_factor=self.scale_factor, device=device)
+        generator = torch.Generator(device=device).manual_seed(self.seed)
+        model, trainer = self.build(dataset, generator)
+
+        if resume_dir is not None:
+            exp = Experiment.attach(Path(resume_dir)).setup()
+        else:
+            exp = Experiment(self.experiment_name).setup()
+        (exp.base_dir / "task.py").write_text(dump_dataclass_as_str(self))
+
+        start_step = 0
+        if resume_dir is not None and exp.ckpt_dir.exists():
+            start_step = load_checkpoint(exp.ckpt_dir, trainer, generator, resume_step)
+            exp.log(f"resumed from step {start_step}")
+
+        it = dataset.iter_batches("train", self.batch_size, seed=self.seed)
+        for _ in range(start_step):  # keep the data order deterministic
+            next(it)
+
+        metrics: dict = {}
+        val_metrics: dict = {}
+        t_start = time.time()
+        for step in range(start_step, self.num_steps):
+            cams, gt, _ = next(it)
+            metrics = self.step_fn(trainer, cams, gt, generator, step)
+            last = step + 1 == self.num_steps
+            if (step + 1) % self.num_steps_per_val == 0 or last:
+                val_metrics = self._validate(model, dataset, exp, step + 1)
+                its = (step + 1 - start_step) / (time.time() - t_start)
+                line = " ".join(f"{k}={float(v):.4g}" for k, v in metrics.items())
+                exp.log(f"step {step + 1}: {line} "
+                        + " ".join(f"{k}={v:.4g}" for k, v in val_metrics.items())
+                        + f" it/s={its:.2f}")
+                # pair_fill >= 1 means the pair budget drops the farthest
+                # Gaussians' pairs; > 0.95 means its headroom is gone
+                fill = float(metrics.get("pair_fill", 0.0))
+                if fill > 0.95:
+                    msg = (f"WARNING step {step + 1}: pair_fill={fill:.3f}"
+                           + (" — pair budget EXCEEDED, farthest gaussians are being dropped"
+                              if fill >= 1.0 else " — pair budget nearly full")
+                           + "; raise pairs_budget (model config)")
+                    exp.log(msg)
+                    print(msg, flush=True)
+            if (step + 1) % self.num_steps_per_save == 0 or last:
+                save_checkpoint(exp.ckpt_dir, step + 1, trainer, generator)
+
+        export = self.export(model)
+        if export is not None:
+            save_export(exp.base_dir / "export.npz", export)
+            exp.log("export written: export.npz")
+        out = {k: float(v) for k, v in metrics.items()}
+        out.update(val_metrics)
+        out["output_dir"] = str(exp.base_dir)
+        return out
+
+    # ---- validation: val-split metrics and image dumps ---------------------
+    def _val_split(self, dataset: Dataset) -> str:
+        for split in ("val", "test"):
+            try:
+                dataset.get_split(split)
+                return split
+            except FileNotFoundError:
+                continue
+        return "train"
+
+    @torch.no_grad()
+    def _validate(self, model, dataset: Dataset, exp: Experiment, step: int) -> dict:
+        split = self._val_split(dataset)
+        cams, images, _ = dataset.get_split(split)
+        n = min(self.num_val_images, len(cams))
+        if n == 0:
+            return {}
+        idx = np.linspace(0, len(cams) - 1, n).astype(np.int64)
+        pred = self.val_render(model, cams[torch.as_tensor(idx, device=cams.device)])
+        pred = pred.cpu().numpy()
+        vals = []
+        for i in range(n):
+            gt = np.asarray(images[idx[i]])
+            p = np.clip(pred[i, ..., :3] + (1 - pred[i, ..., 3:]), 0, 1)
+            g = np.clip(gt[..., :3] * gt[..., 3:] + (1 - gt[..., 3:]), 0, 1)
+            vals.append(_psnr(p, g))
+            exp.dump_image(f"{split}/{step:06d}-{i}.png", p)
+            if step == self.num_steps_per_val:
+                exp.dump_image(f"{split}/gt-{i}.png", g)
+        return {"val_psnr": float(np.mean(vals))}
+
+
+# --- stage 1 ---------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class GeoSplatTrainTask(_TrainTaskBase):
+    """Stage-1 training task (GeoSplatter, GeoSplatTrainer)."""
+
+    experiment_name: str = "geosplat"
+    resolution: int = 96
+    light_resolution: int = 512
+    scene_scale: float = 1.05
+    initial_guess: str = "hybrid"
+    # screen-pair budget: None sizes the buffers to pairs_per_gaussian x N;
+    # presets pass a budget for their shape (watch pair_fill: the loop warns
+    # above 0.95, and overflow drops the farthest Gaussians' pairs first)
+    pairs_budget: int | None = None
+    tile_shape: str = "16"
+    max_render_faces: int = 1 << 18
+
+    def build(self, dataset, generator):
+        from ..models.geosplat import GeoSplatter
+        from ..train.geosplat_trainer import GeoSplatTrainer, GeoSplatTrainerConfig
+
+        model = GeoSplatter(
+            resolution=self.resolution, light_resolution=self.light_resolution,
+            scale=self.scene_scale, initial_guess=self.initial_guess,
+            pairs_budget=self.pairs_budget, tile_shape=self.tile_shape,
+            max_render_faces=self.max_render_faces, generator=generator,
+            device=dataset.device,
+        )
+        trainer = GeoSplatTrainer(
+            GeoSplatTrainerConfig(num_steps=self.num_steps, batch_size=self.batch_size), model)
+        return model, trainer
+
+    def step_fn(self, trainer, cams, gt, generator, step):
+        return trainer.train_step(cams, gt, float(step), sampling=trainer.sampling_at(step),
+                                  generator=generator)
+
+    def val_render(self, model, cams):
+        # the jitter only feeds the smoothness terms, not the image: none is drawn
+        rgba, _, _ = model.render(cams, kd_perturb_std=0.0, ks_perturb_std=0.0,
+                                  quality="exact")
+        rgb = gimages.rgb2srgb(rgba[..., :3].clamp(0, 1)) * rgba[..., 3:]
+        return torch.cat((rgb, rgba[..., 3:]), -1)
+
+    def export(self, model):
+        from ..models.geosplat_mc import export_stage1
+
+        return export_stage1(model)

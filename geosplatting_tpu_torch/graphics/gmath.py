@@ -1,7 +1,8 @@
 """Quaternion and rotation math for the stage-1 path.
 
 Counterpart of ``geosplatting_tpu/graphics/gmath.py`` (only what stage-1
-training calls). Quaternions are wxyz throughout.
+training and its exact-quality validation call). Quaternions are wxyz
+throughout.
 """
 from __future__ import annotations
 
@@ -68,6 +69,16 @@ def rot2quat(rots: torch.Tensor) -> torch.Tensor:
     best = torch.argmax(q_abs, dim=-1)
     idx = best[..., None, None].expand(best.shape + (1, 4))
     return torch.gather(cand, -2, idx)[..., 0, :]
+
+
+def build_tangent_frame(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Branchless orthonormal tangent/bitangent for normal(s) n (Frisvad)."""
+    sign = torch.where(n[..., 2:3] >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + n[..., 2:3])
+    b = n[..., 0:1] * n[..., 1:2] * a
+    t = torch.cat((1.0 + sign * n[..., 0:1] ** 2 * a, sign * b, -sign * n[..., 0:1]), -1)
+    bt = torch.cat((b, sign + n[..., 1:2] ** 2 * a, -n[..., 1:2]), -1)
+    return t, bt
 
 
 def rotation_from_relative_vectors(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:

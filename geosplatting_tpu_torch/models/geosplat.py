@@ -2,10 +2,11 @@
 
 Counterpart of ``geosplatting_tpu/models/geosplat.py`` on the stage-1
 training path: ``tone_naive``, ``MGAdapter``, the ``SharedField`` material
-field (one triplane trunk + MLP heads), ``compact_faces``, face and vertex
-Gaussian sampling, split-sum shading and ``GeoSplatter`` (an ``nn.Module``
-that owns the stage-1 parameters) with ``get_geometry``, ``get_envmap`` and
-the per-camera ``render``.
+field (one triplane trunk + MLP heads), ``export_ks_bundle``,
+``compact_faces``, face and vertex Gaussian sampling, split-sum shading in
+the fast (training) and exact (validation, export) qualities and
+``GeoSplatter`` (an ``nn.Module`` that owns the stage-1 parameters) with
+``get_geometry``, ``get_envmap`` and the per-camera ``render``.
 
 Randomness is explicit: ``render`` takes the jitter noise as a tensor (a
 standard-normal draw, the JAX package's ``geosplat.py:498``) or draws it
@@ -157,6 +158,16 @@ class SharedField(nn.Module):
         return out
 
 
+def export_ks_bundle(field: SharedField) -> dict:
+    """The stage-1 -> stage-2/3 roughness-predictor hand-off: the trunk
+    planes and the ks head, in the JAX package's layout
+    (``{"planes": [3, R, R, C], "ks": {"w0", "w1"}}``)."""
+    return {
+        "planes": field.trunk.planes.detach(),
+        "ks": {name: p.detach() for name, p in field.ks.named_parameters()},
+    }
+
+
 @dataclasses.dataclass
 class RenderableAttrs:
     """Per-Gaussian shading inputs."""
@@ -285,9 +296,15 @@ def shade_colors_splitsum(
     env_mips: list[torch.Tensor],
     min_roughness: float,
     max_metallic: float,
+    env_quality: str = "fast",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-Gaussian split-sum GGX radiance with the analytic FG term and the
-    nearest environment lookup. Returns (colors [N, 3], opacities [N])."""
+    """Per-Gaussian split-sum GGX radiance. ``env_quality="fast"`` (training)
+    takes the analytic FG term and the nearest environment lookup,
+    ``"exact"`` the FG LUT and bilinear / trilinear lookups. Returns
+    (colors [N, 3], opacities [N])."""
+    if env_quality not in ("fast", "exact"):
+        raise ValueError(f"env_quality: {env_quality!r}")
+    fast = env_quality == "fast"
     wo = gmath.safe_normalize(camera_pos - splats.means)
     opacities = torch.sigmoid(splats.opacities[:, 0])
     roughness = attrs.ks[:, 0:1] * (1 - min_roughness) + min_roughness
@@ -295,10 +312,12 @@ def shade_colors_splitsum(
     specular = (1.0 - metallic) * 0.04 + attrs.kd * metallic
     diffuse = attrs.kd * (1.0 - metallic)
     n_dot_v = torch.clamp((attrs.normals * wo).sum(-1, keepdim=True), min=1e-6)
-    fg = cm.fg_analytic(n_dot_v, roughness)
+    fg = cm.fg_analytic(n_dot_v, roughness) if fast else cm.sample_fg_lut(n_dot_v, roughness)
     inv_wi = 2.0 * (wo * attrs.normals).sum(-1, keepdim=True) * attrs.normals - wo
     _, l_spec = cm.sample_splitsum(
-        env_base, env_mips, attrs.normals, inv_wi, roughness, with_diffuse=False
+        env_base, env_mips, attrs.normals, inv_wi, roughness, with_diffuse=False,
+        filter_mode="nearest" if fast else "bilinear",
+        mip_filter="nearest" if fast else "trilinear",
     )
     reflectance = specular * fg[:, 0:1] + fg[:, 1:2]
     return diffuse + l_spec * reflectance, opacities
@@ -317,12 +336,13 @@ def shade_splitsum(
     pairs_per_gaussian: int = 6,
     pairs_budget: int | None = None,
     tile_shape: str = "16",
+    env_quality: str = "fast",
 ) -> tuple[torch.Tensor, dict]:
     """Split-sum shading, antialiased rasterization and naive tone mapping
     for one camera. Returns ([H, W, 4] rgba, {total_pairs, max_pairs})."""
     colors, opacities = shade_colors_splitsum(
         splats, attrs, camera.camera_pos, env_base=env_base, env_mips=env_mips,
-        min_roughness=min_roughness, max_metallic=max_metallic,
+        min_roughness=min_roughness, max_metallic=max_metallic, env_quality=env_quality,
     )
     render, alpha, info = rasterize(
         splats.means, gmath.safe_normalize(splats.quats), torch.exp(splats.scales),
@@ -426,11 +446,12 @@ class GeoSplatter(nn.Module):
             reg = reg + fc.sdf_entropy(self.grid, self.sdf) * sdf_weight
         return out.mesh, reg, out
 
-    def get_envmap(self):
-        """(diffuse base, specular mips, white-balance regularization)."""
+    def get_envmap(self, method: str = "conv"):
+        """(diffuse base, specular mips, white-balance regularization);
+        ``method`` is the specular prefilter's ("conv" or "sampled")."""
         cubemap = self.cubemap
         white_balance_reg = gmath.abs_(cubemap - cubemap.mean(-1, keepdim=True)).mean()
-        base, mips = cm.prefilter_splitsum(cubemap)
+        base, mips = cm.prefilter_splitsum(cubemap, method=method)
         return base, mips, white_balance_reg
 
     def num_field_points(self, mesh: TriangleMesh) -> int:
@@ -447,10 +468,13 @@ class GeoSplatter(nn.Module):
         sampling: str = "face",
         jitter_noise: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
+        quality: str = "fast",
     ) -> tuple[torch.Tensor, torch.Tensor, dict]:
         """Returns (rgba [B, H, W, 4] tone-mapped linear, regularization,
         aux). ``jitter_noise`` is the face-sampling jitter as a standard-
-        normal [F, 3] draw; without it one is drawn from ``generator``."""
+        normal [F, 3] draw; without it one is drawn from ``generator``.
+        ``quality="exact"`` (validation, export) takes the sampled prefilter
+        and the exact split-sum lookups; training keeps "fast"."""
         w = {"sdf": 0.0, "light": 0.0, "kd_grad": 0.0, "ks_grad": 0.0}
         if reg_weights:
             w.update(reg_weights)
@@ -482,7 +506,8 @@ class GeoSplatter(nn.Module):
                     initial_guess=self.initial_guess_bias,
                 )
         with record_function("geosplat.envmap"):
-            base, mips, light_reg = self.get_envmap()
+            base, mips, light_reg = self.get_envmap(
+                method="sampled" if quality == "exact" else "conv")
         exposure = torch.exp(self.exposure[0])
 
         if attrs.kd_jitter is not None:
@@ -501,6 +526,7 @@ class GeoSplatter(nn.Module):
                     min_roughness=self.min_roughness, max_metallic=self.max_metallic,
                     pairs_per_gaussian=self.pairs_per_gaussian,
                     pairs_budget=self.pairs_budget, tile_shape=self.tile_shape,
+                    env_quality=quality,
                 )
             rgbas.append(rgba)
             totals.append(pair_info["total_pairs"])

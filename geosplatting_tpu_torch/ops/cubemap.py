@@ -1,15 +1,24 @@
-"""Cubemap mip chains, the split-sum prefilter and split-sum sampling used
-by stage-1 training.
+"""Cubemap mip chains, the split-sum prefilter and split-sum sampling.
 
 Counterpart of ``geosplatting_tpu/ops/cubemap.py``: ``build_mip_chain``,
-``downsample``, ``diffuse_prefilter``, ``specular_prefilter_conv``,
-``prefilter_splitsum`` (the JAX package's ``method="conv"``, the one
-training uses), ``sample_cubemap``,
-``sample_splitsum`` with the nearest filters over the mip atlas, and
-``fg_analytic``. Cubemaps are [6, R, R, C], faces +x, -x, +y, -y, +z, -z.
+``downsample``, ``diffuse_prefilter``, the two specular prefilters
+(``specular_prefilter_conv``, the blur training uses, and
+``specular_prefilter``, the sampled GGX filter of exact-quality renders),
+``prefilter_splitsum``, ``sample_cubemap``, ``sample_splitsum`` over the mip
+atlas with nearest or bilinear texels and nearest or trilinear mips, and the
+environment BRDF: ``fg_analytic`` for training, ``fg_lut`` /
+``sample_fg_lut`` for exact renders. Cubemaps are [6, R, R, C], faces +x,
+-x, +y, -y, +z, -z.
+
+Defaults differ from the JAX package's where the port's callers rely on
+them: ``prefilter_splitsum`` defaults to ``method="conv"`` and
+``sample_splitsum`` to the nearest filters (the training path); an
+exact-quality render passes ``"sampled"``, ``"bilinear"`` and
+``"trilinear"`` explicitly.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -173,24 +182,109 @@ def specular_prefilter_conv(chain: list[torch.Tensor], roughness: float) -> torc
     return out
 
 
+@functools.lru_cache(maxsize=32)
+def _ggx_sample_pattern(roughness: float, num_samples: int) -> tuple:
+    """Hammersley GGX half-vector pattern around +z: numpy arrays
+    (local_dirs [S, 3] reflected sample directions for n = v = +z,
+    weights [S] = n.l, pdf [S])."""
+    alpha = max(roughness, 1e-3) ** 2
+    i = np.arange(num_samples)
+    u1 = (i + 0.5) / num_samples
+    u2 = _radical_inverse(i)
+    cos_theta = np.sqrt((1.0 - u1) / (1.0 + (alpha * alpha - 1.0) * u1))
+    sin_theta = np.sqrt(np.maximum(1.0 - cos_theta**2, 0.0))
+    phi = 2.0 * np.pi * u2
+    h = np.stack((sin_theta * np.cos(phi), sin_theta * np.sin(phi), cos_theta), -1)
+    v = np.array([0.0, 0.0, 1.0])
+    l = 2 * (h @ v)[:, None] * h - v  # noqa: E741  (reflect v about h)
+    nl = np.maximum(l[:, 2], 0.0)
+    d = _ndf_ggx(alpha * alpha, cos_theta)
+    pdf = d * cos_theta / np.maximum(4.0 * (h @ v), 1e-8)
+    keep = nl > 1e-4
+    return l[keep], nl[keep], np.maximum(pdf[keep], 1e-8)
+
+
+def _radical_inverse(i: np.ndarray) -> np.ndarray:
+    """Van der Corput radical inverse in base 2 (bit reversal of uint32)."""
+    bits = i.astype(np.uint32)
+    bits = (bits << np.uint32(16)) | (bits >> np.uint32(16))
+    for shift, mask in ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F), (8, 0x00FF00FF)):
+        lo, hi = np.uint32(mask), np.uint32(~mask & 0xFFFFFFFF)
+        bits = ((bits & lo) << np.uint32(shift)) | ((bits & hi) >> np.uint32(shift))
+    return bits.astype(np.float64) * 2.3283064365386963e-10
+
+
+def _ndf_ggx(alpha_sqr, cos_theta):
+    c = np.clip(cos_theta, 0.0, 1.0)
+    d = (c * alpha_sqr - c) * c + 1.0
+    return alpha_sqr / (d * d * np.pi)
+
+
+# bounds the [6, R, R, samples, 3] directions and lookups held at once
+_PREFILTER_CHUNK_ELEMS = 1 << 24
+
+
+def specular_prefilter(chain: list[torch.Tensor], roughness: float, *,
+                       num_samples: int = 64) -> torch.Tensor:
+    """Prefilter the environment for one roughness at chain[0]'s resolution:
+    a fixed GGX sample pattern rotated into each output texel's frame, each
+    sample read from the mip whose texel solid angle matches its pdf
+    footprint. Samples are taken in chunks so that at most
+    ``_PREFILTER_CHUNK_ELEMS`` (texel, sample) lookups are live at once."""
+    res = chain[0].shape[1]
+    local, w, pdf = _ggx_sample_pattern(float(roughness), num_samples)
+    omega_p = 4.0 * np.pi / (6 * res * res)
+    omega_s = 1.0 / (num_samples * pdf)
+    mip = np.clip(0.5 * np.log2(omega_s / omega_p), 0.0, len(chain) - 1).round().astype(int)
+
+    dev = chain[0].device
+    dirs = texel_directions(res, dev)
+    t, b = gmath.build_tangent_frame(dirs)
+    local_t = torch.as_tensor(local, dtype=torch.float32, device=dev)
+    w_t = torch.as_tensor(w, dtype=torch.float32, device=dev)
+    step = max(1, _PREFILTER_CHUNK_ELEMS // (6 * res * res))
+    acc = chain[0].new_zeros((6, res, res, chain[0].shape[-1]))
+    for level in range(len(chain)):
+        sel = np.nonzero(mip == level)[0]
+        for s0 in range(0, len(sel), step):
+            idx = torch.as_tensor(sel[s0:s0 + step], device=dev)
+            ls = local_t[idx]
+            d = (t[..., None, :] * ls[:, 0, None] + b[..., None, :] * ls[:, 1, None]
+                 + dirs[..., None, :] * ls[:, 2, None])               # [6, R, R, S, 3]
+            vals = sample_cubemap(chain[level], d)                    # [6, R, R, S, C]
+            acc = acc + (vals * w_t[idx][:, None]).sum(-2)
+    return acc / w_t.sum()
+
+
 def prefilter_splitsum(
     cube: torch.Tensor,
     *,
     min_resolution: int = 16,
     min_roughness: float = 0.08,
     max_roughness: float = 0.5,
+    num_samples: int = 64,
+    method: str = "conv",
 ) -> tuple[torch.Tensor, list[torch.Tensor]]:
     """(diffuse base [6, r, r, 3] at the min resolution, specular mip list
-    from full resolution down to the min resolution), with the blur
-    approximation of the specular lobes."""
+    from full resolution down to the min resolution). ``method="conv"`` is
+    the blur approximation of the specular lobes (training),
+    ``"sampled"`` the sampled GGX filter (exact-quality renders)."""
+    if method not in ("conv", "sampled"):
+        raise ValueError(f"prefilter_splitsum: unknown method {method!r}")
     chain = build_mip_chain(cube, min_resolution)
     n = len(chain)
     base = diffuse_prefilter(chain[-1])
+
+    def spec(ch, rough):
+        if method == "conv":
+            return specular_prefilter_conv(ch, rough)
+        return specular_prefilter(ch, rough, num_samples=num_samples)
+
     mips = []
     for idx in range(n - 1):
         rough = idx / max(n - 2, 1) * (max_roughness - min_roughness) + min_roughness
-        mips.append(specular_prefilter_conv(chain[idx:], rough))
-    mips.append(specular_prefilter_conv(chain[-1:], 1.0))
+        mips.append(spec(chain[idx:], rough))
+    mips.append(spec(chain[-1:], 1.0))
     return base, mips
 
 
@@ -204,10 +298,14 @@ def sample_splitsum(
     min_roughness: float = 0.08,
     max_roughness: float = 0.5,
     with_diffuse: bool = True,
+    filter_mode: str = "nearest",   # 'nearest' | 'bilinear'
+    mip_filter: str = "nearest",    # 'nearest' | 'trilinear'
 ) -> tuple[torch.Tensor | None, torch.Tensor]:
-    """(l_diffuse, l_specular) with nearest texel and nearest mip filters:
-    each element gathers one texel of its own level from the flattened mip
-    atlas."""
+    """(l_diffuse, l_specular): each element gathers the texel(s) of its own
+    mip level(s) from the flattened mip atlas, with the roughness -> mip
+    level map of the JAX package."""
+    if filter_mode not in ("nearest", "bilinear") or mip_filter not in ("nearest", "trilinear"):
+        raise ValueError(f"sample_splitsum: unknown filters {filter_mode!r}, {mip_filter!r}")
     n = len(mips)
     miplevel = torch.where(
         roughness < max_roughness,
@@ -222,15 +320,38 @@ def sample_splitsum(
     res_np = np.asarray([m.shape[1] for m in mips], np.int64)
     offs_np = np.concatenate([[0], np.cumsum(6 * res_np ** 2)[:-1]])
     dev = base.device
-    lvl = torch.round(miplevel).long().clamp(0, n - 1)
-    r = torch.as_tensor(res_np, device=dev)[lvl]
-    off = torch.as_tensor(offs_np, device=dev)[lvl]
-    rf = r.to(torch.float32)
-    fu = (u * 0.5 + 0.5) * rf - 0.5
-    fv = (v * 0.5 + 0.5) * rf - 0.5
-    x0 = torch.minimum(torch.round(fu).long().clamp(min=0), r - 1)
-    y0 = torch.minimum(torch.round(fv).long().clamp(min=0), r - 1)
-    l_spec = gather_rows(atlas, off + (face * r + y0) * r + x0)
+    res_t = torch.as_tensor(res_np, device=dev)
+    offs_t = torch.as_tensor(offs_np, device=dev)
+
+    def at_level(lvl):
+        r = res_t[lvl]
+        off = offs_t[lvl]
+        rf = r.to(torch.float32)
+        fu = (u * 0.5 + 0.5) * rf - 0.5
+        fv = (v * 0.5 + 0.5) * rf - 0.5
+
+        def texel(x, y):
+            return gather_rows(atlas, off + (face * r + y) * r + x)
+
+        if filter_mode == "nearest":
+            x0 = torch.minimum(torch.round(fu).long().clamp(min=0), r - 1)
+            y0 = torch.minimum(torch.round(fv).long().clamp(min=0), r - 1)
+            return texel(x0, y0)
+        x0 = torch.minimum(torch.floor(fu).long().clamp(min=0), r - 1)
+        y0 = torch.minimum(torch.floor(fv).long().clamp(min=0), r - 1)
+        x1 = torch.minimum(x0 + 1, r - 1)
+        y1 = torch.minimum(y0 + 1, r - 1)
+        wx = (fu - x0).clamp(0.0, 1.0)[..., None]
+        wy = (fv - y0).clamp(0.0, 1.0)[..., None]
+        return (texel(x0, y0) * (1 - wx) * (1 - wy) + texel(x1, y0) * wx * (1 - wy)
+                + texel(x0, y1) * (1 - wx) * wy + texel(x1, y1) * wx * wy)
+
+    if mip_filter == "trilinear":
+        lvl0 = torch.floor(miplevel).long().clamp(0, n - 1)
+        frac = (miplevel - lvl0)[..., None]
+        l_spec = at_level(lvl0) * (1 - frac) + at_level((lvl0 + 1).clamp(max=n - 1)) * frac
+    else:
+        l_spec = at_level(torch.round(miplevel).long().clamp(0, n - 1))
     return l_diff, l_spec
 
 
@@ -244,3 +365,56 @@ def fg_analytic(n_dot_v: torch.Tensor, roughness: torch.Tensor) -> torch.Tensor:
     t = r * c0 + c1
     a004 = torch.minimum(t[..., 0:1] * t[..., 0:1], torch.exp2(-9.28 * x)) * t[..., 0:1] + t[..., 1:2]
     return torch.cat((a004 * -1.04 + t[..., 2:3], a004 * 1.04 + t[..., 3:4]), -1)
+
+
+@functools.lru_cache(maxsize=4)
+def fg_lut(resolution: int = 256, num_samples: int = 1024) -> tuple:
+    """([R, R, 2] split-sum BRDF LUT,): rows roughness, columns n.v, each
+    (scale, bias) integrated numerically over a Hammersley GGX pattern with
+    Schlick-GGX visibility (k = alpha / 2), in float64 numpy, stored f32."""
+    nv = (np.arange(resolution) + 0.5) / resolution
+    rough = (np.arange(resolution) + 0.5) / resolution
+    nv_g = np.broadcast_to(nv[None, :], (resolution, resolution))
+    r_g = np.broadcast_to(rough[:, None], (resolution, resolution))
+    a = np.maximum(r_g, 1e-3) ** 2
+    v = np.stack((np.sqrt(np.maximum(1 - nv_g**2, 0.0)), np.zeros_like(nv_g), nv_g), -1)
+    i = np.arange(num_samples)
+    u1 = (i + 0.5) / num_samples
+    u2 = _radical_inverse(i)
+    scale = np.zeros((resolution, resolution))
+    bias = np.zeros((resolution, resolution))
+    for k in range(num_samples):
+        cos_t = np.sqrt((1 - u1[k]) / (1 + (a**2 - 1) * u1[k]))
+        sin_t = np.sqrt(np.maximum(1 - cos_t**2, 0.0))
+        phi = 2 * np.pi * u2[k]
+        h = np.stack((sin_t * np.cos(phi), sin_t * np.sin(phi), cos_t), -1)
+        vh = np.sum(v * h, -1)
+        l = 2 * vh[..., None] * h - v  # noqa: E741
+        nl = np.clip(l[..., 2], 0.0, 1.0)
+        nh = np.clip(h[..., 2], 0.0, 1.0)
+        vh = np.clip(vh, 0.0, 1.0)
+        kk = a / 2.0
+        g = nv_g / (nv_g * (1 - kk) + kk) * (nl / (nl * (1 - kk) + kk))
+        g_vis = np.where(nl > 0, g * vh / np.maximum(nh * nv_g, 1e-8), 0.0)
+        fc = (1 - vh) ** 5
+        scale += (1 - fc) * g_vis
+        bias += fc * g_vis
+    lut = np.stack((scale, bias), -1) / num_samples
+    return (lut.astype(np.float32),)
+
+
+def sample_fg_lut(n_dot_v: torch.Tensor, roughness: torch.Tensor,
+                  resolution: int = 256) -> torch.Tensor:
+    """Bilinear FG LUT lookup: inputs [..., 1] each -> [..., 2]."""
+    (lut_np,) = fg_lut(resolution)
+    lut = torch.as_tensor(lut_np, device=n_dot_v.device)
+    u = n_dot_v[..., 0].clamp(0.0, 1.0) * resolution - 0.5
+    v = roughness[..., 0].clamp(0.0, 1.0) * resolution - 0.5
+    x0 = torch.floor(u).long().clamp(0, resolution - 1)
+    y0 = torch.floor(v).long().clamp(0, resolution - 1)
+    x1 = (x0 + 1).clamp(max=resolution - 1)
+    y1 = (y0 + 1).clamp(max=resolution - 1)
+    wx = (u - x0).clamp(0, 1)[..., None]
+    wy = (v - y0).clamp(0, 1)[..., None]
+    return (lut[y0, x0] * (1 - wx) * (1 - wy) + lut[y0, x1] * wx * (1 - wy)
+            + lut[y1, x0] * (1 - wx) * wy + lut[y1, x1] * wx * wy)

@@ -3,8 +3,9 @@ a dense index-add and a gather whose backward uses it.
 
 Counterpart of ``geosplatting_tpu/ops/segment_rows.py``. The prefix sum
 under ``contiguous_segment_sum`` is the hand-written CUDA kernel K3
-(``csrc/segment_rows.cu``) for a CUDA tensor and ``torch.cumsum`` (its plain
-version) for a CPU tensor.
+(``csrc/segment_rows.cu``, one pass over the data, the same bits from run to
+run) for a CUDA tensor and ``torch.cumsum`` (its plain version) for a CPU
+tensor.
 
 Route taken by the ``gather_rows`` backward: ``index_add_``. The JAX package
 avoided scatter-adds because the TPU serialises them; CUDA float atomics run

@@ -35,7 +35,11 @@ def k3_close(got, x):
     assert bool((err <= 1e-5 * scale + 1e-6).all()), float((err / (scale + 1e-6)).max())
 
 
-@pytest.mark.parametrize("m,c", [(7, 3), (1000, 17), (5000, 1), (4097, 256), (300_000, 10)])
+# (4M, 10): some 4,900 tiles of 824 rows, more than the CTAs resident at
+# once; (1_400_001, 10) ends in a partial tile; (5000, 33) takes more than
+# 48 KB of shared memory
+@pytest.mark.parametrize("m,c", [(7, 3), (1000, 17), (5000, 1), (4097, 256), (300_000, 10),
+                                 (4_000_000, 10), (1_400_001, 10), (5000, 33), (70_000, 256)])
 def test_k3_matches_cumsum(cuda_device, m, c):
     x = torch.randn((m, c), generator=torch.Generator().manual_seed(m), dtype=torch.float32)
     x = x.to(cuda_device)
@@ -45,6 +49,34 @@ def test_k3_matches_cumsum(cuda_device, m, c):
     assert _kernels.launches["k3_cumsum_rows"] == before + 1
     k3_close(got, x)
     k3_close(cumsum_rows_plain(x), x)
+
+
+def test_k3_back_to_back_on_one_stream(cuda_device):
+    """The tiles' flags and the tile counter are zeroed before every launch:
+    calls queued without a synchronisation are all right, and, since each
+    tile sums its carry in a fixed order, a repeated call gives the same
+    bits."""
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn((900_000, 10), generator=g).to(cuda_device)
+    y = torch.randn((900_000, 10), generator=g).to(cuda_device)
+    a = cumsum_rows(x)
+    b = cumsum_rows(y)
+    again = cumsum_rows(x)
+    torch.cuda.synchronize()
+    k3_close(a, x)
+    k3_close(b, y)
+    assert torch.equal(a, again)
+
+
+def test_k3_on_an_unaligned_view(cuda_device):
+    """A contiguous view that starts 40 bytes into its storage is not 16-byte
+    aligned: the kernel stages it with 4-byte loads."""
+    base = torch.randn((100_001, 10), generator=torch.Generator().manual_seed(12))
+    x = base.to(cuda_device)[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    got = cumsum_rows(x)
+    torch.cuda.synchronize()
+    k3_close(got, x)
 
 
 def test_contiguous_segment_sum_on_card(cuda_device):
