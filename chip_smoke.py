@@ -29,15 +29,28 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
    scene of the analytic sphere (800x800 PNGs, 16 train, 2 val, 2 test
    views) is written to a temporary directory, and GeoSplatTrainTask runs
    on it at the slice's width (grid 96, 8 cameras a batch, pairs budget
-   1.4M, light resolution 512): 4 steps with a checkpoint at 2 and at 4 and
-   an exact-quality validation and the export at 4, then a resume to 6
-   steps, then the export read back and held key by key against the last
-   checkpoint's parameters. It prints the validation PSNR, the seconds per
-   step, the validation render's time, the export's keys and shapes, and
-   the kernels' launches in this phase.
+   1.4M, light resolution 512, the SDF started as the slice's sphere): 4
+   steps with a checkpoint at 2 and at 4 and an exact-quality validation
+   and the export at 4, then a resume to 6 steps, then the export read back
+   and held key by key against the last checkpoint's parameters. It prints
+   the validation PSNR, the seconds per step, the validation render's time,
+   the export's keys and shapes, and the kernels' launches in this phase.
+7. stage2: GeoSplatMCTrainTask loads the product phase's run directory and
+   trains on the same scene at the s4r presets' widths (grid 96, scene
+   scale 0.8, 8 cameras a batch, pairs budget 1.6M, 2^17 render faces,
+   8 x 8 Monte-Carlo sample steps with 24-step SDF shadows, denoising, a
+   256 x 512 lat-long light): 2 steps with a checkpoint at each, validation
+   and the export at 2, then a resume to 3 and the export read back and held
+   against the step-3 checkpoint key by key and against its gaussian_mask.
+   Every step's loss and PSNR finite, no non-finite gradient, pair and face
+   fill <= 1. It prints the per-step metrics and seconds, the validation's
+   seconds and PSNR, the live Gaussians, the peak device memory and the
+   kernels' launches in this phase; then every kernel pass is held against
+   its plain version again at the inputs of stage 2's last camera, and its
+   row of the kernels line gains a "stage2" entry measured there.
 The last three lines are the card's name and power limit, the kernels JSON
-line and the result JSON line. Without a CUDA device it exits non-zero
-before printing any result.
+line and the result JSON line; the line before them gives each phase's
+seconds. Without a CUDA device it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
@@ -359,12 +372,14 @@ def write_sphere_scene(root, counts: dict, render_res: int, device) -> None:
 
 class Timed:
     """Wraps a method of a class for the duration of a with-block: each call
-    is synchronised and its host seconds appended to ``seconds``."""
+    is synchronised, its host seconds appended to ``seconds`` and its result
+    to ``outputs``."""
 
     def __init__(self, cls, name):
         self.cls, self.name = cls, name
         self.fn = getattr(cls, name)
         self.seconds = []
+        self.outputs = []
 
     def __enter__(self):
         import torch
@@ -375,6 +390,7 @@ class Timed:
             out = self.fn(*args, **kw)
             torch.cuda.synchronize()
             self.seconds.append(time.perf_counter() - t0)
+            self.outputs.append(out)
             return out
 
         setattr(self.cls, self.name, wrapped)
@@ -510,7 +526,12 @@ def train_slice(device, seed, kernels) -> tuple[dict, dict]:
     return summary, captured
 
 
-def kernel_line(captured, slice_summary, errors) -> dict:
+def measure_kernels(captured, launches: dict, steps: int) -> dict:
+    """Each kernel pass at the inputs of its last call in a run (the last
+    camera's backward): held to its tolerance against its plain version
+    (and K1 and K3 to their own bits on a second run), its launches in that
+    run, its device time, the plain version's, its bound for the work these
+    inputs need and a library yardstick. Raises where a kernel disagrees."""
     import torch
 
     from geosplatting_tpu_torch.ops import rasterize_pairs as rp
@@ -519,8 +540,6 @@ def kernel_line(captured, slice_summary, errors) -> dict:
     (pairs, seg_start, grid, channels, grad_out, _, _, max_pairs, chunks, _, _) = captured["bwd"]
     (k3_in,) = captured["k3"]
     tiles, npx = grid.num_tiles, grid.pixels
-    steps = slice_summary["steps"]
-    launches = slice_summary["launches"]
 
     res = check_passes(pairs, seg_start, grid, channels, chunks, grad_out)
     out, t_final, n_contrib, prod, suffix = res["out"]
@@ -536,14 +555,12 @@ def kernel_line(captured, slice_summary, errors) -> dict:
                     / (torch.cumsum(k3_in.abs().double(), 0) + 1e-6)).max())
     counts = pair_pixel_counts(pairs, seg_start, grid, n_contrib)
     n_chunks = int(chunks.tile_chunk_start[-1])
-    counts.update(chunks=n_chunks, chunk_slots=int(chunks.chunk_tile.shape[0]), kc=chunks.kc)
-    phase("kernels_vs_plain_at_slice", max_abs_err=res["errors"], **res["checks"],
-          k1_bitwise_repeatable=bitwise, k3_rel_to_abs_prefix=k3_rel,
-          k3_bitwise_repeatable=k3_bitwise, **counts,
-          tol={"k1_products": "2e-5 * |x| + 1e-7", "k1_atol": 1e-3, "count_flips": 0.01,
-               "k2_atol": "2e-3 * max|x|", "k2_rtol": 2e-3, "k3_rel": 1e-5})
+    counts.update(chunks=n_chunks, chunk_slots=int(chunks.chunk_tile.shape[0]), kc=chunks.kc,
+                  pairs=int(seg_start[-1]), channels=channels)
+    checks = {**res["checks"], "k1_bitwise_repeatable": bitwise,
+              "k3_rel_to_abs_prefix": k3_rel, "k3_bitwise_repeatable": k3_bitwise}
     if not (res["ok"] and bitwise and k3_bitwise and k3_rel <= 1e-5):
-        raise AssertionError("a kernel disagrees with its plain version at the slice's inputs")
+        raise AssertionError(f"a kernel disagrees with its plain version: {res['errors']} {checks}")
 
     # bytes each pass must move: inputs read once, outputs written once
     f = 4
@@ -555,20 +572,19 @@ def kernel_line(captured, slice_summary, errors) -> dict:
         "k1_chunk_products": (
             lambda: rp.chunk_products(pairs, seg_start, grid, channels, chunks),
             lambda: rp.chunk_products_plain(pairs, seg_start, grid, chunks),
-            pair_bytes + list_bytes + per_chunk, counts["tile_pair_pixels"],
-            "geosplatting_tpu/ops/rasterize_pairs.py:483"),
+            pair_bytes + list_bytes + per_chunk, counts["tile_pair_pixels"]),
         "k1_composite_fwd": (
             lambda: rp.composite_fwd(pairs, seg_start, grid, channels, chunks, prod),
             lambda: rp.composite_fwd_plain(pairs, seg_start, grid, channels),
             pair_bytes + list_bytes + per_chunk + per_tile * (channels + 4),
-            counts["walked_pair_pixels"], "geosplatting_tpu/ops/rasterize_pairs.py:483"),
+            counts["walked_pair_pixels"]),
         "k2_chunk_suffix": (
             lambda: rp.chunk_suffix(pairs, seg_start, grid, channels, chunks, prod, grad_out,
                                     n_contrib),
             lambda: rp.chunk_suffix_plain(pairs, seg_start, grid, channels, chunks, grad_out,
                                           n_contrib),
             pair_bytes + list_bytes + 2 * per_chunk + per_tile * (channels + 3),
-            counts["walked_pair_pixels"], "geosplatting_tpu/ops/rasterize_pairs.py:548"),
+            counts["walked_pair_pixels"]),
         "k2_composite_bwd": (
             lambda: rp.composite_bwd(pairs, seg_start, grid, channels, grad_out, t_final,
                                      n_contrib, max_pairs, chunks, prod, suffix),
@@ -576,51 +592,86 @@ def kernel_line(captured, slice_summary, errors) -> dict:
                                            n_contrib, max_pairs),
             pair_bytes + list_bytes + 2 * per_chunk + per_tile * (channels + 4)
             + max_pairs * (rp.HDR + channels) * f,
-            counts["walked_pair_pixels"], "geosplatting_tpu/ops/rasterize_pairs.py:548"),
+            counts["walked_pair_pixels"]),
     }
-    entries = []
-    for name, (kernel, plain, nbytes, evaluated, replaces) in passes.items():
+    rows = {}
+    for name, (kernel, plain, nbytes, evaluated) in passes.items():
         ops = evaluated * EVAL_OPS + counts["kept_pair_pixels"] * kept_ops(name, channels)
         bound, by = bound_ms(nbytes, ops)
-        src = "rasterize_fwd.cu" if name.startswith("k1") else "rasterize_bwd.cu"
-        entries.append({
-            "name": name, "route": "cuda", "source": f"geosplatting_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": launches[name],
-            "launches_per_step": launches[name] / steps,
+        rows[name] = {
+            "launches": launches[name], "launches_per_step": launches[name] / steps,
             "max_abs_err": res["errors"][name],
-            "max_abs_err_small_scene": errors[name],
             "ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 3),
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "bytes": nbytes, "ops": ops, **counts,
-        })
+        }
     m, c = k3_in.shape
     k3_bound, k3_by = bound_ms(2 * m * c * 4, m * c)
     cumsum = cuda_ms(lambda: torch.cumsum(k3_in, 0), 20)
-    entries.append({
-        "name": "k3_cumsum_rows", "route": "cuda",
-        "source": "geosplatting_tpu_torch/csrc/segment_rows.cu",
-        "replaces": "geosplatting_tpu/ops/segment_rows.py:31",
+    rows["k3_cumsum_rows"] = {
         "launches": launches["k3_cumsum_rows"],
         "launches_per_step": launches["k3_cumsum_rows"] / steps,
         "max_abs_err": float((k3 - torch.cumsum(k3_in, 0)).abs().max()),
-        "max_abs_err_random_1p4m": errors["k3"],
         "shape": [m, c],
         "ms": cuda_ms(lambda: sr.cumsum_rows(k3_in), 20),
         "plain_ms": cumsum,   # the plain version is torch.cumsum itself
         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": cumsum,
-        "yardstick": {"expr": "torch.cumsum(x.t().contiguous(), 1)", "calls": 3,
-                      "ms": cuda_ms(lambda: torch.cumsum(k3_in.t().contiguous(), 1), 20)},
         "bitwise_repeatable": k3_bitwise,
-    })
+    }
+    return {"rows": rows, "checks": checks, "counts": counts}
+
+
+REPLACES = {
+    "k1_chunk_products": "geosplatting_tpu/ops/rasterize_pairs.py:483",
+    "k1_composite_fwd": "geosplatting_tpu/ops/rasterize_pairs.py:483",
+    "k2_chunk_suffix": "geosplatting_tpu/ops/rasterize_pairs.py:548",
+    "k2_composite_bwd": "geosplatting_tpu/ops/rasterize_pairs.py:548",
+    "k3_cumsum_rows": "geosplatting_tpu/ops/segment_rows.py:31",
+}
+SOURCES = {
+    "k1_chunk_products": "rasterize_fwd.cu", "k1_composite_fwd": "rasterize_fwd.cu",
+    "k2_chunk_suffix": "rasterize_bwd.cu", "k2_composite_bwd": "rasterize_bwd.cu",
+    "k3_cumsum_rows": "segment_rows.cu",
+}
+TOLERANCES = {"k1_products": "2e-5 * |x| + 1e-7", "k1_atol": 1e-3, "count_flips": 0.01,
+              "k2_atol": "2e-3 * max|x|", "k2_rtol": 2e-3, "k3_rel": 1e-5}
+
+
+def kernel_line(captured, slice_summary, errors) -> dict:
+    """The kernels line at the slice's inputs (phase 5 of the docstring)."""
+    import torch
+
+    measured = measure_kernels(captured, slice_summary["launches"], slice_summary["steps"])
+    phase("kernels_vs_plain_at_slice", **measured["checks"], **measured["counts"],
+          max_abs_err={k: r["max_abs_err"] for k, r in measured["rows"].items()},
+          tol=TOLERANCES)
+    entries = []
+    for name, row in measured["rows"].items():
+        entry = {"name": name, "route": "cuda",
+                 "source": f"geosplatting_tpu_torch/csrc/{SOURCES[name]}",
+                 "replaces": REPLACES[name], **row}
+        if name == "k3_cumsum_rows":
+            (k3_in,) = captured["k3"]
+            entry["max_abs_err_random_1p4m"] = errors["k3"]
+            entry["yardstick"] = {
+                "expr": "torch.cumsum(x.t().contiguous(), 1)", "calls": 3,
+                "ms": cuda_ms(lambda: torch.cumsum(k3_in.t().contiguous(), 1), 20)}
+        else:
+            entry["max_abs_err_small_scene"] = errors[name]
+        entries.append(entry)
     return {"kernels": entries}
 
 
-PRODUCT = dict(views={"train": 16, "val": 2, "test": 2}, steps=4, save_every=2, resume_to=6)
+# the SDF starts as the slice's sphere: 6 steps carve no surface out of the
+# random init, and stage 2 at the s4r pairs budget needs one (from the
+# random init, 89k scattered faces made 8.8M pairs, 5.5x the budget)
+PRODUCT = dict(views={"train": 16, "val": 2, "test": 2}, steps=4, save_every=2, resume_to=6,
+               sdf_sphere_init=0.45)
 
 
-def product(device, seed, kernels) -> dict:
-    """The stage-1 product path (phase 6 of the docstring). Raises on any
-    failed check."""
+def product(device, seed, kernels, tmp: Path) -> dict:
+    """The stage-1 product path (phase 6 of the docstring) on a scene written
+    under ``tmp``. Raises on any failed check."""
     import dataclasses
 
     import numpy as np
@@ -631,36 +682,35 @@ def product(device, seed, kernels) -> dict:
     from geosplatting_tpu_torch.engine.train_task import GeoSplatTrainTask
     from geosplatting_tpu_torch.utils.config import load_dataclass
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_product_") as tmp:
-        tmp = Path(tmp)
-        t0 = time.perf_counter()
-        write_sphere_scene(tmp / "scene", PRODUCT["views"], 800, device)
-        scene_s = time.perf_counter() - t0
-        task = GeoSplatTrainTask(
-            dataset_path=tmp / "scene", experiment_name="product", seed=seed,
-            num_steps=PRODUCT["steps"], batch_size=SLICE["cameras"],
-            num_steps_per_save=PRODUCT["save_every"], num_steps_per_val=PRODUCT["steps"],
-            num_val_images=2, resolution=SLICE["grid"], light_resolution=512,
-            scene_scale=0.8, pairs_budget=SLICE["pairs_budget"], device=str(device),
-        )
-        runs = []
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        with Timed(GeoSplatTrainTask, "step_fn") as steps, \
-                Timed(GeoSplatTrainTask, "val_render") as val:
-            out = task.run()
-            run_dir = Path(out["output_dir"]).resolve()
-            runs.append(out)
-            # resume from the last checkpoint, as `resume --dir` does, to 6 steps
-            again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
-                                        num_steps=PRODUCT["resume_to"])
-            out2 = again.run(resume_dir=run_dir)
-            runs.append(out2)
-        launches = {k: kernels.launches[k] for k in kernels.KERNELS}
-        log = (run_dir / "log.txt").read_text()
-        files = sorted(str(p.relative_to(run_dir)) for p in run_dir.rglob("*") if p.is_file())
-        exported = load_export(run_dir)
-        ckpt = torch.load(run_dir / "ckpts" / f"{PRODUCT['resume_to']}.pt", map_location="cpu")
+    t0 = time.perf_counter()
+    write_sphere_scene(tmp / "scene", PRODUCT["views"], 800, device)
+    scene_s = time.perf_counter() - t0
+    task = GeoSplatTrainTask(
+        dataset_path=tmp / "scene", experiment_name="product", seed=seed,
+        num_steps=PRODUCT["steps"], batch_size=SLICE["cameras"],
+        num_steps_per_save=PRODUCT["save_every"], num_steps_per_val=PRODUCT["steps"],
+        num_val_images=2, resolution=SLICE["grid"], light_resolution=512,
+        scene_scale=0.8, pairs_budget=SLICE["pairs_budget"], device=str(device),
+        sdf_sphere_init=PRODUCT["sdf_sphere_init"],
+    )
+    runs = []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with Timed(GeoSplatTrainTask, "step_fn") as steps, \
+            Timed(GeoSplatTrainTask, "val_render") as val:
+        out = task.run()
+        run_dir = Path(out["output_dir"]).resolve()
+        runs.append(out)
+        # resume from the last checkpoint, as `resume --dir` does, to 6 steps
+        again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
+                                    num_steps=PRODUCT["resume_to"])
+        out2 = again.run(resume_dir=run_dir)
+        runs.append(out2)
+    launches = {k: kernels.launches[k] for k in kernels.KERNELS}
+    log = (run_dir / "log.txt").read_text()
+    files = sorted(str(p.relative_to(run_dir)) for p in run_dir.rglob("*") if p.is_file())
+    exported = load_export(run_dir)
+    ckpt = torch.load(run_dir / "ckpts" / f"{PRODUCT['resume_to']}.pt", map_location="cpu")
 
     # the export against the last checkpoint's parameters, key by key
     params = params_to_numpy(ckpt["model"])
@@ -691,6 +741,7 @@ def product(device, seed, kernels) -> dict:
         "export_shapes": shapes,
         "export_mismatched": mismatched, "export_extra": extra, "launches": launches,
         "resumed": "resumed from step 4" in log, "log_tail": log.splitlines()[-4:],
+        "run_dir": str(run_dir),
     }
     phase("product", **summary)
     need = {"task.py", "export.npz", "log.txt", "ckpts/2.pt", "ckpts/4.pt", "ckpts/6.pt"}
@@ -702,6 +753,105 @@ def product(device, seed, kernels) -> dict:
             and all(launches[k] > 0 for k in kernels.KERNELS)):
         raise AssertionError(f"the product path failed a check: {summary}")
     return summary
+
+
+STAGE2 = dict(grid=96, scene_scale=0.8, cameras=8, pairs_budget=1_600_000,
+              max_render_faces=1 << 17, num_samples_x=8, shadow_steps=24, denoise=True,
+              latlng=[256, 512], steps=2, resume_to=3)
+
+
+def stage2(device, seed, kernels, scene: Path, load: Path) -> tuple[dict, dict]:
+    """Stage 2 from the product phase's stage-1 run (phase 7 of the
+    docstring). Returns (summary, the last camera's kernel inputs); raises
+    on any failed check."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from geosplatting_tpu_torch.convert import params_to_numpy
+    from geosplatting_tpu_torch.engine.stage_io import load_export
+    from geosplatting_tpu_torch.engine.train_task import GeoSplatMCTrainTask
+    from geosplatting_tpu_torch.ops import rasterize_pairs as rp
+    from geosplatting_tpu_torch.ops import segment_rows as sr
+    from geosplatting_tpu_torch.utils.config import load_dataclass
+
+    task = GeoSplatMCTrainTask(
+        dataset_path=scene, experiment_name="stage2", load=load, seed=seed,
+        num_steps=STAGE2["steps"], batch_size=STAGE2["cameras"], num_steps_per_save=1,
+        num_steps_per_val=STAGE2["steps"], num_val_images=2, resolution=STAGE2["grid"],
+        scene_scale=STAGE2["scene_scale"], num_samples_x=STAGE2["num_samples_x"],
+        pairs_budget=STAGE2["pairs_budget"], max_render_faces=STAGE2["max_render_faces"],
+        device=str(device),
+    )
+    runs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with Timed(GeoSplatMCTrainTask, "step_fn") as steps, \
+            Timed(GeoSplatMCTrainTask, "val_render") as val, \
+            Recorder(rp, "composite_bwd") as bwd, Recorder(sr, "cumsum_rows") as k3:
+        out = task.run()
+        run_dir = Path(out["output_dir"]).resolve()
+        runs.append(out)
+        again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
+                                    num_steps=STAGE2["resume_to"])
+        runs.append(again.run(resume_dir=run_dir))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: kernels.launches[k] for k in kernels.KERNELS}
+    log = (run_dir / "log.txt").read_text()
+    exported = load_export(run_dir)
+    ckpt = torch.load(run_dir / "ckpts" / f"{STAGE2['resume_to']}.pt", map_location="cpu")
+
+    # the export against the last checkpoint's parameters, key by key, and
+    # its per-Gaussian arrays against gaussian_mask
+    params = params_to_numpy(ckpt["model"])
+    want = {k: params[k] for k in ("sdf", "deform", "latlng", "exposure")}
+    want["ks_enc/planes"] = want["occ_enc/planes"] = params["field"]["planes"]
+    for head in ("ks", "occ"):
+        want.update({f"{head}_enc/{head}/{k}": v for k, v in params["field"][head].items()})
+
+    def leaf(key):
+        node = exported
+        for part in key.split("/"):
+            node = node[part]
+        return node
+
+    mismatched = sorted(k for k in want if not np.array_equal(leaf(k), want[k]))
+    mask = exported["gaussian_mask"]
+    live = int(mask.sum())
+    per_gaussian = ("means", "scales", "quats", "opacities", "normals", "kd", "ks", "occ",
+                    "mc_positions")
+    mask_ok = bool(mask.shape[0] % 4096 == 0 and mask[:live].all() and not mask[live:].any()
+                   and all(exported[k].shape[0] == mask.shape[0] for k in per_gaussian)
+                   and (exported["opacities"][live:] == -10).all()
+                   and np.isfinite(np.concatenate([exported[k][:live].reshape(live, -1)
+                                                   for k in per_gaussian], 1)).all())
+    per_step = [{k: float(m[k]) for k in ("loss", "nonfinite_grads", "splat_psnr", "pair_fill",
+                                           "face_fill", "num_gaussians", "reg")}
+                for m in steps.outputs]
+    val_psnr = [r["val_psnr"] for r in runs]
+    summary = {
+        "config": STAGE2, "steps": per_step, "step_seconds": steps.seconds,
+        "val_render_seconds": val.seconds, "val_psnr": val_psnr,
+        "live_gaussians": per_step[-1]["num_gaussians"],
+        "export_live_gaussians": live, "export_rows": int(mask.shape[0]),
+        "export_mismatched": mismatched, "export_mask_ok": mask_ok,
+        "peak_memory_gib": peak_gib, "launches": launches,
+        "resumed": f"resumed from step {STAGE2['steps']}" in log,
+        "log_tail": log.splitlines()[-3:],
+    }
+    phase("stage2", **summary)
+    finite = all(math.isfinite(v) for v in val_psnr
+                 + [m[k] for m in per_step for k in ("loss", "splat_psnr", "reg")])
+    if not (finite and len(per_step) == STAGE2["resume_to"] and len(val.seconds) == 2
+            and all(m["nonfinite_grads"] == 0 for m in per_step)
+            and all(m["pair_fill"] <= 1.0 and m["face_fill"] <= 1.0 for m in per_step)
+            and summary["resumed"] and f"step {STAGE2['resume_to']}:" in log
+            and not mismatched and mask_ok and live > 0
+            and all(launches[k] > 0 for k in kernels.KERNELS)):
+        raise AssertionError(f"stage 2 failed a check: {summary}")
+    return summary, {"bwd": bwd.args, "k3": k3.args}
 
 
 def main() -> int:
@@ -719,18 +869,46 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
+    start = t0 = time.perf_counter()
+    seconds = {}
     smi = toolchain(_kernels)
+    seconds["toolchain"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(args.seed)
     errors = {"k3": check_k3(device, gen)["max_abs_err"], **check_k1_k2(device, gen)}
     check_render_card_vs_cpu(device, args.seed)
+    seconds["kernel_checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     summary, captured = train_slice(device, args.seed, _kernels)
     face = summary["face_step_seconds"]
     phase("slice", launches=summary["launches"], face_step_seconds=face,
           median_face_step_s=sorted(face)[len(face) // 2], card=smi,
           peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    seconds["slice"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     line = kernel_line(captured, summary, errors)
     del captured
-    product(device, args.seed, _kernels)
+    seconds["kernels_line"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scene_") as tmp:
+        t0 = time.perf_counter()
+        prod = product(device, args.seed, _kernels, Path(tmp))
+        seconds["product"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        s2, captured = stage2(device, args.seed, _kernels, Path(tmp) / "scene",
+                              Path(prod["run_dir"]))
+        seconds["stage2"] = time.perf_counter() - t0
+    # the kernels held to their plain versions again, at stage 2's inputs
+    t0 = time.perf_counter()
+    measured = measure_kernels(captured, s2["launches"], len(s2["steps"]))
+    del captured
+    phase("kernels_vs_plain_at_stage2", **measured["checks"], **measured["counts"],
+          max_abs_err={k: r["max_abs_err"] for k, r in measured["rows"].items()},
+          tol=TOLERANCES)
+    for entry in line["kernels"]:
+        entry["stage2"] = measured["rows"][entry["name"]]
+    seconds["kernels_stage2"] = time.perf_counter() - t0
+    phase("phase_seconds", **seconds, total=time.perf_counter() - start)
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""The stage-1 training task and the shared training loop.
+"""The stage-1 and stage-2 training tasks and the shared training loop.
 
 Counterpart of ``geosplatting_tpu/engine/train_task.py`` (``resume``,
-``ResumeTask``, ``_TrainTaskBase.run`` and ``GeoSplatTrainTask``): the loop
+``ResumeTask``, ``_TrainTaskBase.run``, ``GeoSplatTrainTask`` and
+``GeoSplatMCTrainTask``): the loop
 with validation PSNR and image dumps on the val split, ``log.txt`` lines,
 the pair-fill alarm, checkpoints and the export that the next stage loads.
 Each run writes its config as ``task.py`` into its output directory, so
@@ -13,9 +14,10 @@ Randomness: one ``torch.Generator`` on the task's device, seeded from
 optimizers' state, the step and the generator's state, so a resumed run
 draws what the uninterrupted run would have drawn.
 
-Options of the JAX task without a meaning in the port yet are left out:
+Options of the JAX tasks without a meaning in the port yet are left out:
 ``backend``, ``tile_capacity`` and ``data_parallel`` (multi-GPU), and
-``dashboard``, ``turntable`` and ``vis_export_every`` (tooling).
+``dashboard``, ``turntable`` and ``vis_export_every`` (tooling). One option
+the JAX task lacks: ``GeoSplatTrainTask.sdf_sphere_init`` (default off).
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ from ..data.dataset import Dataset
 from ..graphics import images as gimages
 from ..utils.config import dump_dataclass_as_str, load_dataclass
 from .experiment import Experiment
-from .stage_io import save_export
+from .stage_io import find_export, load_export, save_export
 
 
 def save_checkpoint(ckpt_dir: Path, step: int, trainer, generator: torch.Generator) -> Path:
@@ -226,6 +228,10 @@ class GeoSplatTrainTask(_TrainTaskBase):
     pairs_budget: int | None = None
     tile_shape: str = "16"
     max_render_faces: int = 1 << 18
+    # None: the JAX task's random SDF init; a radius r: the SDF of a centred
+    # sphere, |x| - r (the init of bench.py's stage-1 workload), for runs
+    # too short to carve a surface out of the random one
+    sdf_sphere_init: float | None = None
 
     def build(self, dataset, generator):
         from ..models.geosplat import GeoSplatter
@@ -238,6 +244,10 @@ class GeoSplatTrainTask(_TrainTaskBase):
             max_render_faces=self.max_render_faces, generator=generator,
             device=dataset.device,
         )
+        if self.sdf_sphere_init is not None:
+            with torch.no_grad():
+                radius = torch.linalg.norm(model.grid.base_vertices(model.device), dim=-1)
+                model.sdf.copy_(radius - self.sdf_sphere_init)
         trainer = GeoSplatTrainer(
             GeoSplatTrainerConfig(num_steps=self.num_steps, batch_size=self.batch_size), model)
         return model, trainer
@@ -257,3 +267,70 @@ class GeoSplatTrainTask(_TrainTaskBase):
         from ..models.geosplat_mc import export_stage1
 
         return export_stage1(model)
+
+
+# --- stage 2 ---------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class GeoSplatMCTrainTask(_TrainTaskBase):
+    """Stage-2 training task (GeoSplatterMC, GeoSplatMCTrainer). ``load`` is
+    the stage-1 run directory (or its export file); the model starts from
+    that export, and a resumed run from its own checkpoint."""
+
+    experiment_name: str = "geosplat-mc"
+    num_steps_per_val: int = 100
+    resolution: int = 96
+    scene_scale: float = 1.05
+    initial_guess: str = "hybrid"
+    num_samples_x: int = 8
+    pairs_budget: int | None = None   # see GeoSplatTrainTask.pairs_budget
+    tile_shape: str = "16"
+    max_render_faces: int = 1 << 18
+    load: Path | None = None
+
+    def build(self, dataset, generator):
+        from ..models.geosplat_mc import GeoSplatterMC
+        from ..train.geosplat_mc_trainer import GeoSplatMCTrainer, GeoSplatMCTrainerConfig
+
+        if self.load is None:
+            raise ValueError("stage-2 requires --load <stage-1 output dir>")
+        export = load_export(find_export(self.load))
+        # the trunk is sized by the stage-1 planes it inherits (without them
+        # init_from_stage1 names the layout mismatch)
+        bundle = export["ks_enc"]
+        planes = np.shape(bundle["planes"]) if "planes" in bundle else (3, 512, 512, 32)
+        model = GeoSplatterMC(
+            resolution=self.resolution, scale=self.scene_scale,
+            initial_guess=self.initial_guess, num_samples_x=self.num_samples_x,
+            pairs_budget=self.pairs_budget, tile_shape=self.tile_shape,
+            max_render_faces=self.max_render_faces, triplane_resolution=planes[1],
+            triplane_components=planes[-1], generator=generator, device=dataset.device,
+        )
+        model.init_from_stage1(export)
+        trainer = GeoSplatMCTrainer(
+            GeoSplatMCTrainerConfig(num_steps=self.num_steps, batch_size=self.batch_size), model)
+        return model, trainer
+
+    def step_fn(self, trainer, cams, gt, generator, step):
+        return trainer.train_step(cams, gt, float(step), generator=generator)
+
+    def val_render(self, model, cams):
+        # the validation's own draws, the same at every validation: it leaves
+        # the training generator (and so a resumed run) untouched
+        generator = torch.Generator(device=cams.device).manual_seed(self.seed)
+        rgba, _, _ = model.render(cams, kd_perturb_std=0.0, ks_perturb_std=0.0,
+                                  generator=generator)
+        rgb = gimages.rgb2srgb(rgba[..., :3].clamp(0, 1)) * rgba[..., 3:]
+        return torch.cat((rgb, rgba[..., 3:]), -1)
+
+    def export(self, model):
+        from ..models.geosplat_mc import compact_export
+
+        out = compact_export(model.export_model())
+        # the JAX task computes its export in one jitted program, which
+        # returns the scalars as float32 / int32 arrays: so does this file
+        for k in ("geom_scale", "min_roughness", "max_metallic"):
+            out[k] = np.float32(out[k])
+        out["resolution"] = np.int32(out["resolution"])
+        return out

@@ -130,10 +130,11 @@ class MGAdapter:
 
 class SharedField(nn.Module):
     """One triplane trunk + small MLP heads (kd: sigmoid RGB, ks: raw
-    roughness/metallic, z: raw normal offset), evaluated per face."""
+    roughness/metallic, z: raw normal offset, and with ``with_occ`` the
+    stage-2 occ head: 6 raw residual-light channels), evaluated per face."""
 
     def __init__(self, *, resolution: int = 512, num_components: int = 32,
-                 init_scale: float = 0.03, hidden: int = 64,
+                 init_scale: float = 0.03, hidden: int = 64, with_occ: bool = False,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
         kw = dict(generator=generator, device=device)
@@ -141,6 +142,21 @@ class SharedField(nn.Module):
         self.kd = MLP((num_components, hidden, 3), activation="sigmoid", **kw)
         self.ks = MLP((num_components, hidden, 2), **kw)
         self.z = MLP((num_components, hidden, 1), **kw)
+        # drawn after the stage-1 heads: a stage-1 field's draws are unchanged
+        self.occ = MLP((num_components, hidden, 6), **kw) if with_occ else None
+
+    def param_groups(self) -> dict[str, list[nn.Parameter]]:
+        """Optimizer groups of the JAX package's ``field_group_names`` order:
+        kd, ks, z, planes, then occ."""
+        groups = {
+            "kd": list(self.kd.parameters()),
+            "ks": list(self.ks.parameters()),
+            "z": list(self.z.parameters()),
+            "planes": [self.trunk.planes],
+        }
+        if self.occ is not None:
+            groups["occ"] = list(self.occ.parameters())
+        return groups
 
     def apply_all(self, x: torch.Tensor, x_jitter: torch.Tensor | None = None) -> dict:
         """Every head at positions ``x`` [P, 3] in [-1, 1]. The z head sees a
@@ -151,6 +167,8 @@ class SharedField(nn.Module):
             "ks_raw": self.ks(feats),
             "z_raw": self.z(self.trunk(x.detach())),
         }
+        if self.occ is not None:
+            out["occ_raw"] = self.occ(feats)
         if x_jitter is not None:
             feats_j = self.trunk(x_jitter)
             out["kd_jitter"] = self.kd(feats_j)
@@ -175,6 +193,7 @@ class RenderableAttrs:
     kd: torch.Tensor                          # [N, 3]
     ks: torch.Tensor                          # [N, 2] (roughness, metallic) pre-remap
     normals: torch.Tensor                     # [N, 3]
+    occ: torch.Tensor | None = None           # [N, 6] raw, stage 2
     kd_jitter: torch.Tensor | None = None
     ks_jitter: torch.Tensor | None = None
 
@@ -228,6 +247,7 @@ def get_gaussians_from_face(
         kd=expand(res["kd"]),
         ks=torch.sigmoid(expand(res["ks_raw"]) + initial_guess),
         normals=splats.colors,
+        occ=expand(res["occ_raw"]) if "occ_raw" in res else None,
         kd_jitter=expand(res["kd_jitter"]) if "kd_jitter" in res and kd_perturb_std > 0 else None,
         ks_jitter=(
             torch.sigmoid(expand(res["ks_jitter_raw"]) + initial_guess)

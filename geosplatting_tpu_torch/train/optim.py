@@ -5,7 +5,7 @@ Counterpart of ``geosplatting_tpu/train/optim.py`` (``make_schedule``,
 param group whose ``lr`` is set from the schedule before every update,
 counted from 0 per update as ``optax.scale_by_schedule`` counts; Adam's
 update mu_hat / (sqrt(nu_hat) + eps) is optax's ``scale_by_adam``.
-Densification state surgery is not ported yet.
+The cosine schedule and densification state surgery are not ported yet.
 """
 from __future__ import annotations
 
@@ -17,16 +17,23 @@ import numpy as np
 import torch
 
 
-def make_schedule(lr: float, *, lr_decay: int | None = None) -> Callable[[int], float]:
-    """Exponential half-life decay of ``lr`` over ``lr_decay`` steps (constant
-    without it), evaluated in float32 like the JAX package's "exp" schedule."""
+def make_schedule(lr: float, *, lr_decay: int | None = None,
+                  warm_up: int | None = None) -> Callable[[int], float]:
+    """The JAX package's "exp" schedule in float32: a quadratic ramp
+    (step / warm_up)^2 up to ``warm_up`` steps, then an exponential
+    half-life decay over ``lr_decay`` steps counted from ``warm_up``
+    (constant without ``lr_decay``)."""
     f32 = np.float32
 
     def exp_decay(step: int) -> float:
+        s = f32(step)
+        if warm_up is not None and s < warm_up:
+            return float(f32(lr) * (s / f32(warm_up)) ** 2)
         if lr_decay is None:
             return float(f32(lr))
         lam = f32(math.log(2.0) / lr_decay)
-        return float(f32(lr) * np.exp(-lam * f32(step), dtype=f32))
+        off = f32(0.0 if warm_up is None else warm_up)
+        return float(f32(lr) * np.exp(-lam * np.maximum(s - off, f32(0.0)), dtype=f32))
 
     return exp_decay
 
@@ -36,9 +43,10 @@ class OptimizerSpec:
     lr: float
     eps: float = 1e-15
     lr_decay: int | None = None
+    warm_up: int | None = None
 
     def schedule(self) -> Callable[[int], float]:
-        return make_schedule(self.lr, lr_decay=self.lr_decay)
+        return make_schedule(self.lr, lr_decay=self.lr_decay, warm_up=self.warm_up)
 
 
 class GroupOptimizers:

@@ -244,3 +244,105 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda_device):
     x = torch.randn((10, 3), device=cuda_device, dtype=torch.float64)
     with pytest.raises(ValueError):
         cumsum_rows(x)  # f64 on the card: no kernel, so it raises
+
+
+# --- stage 2 on the card against the CPU path -------------------------------------
+
+
+def close_card_cpu(got, want):
+    """The rule of test_rasterize_gradients_card_vs_cpu: the two devices
+    round differently (and a nearest-texel lookup or a transmittance cutoff
+    may flip), so < 3% of entries off by more than 5e-3 + 5e-3 |x| and a
+    cosine > 0.999."""
+    assert np.isfinite(got).all()
+    assert (np.abs(got - want) > 5e-3 + 5e-3 * np.abs(want)).mean() < 0.03
+    got, want = got.astype(np.float64), want.astype(np.float64)
+    cos = (got * want).sum() / max(np.linalg.norm(got) * np.linalg.norm(want), 1e-300)
+    assert cos > 0.999, cos
+
+
+def test_env_shade_card_vs_cpu(cuda_device):
+    """env_shade with SDF shadows, values and gradients, from the same
+    draws on both devices."""
+    from geosplatting_tpu_torch.ops import envshade as es
+    from geosplatting_tpu_torch.ops.sdf_visibility import make_sdf_visibility
+
+    g = torch.Generator().manual_seed(0)
+    num = 3000
+    d = torch.nn.functional.normalize(torch.randn((num, 3), generator=g), dim=-1)
+    pos = d * (0.36 + 0.2 * torch.rand((num, 1), generator=g))
+    view = torch.tensor([0.3, 0.6, 2.8])
+    nrm = torch.nn.functional.normalize(0.3 * d + torch.nn.functional.normalize(view - pos, dim=-1),
+                                        dim=-1)
+    kd = 0.2 + 0.6 * torch.rand((num, 3), generator=g)
+    arm = torch.stack((torch.zeros(num), 0.3 + 0.6 * torch.rand(num, generator=g),
+                       0.05 + 0.75 * torch.rand(num, generator=g)), -1)
+    i, j = torch.meshgrid(torch.arange(32.0), torch.arange(64.0), indexing="ij")
+    light = (0.3 + 0.2 * torch.sin(i / 10) * torch.cos(j / 9))[..., None] + torch.tensor(
+        [0.0, 0.07, 0.14])
+    r = torch.linspace(-1, 1, 17)
+    z, y, x = torch.meshgrid(r, r, r, indexing="ij")
+    sdf = (torch.sqrt(x * x + y * y + z * z) - 0.31).reshape(-1)
+    draws = es.draw_shade(num, num_samples_x=4, generator=g)
+    wts = [torch.randn(s, generator=g) for s in ((num, 3), (num, 3), (num, 2))]
+    outs, grads = [], []
+    for dev in ("cpu", cuda_device):
+        leaves = [v.detach().to(dev).requires_grad_() for v in (pos, nrm, kd, arm, light)]
+        vis = make_sdf_visibility(sdf.to(dev), (16, 16, 16), 1.0, num_steps=24)
+        out = es.env_shade(leaves[0], leaves[1], view.to(dev), leaves[2], leaves[3],
+                           es.compute_light_pdf(leaves[4]), draws.to(dev), visibility_fn=vis)
+        sum((o * w.to(dev)).sum() for o, w in zip(out, wts)).backward()
+        outs.append([n(o) for o in out])
+        grads.append([n(v.grad) for v in leaves])
+    assert outs[0][2].max() > 1e-3  # some samples are shadowed
+    for got, want in zip(outs[1] + grads[1], outs[0] + grads[0]):
+        close_card_cpu(got, want)
+
+
+def test_stage2_step_card_vs_cpu(cuda_device):
+    """One GeoSplatMCTrainer step at a small size on the card (kernels) and
+    on the CPU (plain versions) from the same weights and draws."""
+    from geosplatting_tpu_torch.models.geosplat import GeoSplatter
+    from geosplatting_tpu_torch.models.geosplat_mc import GeoSplatterMC, export_stage1
+    from geosplatting_tpu_torch.train.geosplat_mc_trainer import (
+        GeoSplatMCTrainer, GeoSplatMCTrainerConfig,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    s1 = GeoSplatter(resolution=12, light_resolution=16, scale=1.0, triplane_resolution=32,
+                     generator=gen, device="cpu")
+    with torch.no_grad():
+        s1.sdf.copy_(torch.linalg.norm(s1.grid.base_vertices() - 0.03, dim=-1) - 0.45)
+        s1.deform.copy_(torch.randn(s1.deform.shape, generator=gen) * 0.1)
+        s1.weights.copy_(torch.randn(s1.weights.shape, generator=gen) * 0.1)
+    export = export_stage1(s1)
+    cams = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=2.0, elevation_degrees=20.0,
+                              num_samples=2, width=64, height=64, device="cpu")
+    origins, dirs = cams.generate_rays()
+    b = (origins * dirs).sum(-1)
+    hit = (b * b - ((origins * origins).sum(-1) - 0.25) > 0)[..., None].float()
+    gt = torch.cat((hit * 0.6 * torch.ones(3), hit), -1)
+    kw = dict(resolution=12, scale=1.0, num_samples_x=2, max_render_faces=2048,
+              triplane_resolution=32)
+    model = GeoSplatterMC(generator=gen, device="cpu", **kw)
+    model.init_from_stage1(export)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    bg = torch.rand(gt[..., :3].shape, generator=gen)
+    noise = torch.randn((model.num_field_points(), 3), generator=gen)
+    draws = [model.draw_shade(gen) for _ in range(2)]
+    metrics, grads = [], []
+    for dev in ("cpu", cuda_device):
+        m = GeoSplatterMC(device=dev, **kw)
+        m.load_state_dict(state)
+        trainer = GeoSplatMCTrainer(GeoSplatMCTrainerConfig(batch_size=2), m)
+        _kernels.reset_launches()
+        out = trainer.train_step(cams.to(dev), gt.to(dev), 60.0, background=bg.to(dev),
+                                 jitter_noise=noise.to(dev), draws=[d.to(dev) for d in draws])
+        metrics.append({k: float(v) for k, v in out.items()})
+        grads.append({k: n(p.grad) for k, p in m.named_parameters()})
+    assert all(_kernels.launches[k] > 0 for k in _kernels.KERNELS)
+    assert metrics[1]["nonfinite_grads"] == 0 and metrics[1]["num_gaussians"] > 0
+    for k in ("loss", "reg", "pair_fill", "exposure"):
+        np.testing.assert_allclose(metrics[1][k], metrics[0][k], rtol=1e-3, err_msg=k)
+    for k, want in grads[0].items():
+        close_card_cpu(grads[1][k], want)

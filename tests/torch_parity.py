@@ -46,3 +46,65 @@ def cameras_from_jax(cams):
         c2w=t(cams.c2w), fx=t(cams.fx), fy=t(cams.fy), cx=t(cams.cx), cy=t(cams.cy),
         width=cams.width, height=cams.height, near=cams.near, far=cams.far,
     )
+
+
+# --- injected draws of the stage-2 path -------------------------------------------
+# The port's stage 2 takes its random numbers as tensors; these helpers replay
+# the JAX package's key splits (geosplat_mc.py:167, :303-306, envshade.py:314-318,
+# :374-388, geosplat_mc_trainer.py:217-221) into numpy arrays in the port's
+# layout, so both packages see the same draws. JAX is imported here, not at
+# the top: the card-only tests import this file where there is no JAX.
+
+
+def jax_shade_draws(key, num_points: int, num_samples_x: int, light_bank: int = 2048) -> dict:
+    """``env_shade``'s draws from ``key``: the bank's uniform jitter ``ub``,
+    ``vb`` [m*m], and per step the bank entries ``bidx`` [S, N] and the BSDF
+    sample's uniforms ``u`` [S, N, 3]."""
+    import jax
+
+    kb, key = jax.random.split(key)
+    m2 = int(round(light_bank ** 0.5)) ** 2
+
+    def step(sk):
+        k1, _, k3, _ = jax.random.split(sk, 4)
+        return (jax.random.randint(k1, (num_points,), 0, m2),
+                jax.random.uniform(k3, (num_points, 3)))
+
+    bidx, u = jax.vmap(step)(jax.random.split(key, num_samples_x * num_samples_x))
+    return {"ub": np.asarray(jax.random.uniform(kb, (m2,))),
+            "vb": np.asarray(jax.random.uniform(jax.random.fold_in(kb, 1), (m2,))),
+            "bidx": np.asarray(bidx), "u": np.asarray(u)}
+
+
+def jax_render_draws(key, num_faces: int, num_points: int, num_cameras: int,
+                     num_samples_x: int, shade_keys=None) -> tuple[np.ndarray, list[dict]]:
+    """``GeoSplatterMC.render``'s draws from ``key``: the face jitter noise
+    [F, 3] and one ``jax_shade_draws`` per camera (from ``shade_keys`` when
+    given, as the trainer passes them)."""
+    import jax
+
+    k_field, k_shade = jax.random.split(key)
+    jitter = np.asarray(jax.random.normal(k_field, (num_faces, 3)))
+    keys = shade_keys if shade_keys is not None else jax.random.split(k_shade, num_cameras)
+    return jitter, [jax_shade_draws(k, num_points, num_samples_x) for k in keys]
+
+
+def jax_step_draws(key, gt_shape, num_faces: int, num_points: int, num_samples_x: int) -> dict:
+    """A stage-2 trainer step's draws from ``key``: the per-pixel
+    background, the render key, the per-camera shade keys, the jitter noise
+    and each camera's shade draws."""
+    import jax
+
+    k_render, k_bg = jax.random.split(key)
+    shade_keys = jax.random.split(jax.random.fold_in(k_render, 1), gt_shape[0])
+    jitter, draws = jax_render_draws(k_render, num_faces, num_points, gt_shape[0],
+                                     num_samples_x, shade_keys=shade_keys)
+    return {"background": np.asarray(jax.random.uniform(k_bg, tuple(gt_shape[:-1]) + (3,))),
+            "k_render": k_render, "shade_keys": shade_keys, "jitter": jitter, "draws": draws}
+
+
+def shade_draws(d: dict):
+    """``jax_shade_draws`` output -> the port's ``ShadeDraws`` (CPU)."""
+    from geosplatting_tpu_torch.ops.envshade import ShadeDraws
+
+    return ShadeDraws(ub=t(d["ub"]), vb=t(d["vb"]), bidx=t(d["bidx"], torch.int64), u=t(d["u"]))
