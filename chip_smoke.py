@@ -39,15 +39,35 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
    trains on the same scene at the s4r presets' widths (grid 96, scene
    scale 0.8, 8 cameras a batch, pairs budget 1.6M, 2^17 render faces,
    8 x 8 Monte-Carlo sample steps with 24-step SDF shadows, denoising, a
-   256 x 512 lat-long light): 2 steps with a checkpoint at each, validation
-   and the export at 2, then a resume to 3 and the export read back and held
-   against the step-3 checkpoint key by key and against its gaussian_mask.
+   256 x 512 lat-long light): 1 step with a checkpoint, validation and the
+   export, then a resume to 2 and the export read back and held against the
+   step-2 checkpoint key by key and against its gaussian_mask.
    Every step's loss and PSNR finite, no non-finite gradient, pair and face
    fill <= 1. It prints the per-step metrics and seconds, the validation's
    seconds and PSNR, the live Gaussians, the peak device memory and the
    kernels' launches in this phase; then every kernel pass is held against
    its plain version again at the inputs of stage 2's last camera, and its
    row of the kernels line gains a "stage2" entry measured there.
+8. chain: the four commands of eval.sh through the tasks their CLIs build,
+   on a Syn4Relight-layout scene written to a temporary directory
+   (write_s4r_scene: a Lambertian sphere under constant environments, so
+   every frame is a closed form; 800x800, 16 HDR train frames with masks, 2
+   test views with albedo, roughness and frames relit under two
+   environments): stage 1 (the s4r-twosphere preset, 2 steps, the SDF
+   started as a sphere), stage 2 (its preset, --load that run, 1 step),
+   stage 3 at the full width of its s4r-twosphere preset (grid 96, scene
+   scale 1.0, 8 cameras a batch at 800x800, pairs budget 1.6M, 8 x 8 sample
+   steps, 24-step shadows, mesh tile capacity 1024): 2 steps with a
+   checkpoint at each and a validation, a resume to 3, the export held key
+   by key against the step-3 checkpoint; then reliteval on that run. Gates
+   on every stage-3 step: loss, reg and PSNR finite, no non-finite
+   gradient, the pair fill and the mesh raster's tile and pair fills <= 1;
+   the export's kd and latlng_hue inside float32 [0.01, 0.99]; every number
+   of eval.json finite. It prints the per-step seconds, the peak memory, the
+   eval metrics (with the closed-form sRGB of the relit frames beside them)
+   and the kernels' launches; then every kernel pass is held against its
+   plain version at the inputs of stage 3's last G-buffer camera (C = 14),
+   and its row of the kernels line gains a "stage3" entry measured there.
 The last three lines are the card's name and power limit, the kernels JSON
 line and the result JSON line; the line before them gives each phase's
 seconds. Without a CUDA device it exits non-zero before printing any result.
@@ -184,13 +204,15 @@ def toolchain(kernels) -> str:
         if m and report:
             report[-1].update(registers=int(m.group(1)), smem_bytes=int(m.group(2) or 0))
     # the compositing kernels are instantiated for C = 1..16: show C = 3 (the
-    # main path's) and the largest register count and spills of any C
+    # main path's), C = 14 (stage 3's G-buffer) and the largest register
+    # count and spills of any C
     shown = [r for r in report if "ILi3E" in r["kernel"] or "ILi" not in r["kernel"]]
+    shown_c14 = [r for r in report if "ILi14E" in r["kernel"]]
     phase("toolchain", nvcc=nvcc, nvidia_smi=smi, build_s=round(build_s, 3),
           libraries=[lib.name for lib in libs], compiled_kernels=len(report),
           max_registers=max((r.get("registers", 0) for r in report), default=0),
           spill_bytes=sum(r["spill_stores"] + r["spill_loads"] for r in report),
-          ptxas_c3=shown)
+          ptxas_c3=shown, ptxas_c14=shown_c14)
     # K1's two passes and combine and K2's two passes for C = 1..16, and K3
     if len(report) != 5 * 16 + 1:
         raise RuntimeError(f"expected 81 compiled kernels in the ptxas report, got {report}")
@@ -370,6 +392,98 @@ def write_sphere_scene(root, counts: dict, render_res: int, device) -> None:
                                np.kron(gt[i], np.ones((rep, rep, 1), np.float32)))
 
 
+# the S4R scene of the chain phase: a Lambertian sphere of radius 0.5 and
+# albedo S4R_ALBEDO under constant lat-long environments, so that every image
+# is a closed form: a convex object under a uniform environment is
+# unshadowed, and its radiance is albedo x the environment's radiance
+S4R_ALBEDO = (0.6, 0.5, 0.4)
+S4R_RADIANCE = {"train": 1.0, "envmap6": 0.7, "envmap12": 1.3}
+S4R_ROUGHNESS = 0.5
+
+
+def sphere_hits(cams):
+    """(hit mask [..., H, W, 1] float) of the sphere of radius 0.5 at the origin."""
+    origins, dirs = cams.generate_rays()
+    b = (origins * dirs).sum(-1)
+    c = (origins * origins).sum(-1) - 0.25
+    disc = b * b - c
+    hit = (disc > 0) & (-b - (disc.clamp(min=0.0)).sqrt() > 0)
+    return hit[..., None].float()
+
+
+def write_s4r_scene(root, counts: dict, render_res: int, device) -> None:
+    """A Syn4Relight-layout scene of the closed-form sphere (S4R_*) under
+    root, its environments in root's parent. The stored poses are the
+    inverse of the parser's axis swap and 2/3 scale applied to orbit
+    cameras around the origin (radius 2, elevation 20 degrees, test views
+    offset by 0.3 of a step); the ground truth is rendered at render_res
+    from the cameras parsed back, and upsampled to 800 x 800 by pixel
+    replication: train/r_i_rgb.hdr (linear albedo x L_train) with
+    r_i_mask.png; test/r_i_rgba.png, r_i_albedo.png (sRGB) and r_i_rough.png
+    (linear), alpha the mask; test_rli/envmap{6,12}_r_i.png (sRGB);
+    ../envmap{6,12}.hdr (16 x 32)."""
+    import numpy as np
+    import torch
+
+    from geosplatting_tpu_torch.data.dataparsers.blender_family import (
+        IMAGE_WH, Syn4RelightDataparser,
+    )
+    from geosplatting_tpu_torch.data.dataset import cameras_of
+    from geosplatting_tpu_torch.data.io import dump_float32_image
+    from geosplatting_tpu_torch.graphics import images
+
+    root = Path(root)
+    rep = IMAGE_WH // render_res
+    albedo = np.asarray(S4R_ALBEDO, np.float32)
+    for env in ("envmap6", "envmap12"):
+        dump_float32_image(root.parent / f"{env}.hdr",
+                           np.full((16, 32, 3), S4R_RADIANCE[env], np.float32))
+
+    def up(img):
+        return np.kron(img, np.ones((rep, rep, 1), np.float32))
+
+    def srgb(x):
+        return images.rgb2srgb(torch.as_tensor(x)).numpy()
+
+    for split, num in counts.items():
+        (root / split).mkdir(parents=True, exist_ok=True)
+        frames = []
+        for i in range(num):
+            th = 2 * np.pi * (i + (0.3 if split != "train" else 0)) / num
+            el = np.deg2rad(20.0)
+            eye = 2.0 * np.array([np.cos(th) * np.cos(el), np.sin(el), np.sin(th) * np.cos(el)])
+            fwd = -eye / np.linalg.norm(eye)
+            right = np.cross(fwd, [0.0, 1.0, 0.0])
+            right /= np.linalg.norm(right)
+            parsed = np.stack((right, np.cross(right, fwd), -fwd, eye), -1)   # [3, 4], +y up
+            parsed[:, 3] *= 1.5              # the parser scales translations by 2/3
+            stored = np.eye(4)
+            stored[:3] = np.stack((-parsed[2], -parsed[0], parsed[1]))  # rows (-y, z, -x) inverted
+            frames.append({"file_path": f"./{split}/r_{i}", "transform_matrix": stored.tolist()})
+        with open(root / f"transforms_{split}.json", "w") as f:
+            json.dump({"camera_angle_x": 0.8, "frames": frames}, f)
+    (root / "test_rli").mkdir(exist_ok=True)
+    for split, num in counts.items():
+        cams = cameras_of(Syn4RelightDataparser().parse(root, split), render_res / IMAGE_WH,
+                          device)
+        mask = sphere_hits(cams).cpu().numpy()
+        for i in range(num):
+            m = up(mask[i])
+            if split == "train":
+                dump_float32_image(root / split / f"r_{i}_rgb.hdr",
+                                   albedo * S4R_RADIANCE["train"] * m)
+                dump_float32_image(root / split / f"r_{i}_mask.png", m)
+                continue
+            for name, value in (("rgba", srgb(albedo * S4R_RADIANCE["train"])),
+                                ("albedo", srgb(albedo)),   # roughness is stored linear
+                                ("rough", np.full(3, S4R_ROUGHNESS, np.float32))):
+                dump_float32_image(root / split / f"r_{i}_{name}.png",
+                                   np.concatenate((value * m, m), -1))
+            for env in ("envmap6", "envmap12"):
+                dump_float32_image(root / "test_rli" / f"{env}_r_{i}.png",
+                                   np.concatenate((srgb(albedo * S4R_RADIANCE[env]) * m, m), -1))
+
+
 class Timed:
     """Wraps a method of a class for the duration of a with-block: each call
     is synchronised, its host seconds appended to ``seconds`` and its result
@@ -401,16 +515,19 @@ class Timed:
 
 
 class Recorder:
-    """Keeps the arguments of the last call of a kernel wrapper (no launch)."""
+    """Keeps the arguments of the last call of a kernel wrapper (no launch),
+    of the calls whose arguments satisfy ``keep`` when it is given."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, keep=None):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
+        self.keep = keep
         self.args = None
 
     def __enter__(self):
         def wrapped(*args):
-            self.args = args
+            if self.keep is None or self.keep(args):
+                self.args = args
             return self.fn(*args)
 
         setattr(self.module, self.name, wrapped)
@@ -757,7 +874,7 @@ def product(device, seed, kernels, tmp: Path) -> dict:
 
 STAGE2 = dict(grid=96, scene_scale=0.8, cameras=8, pairs_budget=1_600_000,
               max_render_faces=1 << 17, num_samples_x=8, shadow_steps=24, denoise=True,
-              latlng=[256, 512], steps=2, resume_to=3)
+              latlng=[256, 512], steps=1, resume_to=2)
 
 
 def stage2(device, seed, kernels, scene: Path, load: Path) -> tuple[dict, dict]:
@@ -854,6 +971,140 @@ def stage2(device, seed, kernels, scene: Path, load: Path) -> tuple[dict, dict]:
     return summary, {"bwd": bwd.args, "k3": k3.args}
 
 
+# the chain phase: stage 1 -> 2 -> 3 -> reliteval through the tasks the CLIs
+# build from their s4r-twosphere presets, on the closed-form S4R scene
+CHAIN = dict(views={"train": 16, "test": 2}, stage1_steps=2, stage2_steps=1, stage3_steps=2,
+             stage3_resume_to=3, sdf_sphere_init=0.45)
+F32_01, F32_99 = 0.009999999776482582, 0.9900000095367432   # float32(0.01), float32(0.99)
+
+
+def chain(device, seed, kernels, tmp: Path) -> tuple[dict, dict]:
+    """Phase 8 of the docstring. Returns (summary, the last G-buffer
+    camera's kernel inputs); raises on any failed check."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from geosplatting_tpu_torch.convert import params_to_numpy
+    from geosplatting_tpu_torch.engine.stage_io import load_export
+    from geosplatting_tpu_torch.engine.train_task import (
+        MESH_TILE_CAPACITY, GeoSplatDeferTrainTask,
+    )
+    from geosplatting_tpu_torch.ops import rasterize_pairs as rp
+    from geosplatting_tpu_torch.ops import segment_rows as sr
+    from geosplatting_tpu_torch.scripts import train_geosplat as cli1
+    from geosplatting_tpu_torch.scripts import train_geosplat_defer as cli3
+    from geosplatting_tpu_torch.scripts import train_geosplat_mc as cli2
+    from geosplatting_tpu_torch.utils.config import load_dataclass
+
+    c = CHAIN
+    scene = tmp / "s4r" / "scene"
+    t0 = time.perf_counter()
+    write_s4r_scene(scene, c["views"], 800, device)
+    scene_s = time.perf_counter() - t0
+    common = dict(dataset_path=scene, seed=seed, device=str(device), num_val_images=2)
+    t0 = time.perf_counter()
+    out1 = dataclasses.replace(
+        cli1.TASKS["s4r-twosphere"], experiment_name="chain-s1", num_steps=c["stage1_steps"],
+        num_steps_per_save=c["stage1_steps"], num_steps_per_val=c["stage1_steps"],
+        sdf_sphere_init=c["sdf_sphere_init"], **common).run()
+    out2 = dataclasses.replace(
+        cli2.TASKS["s4r-twosphere"], experiment_name="chain-s2", num_steps=c["stage2_steps"],
+        num_steps_per_save=c["stage2_steps"], num_steps_per_val=c["stage2_steps"],
+        load=Path(out1["output_dir"]).resolve(), **common).run()
+    stages12_s = time.perf_counter() - t0
+
+    preset3 = cli3.TASKS["s4r-twosphere"]
+    task = dataclasses.replace(
+        preset3, experiment_name="chain-s3", num_steps=c["stage3_steps"], num_steps_per_save=1,
+        num_steps_per_val=c["stage3_steps"], load=Path(out2["output_dir"]).resolve(), **common)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    runs = []
+    with Timed(GeoSplatDeferTrainTask, "step_fn") as steps, \
+            Timed(GeoSplatDeferTrainTask, "val_render") as val, \
+            Recorder(rp, "composite_bwd", keep=lambda a: a[3] == 14) as bwd, \
+            Recorder(sr, "cumsum_rows", keep=lambda a: a[0].shape[1] == 7 + 14) as k3:
+        out = task.run()
+        run_dir = Path(out["output_dir"]).resolve()
+        runs.append(out)
+        again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
+                                    num_steps=c["stage3_resume_to"])
+        runs.append(again.run(resume_dir=run_dir))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: kernels.launches[k] for k in kernels.KERNELS}
+    log = (run_dir / "log.txt").read_text()
+    exported = load_export(run_dir)
+    ckpt = torch.load(run_dir / "ckpts" / f"{c['stage3_resume_to']}.pt", map_location="cpu")
+
+    # the export against the last checkpoint's parameters, key by key
+    params = params_to_numpy(ckpt["model"])
+    want = {k: v for k, v in params.items() if k != "ks_enc"}
+    want["ks_enc/planes"] = params["ks_enc"]["planes"]
+    want.update({f"ks_enc/ks/{k}": v for k, v in params["ks_enc"]["ks"].items()})
+
+    def leaf(key):
+        node = exported["params"]
+        for part in key.split("/"):
+            node = node[part]
+        return node
+
+    mismatched = sorted(k for k in want if not np.array_equal(leaf(k), want[k]))
+    kd, hue = exported["params"]["kd"], exported["params"]["latlng_hue"]
+    clamps = {"kd": [float(kd.min()), float(kd.max())],
+              "latlng_hue": [float(hue.min()), float(hue.max())]}
+    clamps_ok = all(F32_01 <= lo and hi <= F32_99 for lo, hi in clamps.values())
+    per_step = [{k: float(m[k]) for k in ("loss", "reg", "splat_psnr", "nonfinite_grads",
+                                           "pair_fill", "mesh_tile_fill", "mesh_pair_fill",
+                                           "num_gaussians", "exposure")}
+                for m in steps.outputs]
+
+    t0 = time.perf_counter()
+    ev = dataclasses.replace(cli3.TASKS["reliteval"], load=run_dir, dataset_path=scene,
+                             device=str(device))
+    results = ev.run()
+    eval_s = time.perf_counter() - t0
+    eval_json = json.loads((run_dir / "eval.json").read_text())
+    numbers = [v for r in eval_json.values()
+               for v in (r.values() if isinstance(r, dict) else r if isinstance(r, list) else [r])]
+    eval_finite = bool(numbers) and all(isinstance(v, float) and math.isfinite(v)
+                                        for v in numbers)
+    summary = {
+        "config": {**c, "preset": {k: getattr(preset3, k) for k in (
+            "resolution", "scene_scale", "batch_size", "pairs_budget", "num_samples_x")},
+            "shadow_steps": 24, "mesh_tile_capacity": MESH_TILE_CAPACITY,
+            "image": [800, 800]},
+        "scene_seconds": scene_s, "stages_1_2_seconds": stages12_s,
+        "stage2_val_psnr": out2["val_psnr"], "stage3_steps": per_step,
+        "stage3_step_seconds": steps.seconds, "stage3_val_render_seconds": val.seconds,
+        "stage3_val_psnr": [r["val_psnr"] for r in runs], "peak_memory_gib": peak_gib,
+        "launches": launches, "export_mismatched": mismatched, "export_clamps": clamps,
+        "eval": results, "eval_seconds": eval_s,
+        "expected_relit_srgb": {env: [round(float(x), 4) for x in np.where(
+            np.asarray(S4R_ALBEDO) * S4R_RADIANCE[env] <= 0.0031308,
+            np.asarray(S4R_ALBEDO) * S4R_RADIANCE[env] * 12.92,
+            1.055 * (np.asarray(S4R_ALBEDO) * S4R_RADIANCE[env]) ** (1 / 2.4) - 0.055)]
+            for env in ("envmap6", "envmap12")},
+        "resumed": f"resumed from step {c['stage3_steps']}" in log,
+        "log_tail": log.splitlines()[-3:],
+    }
+    phase("chain", **summary)
+    finite = all(math.isfinite(m[k]) for m in per_step for k in ("loss", "reg", "splat_psnr"))
+    if not (finite and len(per_step) == c["stage3_resume_to"] and len(val.seconds) == 2
+            and all(m["nonfinite_grads"] == 0 and m["pair_fill"] <= 1.0
+                    and m["mesh_tile_fill"] <= 1.0 and m["mesh_pair_fill"] <= 1.0
+                    for m in per_step)
+            and summary["resumed"] and f"step {c['stage3_resume_to']}:" in log
+            and not mismatched and clamps_ok and eval_finite
+            and {"nvs", "relight/envmap6", "relight/envmap12", "albedo"} <= set(eval_json)
+            and all(launches[k] > 0 for k in kernels.KERNELS)
+            and bwd.args is not None and k3.args is not None):
+        raise AssertionError(f"the chain failed a check: {summary}")
+    return summary, {"bwd": bwd.args, "k3": k3.args}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -898,16 +1149,29 @@ def main() -> int:
         s2, captured = stage2(device, args.seed, _kernels, Path(tmp) / "scene",
                               Path(prod["run_dir"]))
         seconds["stage2"] = time.perf_counter() - t0
-    # the kernels held to their plain versions again, at stage 2's inputs
+        # the kernels held to their plain versions again, at stage 2's inputs
+        t0 = time.perf_counter()
+        measured = measure_kernels(captured, s2["launches"], len(s2["steps"]))
+        del captured
+        phase("kernels_vs_plain_at_stage2", **measured["checks"], **measured["counts"],
+              max_abs_err={k: r["max_abs_err"] for k, r in measured["rows"].items()},
+              tol=TOLERANCES)
+        for entry in line["kernels"]:
+            entry["stage2"] = measured["rows"][entry["name"]]
+        seconds["kernels_stage2"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        s3, captured = chain(device, args.seed, _kernels, Path(tmp))
+        seconds["chain"] = time.perf_counter() - t0
+    # and at the inputs of stage 3's last G-buffer camera (C = 14)
     t0 = time.perf_counter()
-    measured = measure_kernels(captured, s2["launches"], len(s2["steps"]))
+    measured = measure_kernels(captured, s3["launches"], len(s3["stage3_steps"]))
     del captured
-    phase("kernels_vs_plain_at_stage2", **measured["checks"], **measured["counts"],
+    phase("kernels_vs_plain_at_stage3", **measured["checks"], **measured["counts"],
           max_abs_err={k: r["max_abs_err"] for k, r in measured["rows"].items()},
           tol=TOLERANCES)
     for entry in line["kernels"]:
-        entry["stage2"] = measured["rows"][entry["name"]]
-    seconds["kernels_stage2"] = time.perf_counter() - t0
+        entry["stage3"] = measured["rows"][entry["name"]]
+    seconds["kernels_stage3"] = time.perf_counter() - t0
     phase("phase_seconds", **seconds, total=time.perf_counter() - start)
     print(smi)
     print(json.dumps(line))

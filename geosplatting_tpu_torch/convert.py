@@ -1,12 +1,17 @@
 """Carry weights between the JAX package's parameter trees and the port's
-``GeoSplatter`` (stage 1) and ``GeoSplatterMC`` (stage 2).
+``GeoSplatter`` (stage 1), ``GeoSplatterMC`` (stage 2) and
+``GeoSplatterDefer`` (stage 3).
 
 The JAX trees are ``{"sdf", "deform", "weights", "cubemap", "exposure",
 "field": {"planes", "kd": {"w0", "w1"}, "ks": {...}, "z": {...}}}`` for
 stage 1 (``GeoSplatter.init``) and the same with ``latlng`` in place of
 ``cubemap`` and an ``occ`` head in ``field`` for stage 2
 (``GeoSplatterMC.init_from_stage1``), given here as numpy arrays (the caller
-converts). MLP weights are [out, in] on both sides and triplane planes
+converts). The stage-3 tree (``GeoSplatterDefer.init_from_stage2``) is
+flat: the Gaussians' ``means``, ``scales``, ``quats``, ``opacities``,
+``normals``, ``kd``, ``occ``, then ``exposure``, ``latlng_hue``,
+``latlng_value`` and the nested ``ks_enc`` {``planes``, ``ks`` {``w0``,
+``w1``}}. MLP weights are [out, in] on both sides and triplane planes
 [3, R, R, C], so nothing is transposed.
 """
 from __future__ import annotations
@@ -18,11 +23,23 @@ import torch
 
 _TOP = ("sdf", "deform", "weights", "cubemap", "latlng", "exposure")
 _HEADS = ("kd", "ks", "z", "occ")
+_STAGE3 = ("means", "scales", "quats", "opacities", "normals", "kd", "occ", "exposure",
+           "latlng_hue", "latlng_value")
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
 def params_from_numpy(tree: Mapping) -> dict[str, torch.Tensor]:
-    """JAX stage-1 or stage-2 parameter tree (numpy leaves) -> state-dict
-    entries of the port's model; load them with ``model.load_state_dict``."""
+    """JAX stage-1, stage-2 or stage-3 parameter tree (numpy leaves) ->
+    state-dict entries of the port's model; load them with
+    ``model.load_state_dict``."""
+    if "latlng_hue" in tree:
+        out = {k: _f32(tree[k]) for k in _STAGE3}
+        out["ks_enc.planes"] = _f32(tree["ks_enc"]["planes"])
+        out.update({f"ks_enc.ks.{k}": _f32(v) for k, v in tree["ks_enc"]["ks"].items()})
+        return out
     out = {k: torch.from_numpy(np.array(tree[k], dtype=np.float32)) for k in _TOP if k in tree}
     field = tree["field"]
     out["field.trunk.planes"] = torch.from_numpy(np.array(field["planes"], dtype=np.float32))
@@ -35,6 +52,14 @@ def params_from_numpy(tree: Mapping) -> dict[str, torch.Tensor]:
 def params_to_numpy(state: Mapping[str, torch.Tensor]) -> dict:
     """State dict of the port's model -> the JAX parameter tree layout with
     numpy leaves."""
+    if "latlng_hue" in state:
+        tree = {k: state[k].detach().cpu().numpy() for k in _STAGE3}
+        prefix = "ks_enc.ks."
+        tree["ks_enc"] = {
+            "planes": state["ks_enc.planes"].detach().cpu().numpy(),
+            "ks": {k[len(prefix):]: v.detach().cpu().numpy()
+                   for k, v in state.items() if k.startswith(prefix)}}
+        return tree
     tree = {k: state[k].detach().cpu().numpy() for k in _TOP if k in state}
     field: dict = {"planes": state["field.trunk.planes"].detach().cpu().numpy()}
     for head in _HEADS:

@@ -1,11 +1,13 @@
 """Blender-style dataparsers: Blender and MaskedBlender (the NeRF-synthetic
-layout, PNG frames).
+layout, PNG frames) and Syn4Relight (HDR training frames with masks, relit
+test frames and material maps).
 
 Counterpart of ``geosplatting_tpu/data/dataparsers/blender_family.py``
 (``ParsedSplit``, ``_load_transforms``, ``_focal``, ``BlenderDataparser``,
-``MaskedBlenderDataparser``). Parsers give numpy camera and image stacks;
-the dataset puts them on the device. The Syn4Relight, TensoIR and Shiny
-Blender layouts are recognised by ``data.dataset`` but not parsed yet.
+``MaskedBlenderDataparser``, ``_srgb_encode``, ``_exr_or_hdr``,
+``Syn4RelightDataparser``). Parsers give numpy camera and image stacks;
+the dataset puts them on the device. The TensoIR and Shiny Blender layouts
+are recognised by ``data.dataset`` but not parsed yet.
 """
 from __future__ import annotations
 
@@ -21,6 +23,13 @@ from ..io import load_masked_image, resize_image
 IMAGE_WH = 800
 
 
+def _srgb_encode(x: np.ndarray) -> np.ndarray:
+    """The exact sRGB OETF in numpy (``graphics.images.rgb2srgb``'s curve)."""
+    return np.where(
+        x <= 0.0031308, x * 12.92, 1.055 * np.power(np.maximum(x, 1e-12), 1 / 2.4) - 0.055
+    ).astype(np.float32)
+
+
 @dataclasses.dataclass(frozen=True)
 class ParsedSplit:
     c2w: np.ndarray        # [N, 3, 4]
@@ -30,14 +39,21 @@ class ParsedSplit:
     near: float
     far: float
     image_paths: list      # loaded lazily
+    mask_paths: list | None = None
     alpha_color: tuple | None = None
     meta: Any = None
+    # linear HDR frames (.exr / .hdr) are clipped to [0, 1] and sRGB-encoded
+    # at load, so every split holds the sRGB values the trainers expect
+    hdr_to_srgb: bool = False
 
     def load_images(self, scale_factor: float | None = None) -> np.ndarray:
         """[N, H, W, 4] rgba float32 (LDR values as stored, i.e. sRGB)."""
         out = []
-        for p in self.image_paths:
-            img = load_masked_image(p)
+        for i, p in enumerate(self.image_paths):
+            img = load_masked_image(p, self.mask_paths[i] if self.mask_paths else None)
+            if self.hdr_to_srgb and Path(p).suffix.lower() in (".exr", ".hdr"):
+                img = np.concatenate(
+                    (_srgb_encode(np.clip(img[..., :3], 0.0, 1.0)), img[..., 3:]), axis=-1)
             if scale_factor is not None:
                 img = resize_image(img, scale_factor)
             if self.alpha_color is not None and img.shape[-1] == 4:
@@ -98,3 +114,55 @@ class MaskedBlenderDataparser:
         return _blender_split(path, split)
 
     recognize = staticmethod(BlenderDataparser.recognize)
+
+
+def _exr_or_hdr(p: Path) -> Path:
+    """An S4R file stored as ``.exr``, or its Radiance ``.hdr`` twin (the
+    synthetic S4R-layout scenes write ``.hdr``): the one that exists."""
+    return p if p.exists() else p.with_suffix(".hdr")
+
+
+@dataclasses.dataclass(frozen=True)
+class Syn4RelightDataparser:
+    """Synthetic4Relight: stored poses mapped by rows (-y, z, -x) and a 2/3
+    translation scale; train frames ``<frame>_rgb.exr`` (linear HDR) with
+    ``<frame>_mask.png``; test frames ``<frame>_rgba.png`` with a ``meta`` of
+    the albedo and roughness maps, the frames relit under ``envmap6`` and
+    ``envmap12`` (``test_rli/``) and those environments' files. The val
+    split is the train split."""
+
+    def parse(self, path: Path, split: str) -> ParsedSplit:
+        split = "train" if split == "val" else split
+        meta, c2w = _load_transforms(path, split)
+        c2w = np.stack((-c2w[:, 1, :], c2w[:, 2, :], -c2w[:, 0, :]), axis=-2)
+        c2w[:, :, 3] *= 2 / 3
+        frames = meta["frames"]
+        base = dict(c2w=c2w, focal=_focal(meta, IMAGE_WH), width=IMAGE_WH, height=IMAGE_WH,
+                    near=4 / 3, far=4.0)
+        if split == "test":
+            names = [f_["file_path"].rsplit("/", 1)[-1] for f_ in frames]
+            return ParsedSplit(
+                **base, image_paths=[path / (f_["file_path"] + "_rgba.png") for f_ in frames],
+                meta={
+                    "albedo": [path / (f_["file_path"] + "_albedo.png") for f_ in frames],
+                    "roughness": [path / (f_["file_path"] + "_rough.png") for f_ in frames],
+                    "relight": {
+                        env: [path / "test_rli" / f"{env}_{n}.png" for n in names]
+                        for env in ("envmap6", "envmap12")
+                    },
+                    "envmaps": {env: _exr_or_hdr(path.parent / f"{env}.exr")
+                                for env in ("envmap6", "envmap12")},
+                },
+            )
+        return ParsedSplit(
+            **base,
+            image_paths=[_exr_or_hdr(path / (f_["file_path"] + "_rgb.exr")) for f_ in frames],
+            mask_paths=[path / (f_["file_path"] + "_mask.png") for f_ in frames],
+            hdr_to_srgb=True,
+        )
+
+    @staticmethod
+    def recognize(path: Path) -> bool:
+        return all((path / p).exists() for p in (
+            "train", "test", "transforms_train.json", "transforms_test.json")) and all(
+            _exr_or_hdr(path.parent / n).exists() for n in ("envmap6.exr", "envmap12.exr"))

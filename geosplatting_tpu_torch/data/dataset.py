@@ -20,20 +20,11 @@ import torch
 
 from .. import _kernels
 from ..graphics.cameras import Cameras
-from .dataparsers.blender_family import BlenderDataparser, ParsedSplit
+from .dataparsers.blender_family import BlenderDataparser, ParsedSplit, Syn4RelightDataparser
 
 # Layouts the JAX package reads that come before or after Blender's in its
 # recognition order and are not ported yet: each is recognised so that it
 # is named, never parsed as another layout.
-
-
-def _is_syn4relight(path: Path) -> bool:
-    def exr_or_hdr(p: Path) -> bool:
-        return p.exists() or p.with_suffix(".hdr").exists()
-
-    return all((path / p).exists() for p in (
-        "train", "test", "transforms_train.json", "transforms_test.json")) and all(
-        exr_or_hdr(path.parent / n) for n in ("envmap6.exr", "envmap12.exr"))
 
 
 def _is_tensoir(path: Path) -> bool:
@@ -61,7 +52,7 @@ def _is_shiny_blender(path: Path) -> bool:
 # (name, recognizer, parser class or None while not ported), in the JAX
 # package's recognition order
 DATAPARSERS = (
-    ("Syn4Relight", _is_syn4relight, None),
+    ("Syn4Relight", Syn4RelightDataparser.recognize, Syn4RelightDataparser),
     ("TensoIR", _is_tensoir, None),
     ("StanfordORB", _is_stanford_orb, None),
     ("Blender", BlenderDataparser.recognize, BlenderDataparser),
@@ -81,8 +72,8 @@ def recognize_dataparser(path: Path):
                     f"{path} is a {name} dataset; its dataparser is not ported yet")
             return cls()
     raise ValueError(
-        f"no dataparser recognizes {path} (the port reads the Blender layout; IDR, LLFF, "
-        "COLMAP and the synthetic-mesh layouts are not ported yet)")
+        f"no dataparser recognizes {path} (the port reads the Blender and Syn4Relight "
+        "layouts; IDR, LLFF, COLMAP and the synthetic-mesh layouts are not ported yet)")
 
 
 def cameras_of(parsed: ParsedSplit, scale_factor: float | None, device) -> Cameras:

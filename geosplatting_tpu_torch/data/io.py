@@ -1,11 +1,15 @@
-"""Host-side image IO for PNG and the other formats Pillow reads.
+"""Host-side image IO: PNG and the other formats Pillow reads, and the HDR
+formats (OpenEXR, Radiance HDR) through OpenCV.
 
 Counterpart of ``geosplatting_tpu/data/io.py`` (``load_float32_image``,
-``load_masked_image``, ``dump_float32_image``, ``resize_image``) for the LDR
-formats: images are float32 numpy arrays [H, W, C] in [0, 1], as stored
-(sRGB-encoded). Pillow is imported inside each function. HDR formats (EXR,
-Radiance HDR) and video are not ported yet: the JAX package reads them
-through ``cv2`` or ``imageio``.
+``load_masked_image``, ``dump_float32_image``, ``resize_image``). LDR images
+are float32 numpy arrays [H, W, C] in [0, 1], as stored (sRGB-encoded); HDR
+images are float32 linear radiance, RGB(A) in that order. Pillow and ``cv2``
+are imported inside each function. The JAX package's ``imageio`` fallback
+is not ported: an HDR file ``cv2`` cannot decode raises. OpenCV builds
+decode OpenEXR only with ``OPENCV_IO_ENABLE_OPENEXR=1`` in the environment
+before ``cv2`` is imported, and some builds carry no EXR codec at all; the
+error names both. Video is not ported.
 """
 from __future__ import annotations
 
@@ -14,16 +18,44 @@ from pathlib import Path
 import numpy as np
 
 LDR_SUFFIXES = (".png", ".jpg", ".jpeg", ".bmp", ".tiff", ".tif", ".webp")
+HDR_SUFFIXES = (".exr", ".hdr")
+
+
+def _hdr_error(path: Path, action: str) -> ValueError:
+    hint = ""
+    if path.suffix.lower() == ".exr":
+        hint = (" (OpenCV decodes OpenEXR only with OPENCV_IO_ENABLE_OPENEXR=1 set before cv2 "
+                "is imported, and some builds have no EXR codec)")
+    return ValueError(f"cv2 could not {action} the HDR image {path}{hint}")
+
+
+def _swap_rb(img: np.ndarray) -> np.ndarray:
+    """BGR(A) <-> RGB(A) on the last axis (cv2's channel order)."""
+    if img.ndim == 3 and img.shape[-1] >= 3:
+        return img[..., [2, 1, 0] + list(range(3, img.shape[-1]))]
+    return img
 
 
 def load_float32_image(path: Path | str) -> np.ndarray:
-    """[H, W, C] float32 in [0, 1] (8- and 16-bit images scaled by their
-    maximum)."""
+    """[H, W, C] float32: LDR formats in [0, 1] (8- and 16-bit images scaled
+    by their maximum, sRGB-encoded values as stored), HDR formats in linear
+    radiance."""
+    path = Path(path)
+    suffix = path.suffix.lower()
+    if suffix in HDR_SUFFIXES:
+        import cv2
+
+        if not path.exists():
+            raise FileNotFoundError(path)
+        img = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+        if img is None:
+            raise _hdr_error(path, "decode")
+        img = _swap_rb(np.asarray(img).astype(np.float32))
+        return img[..., None] if img.ndim == 2 else img
+    if suffix not in LDR_SUFFIXES:
+        raise ValueError(f"unsupported image format: {path}")
     from PIL import Image
 
-    path = Path(path)
-    if path.suffix.lower() not in LDR_SUFFIXES:
-        raise ValueError(f"unsupported image format (HDR formats are not ported yet): {path}")
     img = np.asarray(Image.open(path))
     if img.dtype == np.uint8:
         img = img.astype(np.float32) / 255.0
@@ -48,12 +80,25 @@ def load_masked_image(image_path: Path | str, mask_path: Path | str | None = Non
 
 
 def dump_float32_image(path: Path | str, img: np.ndarray) -> None:
-    """Writes [H, W, C] (C = 1, 3 or 4) values in [0, 1] as 8 bits."""
+    """Writes [H, W, C] (C = 1, 3 or 4): LDR formats as 8 bits of the values
+    clipped to [0, 1], HDR formats as float radiance."""
+    path = Path(path)
+    suffix = path.suffix.lower()
+    if suffix in HDR_SUFFIXES:
+        import cv2
+
+        path.parent.mkdir(parents=True, exist_ok=True)
+        try:
+            ok = cv2.imwrite(str(path), _swap_rb(np.asarray(img, np.float32)))
+        except cv2.error as e:
+            raise _hdr_error(path, "encode") from e
+        if not ok:
+            raise _hdr_error(path, "encode")
+        return
+    if suffix not in (".png", ".jpg", ".jpeg", ".bmp", ".webp"):
+        raise ValueError(f"unsupported image format: {path}")
     from PIL import Image
 
-    path = Path(path)
-    if path.suffix.lower() not in (".png", ".jpg", ".jpeg", ".bmp", ".webp"):
-        raise ValueError(f"unsupported image format (HDR formats are not ported yet): {path}")
     path.parent.mkdir(parents=True, exist_ok=True)
     arr = (np.clip(img, 0.0, 1.0) * 255.0).round().astype(np.uint8)
     if arr.shape[-1] == 1:

@@ -1,8 +1,10 @@
-"""The stage-1 and stage-2 training tasks and the shared training loop.
+"""The stage-1, stage-2 and stage-3 training tasks, the shared training loop
+and the relight evaluation of a stage-3 run.
 
 Counterpart of ``geosplatting_tpu/engine/train_task.py`` (``resume``,
-``ResumeTask``, ``_TrainTaskBase.run``, ``GeoSplatTrainTask`` and
-``GeoSplatMCTrainTask``): the loop
+``ResumeTask``, ``RelightEvalTask``, ``_TrainTaskBase.run``,
+``GeoSplatTrainTask``, ``GeoSplatMCTrainTask`` and
+``GeoSplatDeferTrainTask``): the loop
 with validation PSNR and image dumps on the val split, ``log.txt`` lines,
 the pair-fill alarm, checkpoints and the export that the next stage loads.
 Each run writes its config as ``task.py`` into its output directory, so
@@ -15,9 +17,13 @@ optimizers' state, the step and the generator's state, so a resumed run
 draws what the uninterrupted run would have drawn.
 
 Options of the JAX tasks without a meaning in the port yet are left out:
-``backend``, ``tile_capacity`` and ``data_parallel`` (multi-GPU), and
-``dashboard``, ``turntable`` and ``vis_export_every`` (tooling). One option
-the JAX task lacks: ``GeoSplatTrainTask.sdf_sphere_init`` (default off).
+``backend``, ``tile_capacity`` and ``data_parallel`` (multi-GPU; with it
+the stage-3 ``train_step_dp``), and
+``dashboard``, ``turntable`` and ``vis_export_every`` (tooling). Options
+the JAX tasks lack: ``GeoSplatTrainTask.sdf_sphere_init`` (default off) and
+``triplane_resolution`` (the JAX model's 512). The stage-3 task builds its
+model with a mesh tile capacity of 1024 where the JAX model keeps 256
+(``MESH_TILE_CAPACITY``).
 """
 from __future__ import annotations
 
@@ -83,6 +89,46 @@ class ResumeTask:
 
     def run(self) -> dict:
         return resume(self.dir, self.step)
+
+
+@dataclasses.dataclass
+class RelightEvalTask:
+    """The evaluation of a finished stage-3 run: rebuilds the model from the
+    run's ``task.py``, loads its export's parameters and geometry, runs the
+    NVS / relight / material metrics on the test split of ``dataset_path``
+    and writes them to ``<load>/eval.json``."""
+
+    load: Path = Path(".")
+    dataset_path: Path = Path(".")
+    scale_factor: float | None = None
+    skip_nvs: bool = False
+    skip_rlit: bool = False
+    skip_mat: bool = False
+    fast: bool = True
+    seed: int = 0
+    device: str | None = None       # the card unless "cpu"
+
+    def run(self) -> dict:
+        import json
+
+        from ..convert import params_from_numpy
+        from .eval_tasks import RelightEvaler
+
+        load = Path(self.load)
+        device = _kernels.resolve_device(self.device)
+        task3 = load_dataclass(load / "task.py")
+        export = load_export(find_export(load))
+        model = task3.make_model(export["params"], device)
+        model.load_state_dict(params_from_numpy(export["params"]))
+        model.set_geometry(export["geometry"])
+        ev = RelightEvaler(model=model, skip_nvs=self.skip_nvs, skip_rlit=self.skip_rlit,
+                           skip_mat=self.skip_mat, fast=self.fast, seed=self.seed)
+        results = ev.run(Dataset(self.dataset_path, scale_factor=self.scale_factor,
+                                 device=device))
+        (load / "eval.json").write_text(json.dumps(results, indent=2))
+        for k, v in results.items():
+            print(f"{k}: {v}")
+        return results
 
 
 def _psnr(pred: np.ndarray, gt: np.ndarray) -> float:
@@ -232,6 +278,9 @@ class GeoSplatTrainTask(_TrainTaskBase):
     # sphere, |x| - r (the init of bench.py's stage-1 workload), for runs
     # too short to carve a surface out of the random one
     sdf_sphere_init: float | None = None
+    # texels of the material field's triplane trunk, which stages 2 and 3
+    # inherit through the export (the JAX model's 512)
+    triplane_resolution: int = 512
 
     def build(self, dataset, generator):
         from ..models.geosplat import GeoSplatter
@@ -241,7 +290,8 @@ class GeoSplatTrainTask(_TrainTaskBase):
             resolution=self.resolution, light_resolution=self.light_resolution,
             scale=self.scene_scale, initial_guess=self.initial_guess,
             pairs_budget=self.pairs_budget, tile_shape=self.tile_shape,
-            max_render_faces=self.max_render_faces, generator=generator,
+            max_render_faces=self.max_render_faces,
+            triplane_resolution=self.triplane_resolution, generator=generator,
             device=dataset.device,
         )
         if self.sdf_sphere_init is not None:
@@ -334,3 +384,80 @@ class GeoSplatMCTrainTask(_TrainTaskBase):
             out[k] = np.float32(out[k])
         out["resolution"] = np.int32(out["resolution"])
         return out
+
+
+# --- stage 3 ---------------------------------------------------------------------
+
+# triangles kept per 16x16 tile by the stage-3 mesh raster: the JAX model's
+# 256 drops triangles at grid 96 (the frozen s4r-twosphere mesh put up to 459
+# into a silhouette tile on the card); the raster resolves only as deep as
+# the fullest tile, so the larger budget costs nothing where it is unused
+MESH_TILE_CAPACITY = 1024
+
+
+@dataclasses.dataclass
+class GeoSplatDeferTrainTask(_TrainTaskBase):
+    """Stage-3 training task (GeoSplatterDefer, GeoSplatDeferTrainer).
+    ``load`` is the stage-2 run directory (or its export file); the model
+    starts from that export and keeps its geometry frozen. The export is
+    ``{"params", "geometry"}``, the surface ``RelightEvalTask`` evaluates."""
+
+    experiment_name: str = "geosplat-defer"
+    num_steps: int = 100
+    num_steps_per_save: int = 100
+    num_steps_per_val: int = 50
+    resolution: int = 96
+    scene_scale: float = 1.05
+    num_samples_x: int = 8
+    pairs_budget: int | None = None   # see GeoSplatTrainTask.pairs_budget
+    tile_shape: str = "16"
+    load: Path | None = None
+
+    def make_model(self, params, device):
+        """A GeoSplatterDefer sized for ``params`` (a stage-2 export or a
+        stage-3 export's ``params``: the Gaussians and ``ks_enc``)."""
+        from ..models.geosplat import check_ks_bundle
+        from ..models.geosplat_defer import GeoSplatterDefer
+
+        check_ks_bundle(params["ks_enc"])
+        planes = np.shape(params["ks_enc"]["planes"])
+        return GeoSplatterDefer(
+            num_gaussians=np.shape(params["means"])[0], ks_resolution=planes[1],
+            ks_components=planes[-1], resolution=self.resolution, scale=self.scene_scale,
+            num_samples_x=self.num_samples_x, pairs_budget=self.pairs_budget,
+            tile_shape=self.tile_shape, mesh_tile_capacity=MESH_TILE_CAPACITY, device=device,
+        )
+
+    def build(self, dataset, generator):
+        from ..train.geosplat_defer_trainer import (
+            GeoSplatDeferTrainer, GeoSplatDeferTrainerConfig,
+        )
+
+        if self.load is None:
+            raise ValueError("stage-3 requires --load <stage-2 output dir>")
+        self._stage2 = load_export(find_export(self.load))
+        model = self.make_model(self._stage2, dataset.device)
+        model.init_from_stage2(self._stage2)
+        trainer = GeoSplatDeferTrainer(
+            GeoSplatDeferTrainerConfig(num_steps=self.num_steps, batch_size=self.batch_size),
+            model)
+        return model, trainer
+
+    def step_fn(self, trainer, cams, gt, generator, step):
+        return trainer.train_step(cams, gt, generator=generator)
+
+    def val_render(self, model, cams):
+        # the validation's own draws (see GeoSplatMCTrainTask.val_render)
+        generator = torch.Generator(device=cams.device).manual_seed(self.seed)
+        rgba, _, _ = model.render(cams, generator=generator)
+        rgb = gimages.rgb2srgb(rgba[..., :3].clamp(0, 1)) * rgba[..., 3:]
+        return torch.cat((rgb, rgba[..., 3:]), -1)
+
+    def export(self, model):
+        from ..convert import params_to_numpy
+        from ..models.geosplat_defer import frozen_geometry
+
+        # the trained parameters, and the frozen geometry as the stage-2
+        # export stored it
+        return {"params": params_to_numpy(model.state_dict()),
+                "geometry": frozen_geometry(self._stage2)}

@@ -30,6 +30,13 @@ def _sample_plane(plane: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     )
 
 
+def triplane_features(planes: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Planes [3, R, R, C] at x [..., 3] in [-1, 1] -> summed features
+    [..., C]."""
+    return (_sample_plane(planes[0], x[..., [0, 1]]) + _sample_plane(planes[1], x[..., [0, 2]])
+            + _sample_plane(planes[2], x[..., [1, 2]]))
+
+
 class TriplaneEncoding(nn.Module):
     def __init__(
         self,
@@ -48,7 +55,4 @@ class TriplaneEncoding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [..., 3] in [-1, 1] -> features [..., C]."""
-        fxy = _sample_plane(self.planes[0], x[..., [0, 1]])
-        fxz = _sample_plane(self.planes[1], x[..., [0, 2]])
-        fyz = _sample_plane(self.planes[2], x[..., [1, 2]])
-        return fxy + fxz + fyz
+        return triplane_features(self.planes, x)

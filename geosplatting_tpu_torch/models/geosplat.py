@@ -1,8 +1,9 @@
 """GeoSplatter stage 1 — FlexiCubes -> MGAdapter Gaussians -> split-sum PBR.
 
 Counterpart of ``geosplatting_tpu/models/geosplat.py`` on the stage-1
-training path: ``tone_naive``, ``MGAdapter``, the ``SharedField`` material
-field (one triplane trunk + MLP heads), ``export_ks_bundle``,
+training path: ``tone_naive``, ``tone_aces``, ``MGAdapter``, the
+``SharedField`` material field (one triplane trunk + MLP heads),
+``export_ks_bundle`` and, for stage 3, ``KsBundle`` (``apply_ks_bundle``),
 ``compact_faces``, face and vertex Gaussian sampling, split-sum shading in
 the fast (training) and exact (validation, export) qualities and
 ``GeoSplatter`` (an ``nn.Module`` that owns the stage-1 parameters) with
@@ -30,7 +31,7 @@ from ..graphics.splats import Splats
 from ..ops import cubemap as cm
 from ..ops.rasterize import rasterize
 from ..ops.segment_rows import gather_rows
-from .encodings import TriplaneEncoding
+from .encodings import TriplaneEncoding, triplane_features
 from .mlp import MLP
 
 _UP = (0.0, 0.0, 1.0)
@@ -39,6 +40,11 @@ _UP = (0.0, 0.0, 1.0)
 def tone_naive(rgb: torch.Tensor, exposure: torch.Tensor) -> torch.Tensor:
     x = rgb * exposure
     return 1.0 - nn.functional.softplus((1.0 - x) * 100.0) / 100.0
+
+
+def tone_aces(rgb: torch.Tensor, exposure: torch.Tensor) -> torch.Tensor:
+    x = rgb * exposure
+    return (x * (2.51 * x + 0.03)) / (x * (2.43 * x + 0.59) + 0.14)
 
 
 # --- MGAdapter ------------------------------------------------------------------
@@ -184,6 +190,32 @@ def export_ks_bundle(field: SharedField) -> dict:
         "planes": field.trunk.planes.detach(),
         "ks": {name: p.detach() for name, p in field.ks.named_parameters()},
     }
+
+
+def check_ks_bundle(bundle) -> None:
+    """Raises unless ``bundle`` is the triplane layout of ``export_ks_bundle``."""
+    if not isinstance(bundle, dict) or "planes" not in bundle:
+        keys = sorted(bundle) if isinstance(bundle, dict) else type(bundle).__name__
+        raise NotImplementedError(
+            f"a hash-grid roughness predictor (bundle {keys}) needs ops/hashgrid.py, which "
+            "is not ported yet; train stage 1 with the shared triplane field")
+
+
+class KsBundle(nn.Module):
+    """Stage 3's trainable roughness predictor, the triplane branch of the
+    JAX package's ``apply_ks_bundle``: ``planes`` [3, R, R, C] summed as
+    the stage-1 trunk sums them, then the bias-free (-1, 64, 2) head ``ks``
+    (``w0`` [64, C], ``w1`` [2, 64]), ReLU between; filled from a stage-2
+    export's ``ks_enc``. Returns raw (roughness, metallic) logits."""
+
+    def __init__(self, resolution: int, num_components: int, hidden: int = 64, device=None):
+        super().__init__()
+        self.planes = nn.Parameter(
+            torch.zeros((3, resolution, resolution, num_components), device=device))
+        self.ks = MLP((num_components, hidden, 2), device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ks(triplane_features(self.planes, x))
 
 
 @dataclasses.dataclass

@@ -76,7 +76,14 @@ def test_resize_image_matches_pillow_bilinear(scale, channels):
 
 
 def test_hdr_formats_are_refused(tmp_path):
+    """HDR files cv2 cannot decode, and formats neither reader knows, raise
+    (the HDR round trip itself is in tests/test_torch_s4r_data.py)."""
+    (tmp_path / "x.hdr").write_bytes(b"not a radiance file")
     with pytest.raises(ValueError, match="HDR"):
-        tio.load_float32_image(tmp_path / "x.exr")
-    with pytest.raises(ValueError, match="HDR"):
-        tio.dump_float32_image(tmp_path / "x.hdr", np.zeros((2, 2, 3), np.float32))
+        tio.load_float32_image(tmp_path / "x.hdr")
+    with pytest.raises(FileNotFoundError):
+        tio.load_float32_image(tmp_path / "missing.exr")
+    with pytest.raises(ValueError, match="unsupported"):
+        tio.load_float32_image(tmp_path / "x.pfm")
+    with pytest.raises(ValueError, match="unsupported"):
+        tio.dump_float32_image(tmp_path / "x.pfm", np.zeros((2, 2, 3), np.float32))

@@ -346,3 +346,95 @@ def test_stage2_step_card_vs_cpu(cuda_device):
         np.testing.assert_allclose(metrics[1][k], metrics[0][k], rtol=1e-3, err_msg=k)
     for k, want in grads[0].items():
         close_card_cpu(grads[1][k], want)
+
+
+def _stage2_model(cams_res=64):
+    """A small stage-2 model on the CPU from a stage-1 export with an SDF
+    sphere and random deform / weights, and two orbit cameras."""
+    from geosplatting_tpu_torch.models.geosplat import GeoSplatter
+    from geosplatting_tpu_torch.models.geosplat_mc import GeoSplatterMC, export_stage1
+
+    gen = torch.Generator().manual_seed(0)
+    s1 = GeoSplatter(resolution=12, light_resolution=16, scale=1.0, triplane_resolution=32,
+                     generator=gen, device="cpu")
+    with torch.no_grad():
+        s1.sdf.copy_(torch.linalg.norm(s1.grid.base_vertices() - 0.03, dim=-1) - 0.45)
+        s1.deform.copy_(torch.randn(s1.deform.shape, generator=gen) * 0.1)
+        s1.weights.copy_(torch.randn(s1.weights.shape, generator=gen) * 0.1)
+    model = GeoSplatterMC(resolution=12, scale=1.0, num_samples_x=2, max_render_faces=2048,
+                          triplane_resolution=32, generator=gen, device="cpu")
+    model.init_from_stage1(export_stage1(s1))
+    cams = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=2.0, elevation_degrees=20.0,
+                              num_samples=2, width=cams_res, height=cams_res, device="cpu")
+    return model, cams, gen
+
+
+def test_mesh_raster_card_vs_cpu(cuda_device):
+    """rasterize_mesh and interpolate of a stage-2 mesh on the card against
+    the CPU: the same winners but at rounding ties, barycentrics to 1e-5."""
+    from geosplatting_tpu_torch.graphics.mesh import TriangleMesh
+    from geosplatting_tpu_torch.ops.mesh_raster import interpolate, rasterize_mesh
+
+    model, cams, _ = _stage2_model(96)
+    export = model.export_model()
+    mesh = TriangleMesh(vertices=export["mc_vertices"], indices=export["mc_indices"].long(),
+                        face_mask=export["mc_face_mask"])
+    out = []
+    for dev in ("cpu", cuda_device):
+        m = TriangleMesh(vertices=mesh.vertices.to(dev), indices=mesh.indices.to(dev),
+                         face_mask=mesh.face_mask.to(dev))
+        rast, info = rasterize_mesh(m, cams[0].to(dev), tile_capacity=64)
+        out.append((rast, info, interpolate(m.vertices, m, rast)))
+    (r0, i0, p0), (r1, i1, p1) = out
+    assert i0 == i1 and i1.tile_fill > 0
+    same = n(r1.tri_id) == n(r0.tri_id)
+    assert same.mean() > 0.995 and (n(r0.tri_id) >= 0).mean() > 0.1
+    np.testing.assert_allclose(n(r1.bary)[same], n(r0.bary)[same], atol=1e-5)
+    np.testing.assert_allclose(n(p1)[same], n(p0)[same], atol=1e-5)
+
+
+def test_stage3_step_card_vs_cpu(cuda_device):
+    """One GeoSplatDeferTrainer step (the 14-channel G-buffer and the kd map
+    through K1-K3, the mesh raster, env_shade) at a small size on the card
+    and on the CPU from the same weights and draws; then the relit render."""
+    from geosplatting_tpu_torch.models.geosplat_defer import GeoSplatterDefer
+    from geosplatting_tpu_torch.models.geosplat_mc import compact_export
+    from geosplatting_tpu_torch.ops.envshade import draw_shade
+    from geosplatting_tpu_torch.train.geosplat_defer_trainer import (
+        GeoSplatDeferTrainer, GeoSplatDeferTrainerConfig,
+    )
+
+    model2, cams, gen = _stage2_model()
+    export = compact_export(model2.export_model(), pad_to=256)
+    kw = dict(num_gaussians=export["means"].shape[0], ks_resolution=32, resolution=12,
+              scale=1.0, num_samples_x=2)
+    origins, dirs = cams.generate_rays()
+    b = (origins * dirs).sum(-1)
+    hit = (b * b - ((origins * origins).sum(-1) - 0.25) > 0)[..., None].float()
+    gt = torch.cat((hit * 0.6 * torch.ones(3), hit), -1)
+    bg = torch.rand(gt[..., :3].shape, generator=gen)
+    noise = torch.randn((kw["num_gaussians"], 3), generator=gen)
+    env = 0.5 + torch.rand((8, 16, 3), generator=gen)
+    shade = [draw_shade(64 * 64, num_samples_x=2, generator=gen) for _ in range(2)]
+    metrics, grads, relit = [], [], []
+    for dev in ("cpu", cuda_device):
+        m = GeoSplatterDefer(device=dev, **kw)
+        m.init_from_stage2(export)
+        draws = [d.to(dev) for d in shade]
+        trainer = GeoSplatDeferTrainer(GeoSplatDeferTrainerConfig(batch_size=2), m)
+        _kernels.reset_launches()
+        out = trainer.train_step(cams.to(dev), gt.to(dev), background=bg.to(dev),
+                                 jitter_noise=noise.to(dev), draws=draws)
+        metrics.append({k: float(v) for k, v in out.items()})
+        grads.append({k: n(p.grad) for k, p in m.named_parameters()})
+        with torch.no_grad():
+            relit.append(n(m.render(cams.to(dev), relight_envmap=env.to(dev),
+                                    albedo_scaling=torch.tensor([1.1, 0.9, 0.8], device=dev),
+                                    draws=draws)[0]))
+    assert all(_kernels.launches[k] > 0 for k in _kernels.KERNELS)
+    assert metrics[1]["nonfinite_grads"] == 0 and metrics[1]["mesh_tile_fill"] <= 1
+    for k in ("loss", "reg", "pair_fill", "exposure", "mesh_tile_fill"):
+        np.testing.assert_allclose(metrics[1][k], metrics[0][k], rtol=1e-3, err_msg=k)
+    for k, want in grads[0].items():
+        close_card_cpu(grads[1][k], want)
+    assert (np.abs(relit[1] - relit[0]) > 1e-3).mean() < 0.01

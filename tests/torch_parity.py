@@ -108,3 +108,37 @@ def shade_draws(d: dict):
     from geosplatting_tpu_torch.ops.envshade import ShadeDraws
 
     return ShadeDraws(ub=t(d["ub"]), vb=t(d["vb"]), bidx=t(d["bidx"], torch.int64), u=t(d["u"]))
+
+
+# --- injected draws of the stage-3 path -------------------------------------------
+# GeoSplatterDefer.render splits its key into (k1, k2, k3): the ks jitter
+# noise from k1, the per-camera shade keys from k3 unless the caller passes
+# them (geosplat_defer.py:137-143, :286-289); its trainer splits a step's key
+# into (k_render, k_bg) and passes split(fold_in(k_render, 1), B) as the
+# shade keys (geosplat_defer_trainer.py:210-214). One point a pixel.
+
+
+def jax_defer_draws(key, num_gaussians: int, num_points: int, num_cameras: int,
+                    num_samples_x: int, shade_keys=None) -> tuple[np.ndarray, list[dict]]:
+    """``GeoSplatterDefer.render``'s draws from ``key``: the ks jitter noise
+    [N, 3] and one ``jax_shade_draws`` per camera."""
+    import jax
+
+    k1, _, k3 = jax.random.split(key, 3)
+    jitter = np.asarray(jax.random.normal(k1, (num_gaussians, 3)))
+    keys = shade_keys if shade_keys is not None else jax.random.split(k3, num_cameras)
+    return jitter, [jax_shade_draws(k, num_points, num_samples_x) for k in keys]
+
+
+def jax_defer_step_draws(key, gt_shape, num_gaussians: int, num_samples_x: int) -> dict:
+    """A stage-3 trainer step's draws from ``key``: the per-pixel
+    background, the render key, the per-camera shade keys, the ks jitter
+    noise and each camera's shade draws."""
+    import jax
+
+    k_render, k_bg = jax.random.split(key)
+    shade_keys = jax.random.split(jax.random.fold_in(k_render, 1), gt_shape[0])
+    jitter, draws = jax_defer_draws(k_render, num_gaussians, gt_shape[1] * gt_shape[2],
+                                    gt_shape[0], num_samples_x, shade_keys=shade_keys)
+    return {"background": np.asarray(jax.random.uniform(k_bg, tuple(gt_shape[:-1]) + (3,))),
+            "k_render": k_render, "shade_keys": shade_keys, "jitter": jitter, "draws": draws}
