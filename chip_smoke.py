@@ -68,6 +68,25 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
    and the kernels' launches; then every kernel pass is held against its
    plain version at the inputs of stage 3's last G-buffer camera (C = 14),
    and its row of the kernels line gains a "stage3" entry measured there.
+9. gsplat: vanilla 3DGS. (a) bench.py's second workload (bench.py:80-122)
+   at its widths: Splats.random(50,000, SH degree 0, random_scale 0.8) with
+   opacity logits 1.0, GSplatter(sh_degree=0, background black, 32 pairs a
+   Gaussian), 8 orbit cameras at radius 2.5 and elevation 15 degrees,
+   800x800, the horizontal-gradient ground truth, GSplatTrainer with batch 8
+   and densification off: 4 warm-up and 10 timed steps (median s/step and
+   it/s, the pairs of each camera, pair_fill, the peak memory, and one more
+   step traced by torch.profiler for the device's idle share); every loss
+   finite, no non-finite gradient, pair_fill <= 1, K1, K2 and K3 launched
+   once per camera on every step. (b) the same scene at SH degree 3 with
+   max_sh_degree 3 for 4 steps, then after_update at an opacity-reset step
+   and two densify steps (the Gaussian counts, param_map, the kept rows and
+   Adam moments, zero moments in the new slots, a finite next step). (c)
+   GSplatTrainTask at the blender preset's widths (65,536 Gaussians, SH 3,
+   batch 1, 48 pairs a Gaussian) on the product phase's scene: 4 steps, a
+   checkpoint, validation and the export, a resume to 6, the export held
+   against the last checkpoint key by key. Then every kernel pass is held
+   against its plain version at the inputs of (a)'s last camera, and its row
+   of the kernels line gains a "gsplat" entry measured there.
 The last three lines are the card's name and power limit, the kernels JSON
 line and the result JSON line; the line before them gives each phase's
 seconds. Without a CUDA device it exits non-zero before printing any result.
@@ -99,13 +118,16 @@ def cuda_ms(fn, reps: int) -> float:
     all of them while the device sleeps, so the CUDA events bracket device
     time only, not the wrappers' host work (allocation, checks, ctypes); a
     single call bracketed alone measures that host work wherever it exceeds
-    the kernel's time. The sleep doubles until the queue outlasts the
-    enqueueing."""
+    the kernel's time. The sleep starts at 1.25x the warm-up call's wall
+    time for each call (at ~2 GHz) and grows 4x until the queue outlasts
+    the enqueueing."""
     import torch
 
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    cycles = 20_000_000
+    cycles = max(20_000_000, int(1.25 * reps * (time.perf_counter() - t0) * 2e9))
     while True:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -149,11 +171,14 @@ def kept_ops(kernel: str, c: int) -> int:
     }[kernel]
 
 
-def pair_pixel_counts(pairs, seg_start, grid, n_contrib) -> dict:
+def pair_pixel_counts(pairs, seg_start, grid, n_contrib, kc: int) -> dict:
     """What these inputs need of K1 and K2: the walked (pair, pixel)
     evaluations (each pixel's pairs up to its contributor count), the kept
     ones among them (sigma >= 0 and alpha >= 1/255), all (pair, pixel) of
-    the pairs in some tile, the tiles holding a pair and the largest tile."""
+    the pairs in some tile, the tiles holding a pair and the largest tile;
+    and the pairs some pixel walks (each tile's pairs up to its largest
+    contributor count) with the chunks of kc that hold them, the only ones
+    the compositing passes after K1's products need to read."""
     import torch
 
     from geosplatting_tpu_torch.ops import rasterize_pairs as rp
@@ -165,7 +190,10 @@ def pair_pixel_counts(pairs, seg_start, grid, n_contrib) -> dict:
         rank = torch.arange(idx.shape[1], device=pairs.device)[None, :, None]
         kept += int((keep & (rank < n_contrib[t0:t1, None, :])).sum())
     counts = seg_start[1:] - seg_start[:-1]
+    walked = torch.minimum(counts, n_contrib.long().amax(-1))
     return {
+        "walked_pairs": int(walked.sum()),
+        "walked_chunks": int(((walked + kc - 1) // kc).sum()),
         "walked_pair_pixels": int(n_contrib.long().sum()),
         "kept_pair_pixels": kept,
         "tile_pair_pixels": int(seg_start[-1]) * grid.pixels,
@@ -670,7 +698,7 @@ def measure_kernels(captured, launches: dict, steps: int) -> dict:
     torch.cuda.synchronize()
     k3_rel = float(((k3.double() - torch.cumsum(k3_in.double(), 0)).abs()
                     / (torch.cumsum(k3_in.abs().double(), 0) + 1e-6)).max())
-    counts = pair_pixel_counts(pairs, seg_start, grid, n_contrib)
+    counts = pair_pixel_counts(pairs, seg_start, grid, n_contrib, chunks.kc)
     n_chunks = int(chunks.tile_chunk_start[-1])
     counts.update(chunks=n_chunks, chunk_slots=int(chunks.chunk_tile.shape[0]), kc=chunks.kc,
                   pairs=int(seg_start[-1]), channels=channels)
@@ -679,38 +707,42 @@ def measure_kernels(captured, launches: dict, steps: int) -> dict:
     if not (res["ok"] and bitwise and k3_bitwise and k3_rel <= 1e-5):
         raise AssertionError(f"a kernel disagrees with its plain version: {res['errors']} {checks}")
 
-    # bytes each pass must move: inputs read once, outputs written once
+    # bytes each pass must move: inputs read once, outputs written once. K1's
+    # products pass reads every pair and writes every chunk's products; the
+    # passes after it need only the pairs some pixel walks and their chunks
     f = 4
-    pair_bytes = int(seg_start[-1]) * rp.row_stride(channels) * f
+    row = rp.row_stride(channels) * f
     list_bytes = (tiles + 1) * 8 + (tiles + 1) * 4 + chunks.chunk_tile.shape[0] * 4
     per_chunk = n_chunks * npx * f          # prod or suffix of the real chunks
+    walked = counts["walked_pairs"] * row + counts["walked_chunks"] * npx * f
     per_tile = tiles * npx * f              # t_final, n_contrib, one row of out or grad_out
     passes = {
         "k1_chunk_products": (
             lambda: rp.chunk_products(pairs, seg_start, grid, channels, chunks),
             lambda: rp.chunk_products_plain(pairs, seg_start, grid, chunks),
-            pair_bytes + list_bytes + per_chunk, counts["tile_pair_pixels"]),
+            int(seg_start[-1]) * row + list_bytes + per_chunk, counts["tile_pair_pixels"]),
         "k1_composite_fwd": (
             lambda: rp.composite_fwd(pairs, seg_start, grid, channels, chunks, prod),
             lambda: rp.composite_fwd_plain(pairs, seg_start, grid, channels),
-            pair_bytes + list_bytes + per_chunk + per_tile * (channels + 4),
-            counts["walked_pair_pixels"]),
+            walked + list_bytes + per_tile * (channels + 4), counts["walked_pair_pixels"]),
         "k2_chunk_suffix": (
             lambda: rp.chunk_suffix(pairs, seg_start, grid, channels, chunks, prod, grad_out,
                                     n_contrib),
             lambda: rp.chunk_suffix_plain(pairs, seg_start, grid, channels, chunks, grad_out,
                                           n_contrib),
-            pair_bytes + list_bytes + 2 * per_chunk + per_tile * (channels + 3),
-            counts["walked_pair_pixels"]),
+            walked + counts["walked_chunks"] * npx * f + list_bytes
+            + per_tile * (channels + 3), counts["walked_pair_pixels"]),
         "k2_composite_bwd": (
             lambda: rp.composite_bwd(pairs, seg_start, grid, channels, grad_out, t_final,
                                      n_contrib, max_pairs, chunks, prod, suffix),
             lambda: rp.composite_bwd_plain(pairs, seg_start, grid, channels, grad_out, t_final,
                                            n_contrib, max_pairs),
-            pair_bytes + list_bytes + 2 * per_chunk + per_tile * (channels + 4)
-            + max_pairs * (rp.HDR + channels) * f,
+            walked + counts["walked_chunks"] * npx * f + list_bytes
+            + per_tile * (channels + 4) + max_pairs * (rp.HDR + channels) * f,
             counts["walked_pair_pixels"]),
     }
+    # the plain versions and torch.cumsum take 0.1-0.5 s of device time a
+    # call (and the plain versions seconds of host time): fewer calls time them
     rows = {}
     for name, (kernel, plain, nbytes, evaluated) in passes.items():
         ops = evaluated * EVAL_OPS + counts["kept_pair_pixels"] * kept_ops(name, channels)
@@ -718,13 +750,13 @@ def measure_kernels(captured, launches: dict, steps: int) -> dict:
         rows[name] = {
             "launches": launches[name], "launches_per_step": launches[name] / steps,
             "max_abs_err": res["errors"][name],
-            "ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 3),
+            "ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 1),
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "bytes": nbytes, "ops": ops, **counts,
         }
     m, c = k3_in.shape
     k3_bound, k3_by = bound_ms(2 * m * c * 4, m * c)
-    cumsum = cuda_ms(lambda: torch.cumsum(k3_in, 0), 20)
+    cumsum = cuda_ms(lambda: torch.cumsum(k3_in, 0), 3)
     rows["k3_cumsum_rows"] = {
         "launches": launches["k3_cumsum_rows"],
         "launches_per_step": launches["k3_cumsum_rows"] / steps,
@@ -1105,6 +1137,264 @@ def chain(device, seed, kernels, tmp: Path) -> tuple[dict, dict]:
     return summary, {"bwd": bwd.args, "k3": k3.args}
 
 
+# the gsplat phase: bench.py's second workload (bench.py:80-122) at its
+# widths, then SH degree 3 with densification, then the 3DGS task
+GSPLAT = dict(gaussians=50_000, cameras=8, resolution=800, radius=2.5, elevation=15.0,
+              random_scale=0.8, opacity_logit=1.0, pairs_per_gaussian=32, warmup_steps=4,
+              timed_steps=10, sh_steps=4, densify_steps=(12, 14), reset_step=2,
+              densify_quantile=0.9, task_steps=4, task_resume_to=6)
+
+
+def trace_step(step) -> dict:
+    """One synchronised call of step() under torch.profiler: its wall time,
+    the device's busy time (the sum of its kernels' times), the idle share
+    and the five kernels with the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("gsplat.", "rasterize."))]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_s": wall, "device_busy_s": busy, "device_idle_share": max(0.0, 1 - busy / wall),
+            "kernel_launches": len(kernels), "top_kernels_s": dict(top)}
+
+
+def gsplat_bench(device, seed, kernels) -> tuple[dict, dict]:
+    """(a) of phase 9: 50k random Gaussians (SH degree 0, opacity logit 1),
+    8 orbit cameras at 800x800 on black, bench.py's horizontal-gradient
+    ground truth, GSplatTrainer with densification off; warm-up and timed
+    steps. Returns (summary, the last camera's kernel inputs)."""
+    import torch
+
+    from geosplatting_tpu_torch.graphics.cameras import Cameras
+    from geosplatting_tpu_torch.graphics.splats import Splats
+    from geosplatting_tpu_torch.models.gsplatter import GSplatter
+    from geosplatting_tpu_torch.ops import rasterize_pairs as rp
+    from geosplatting_tpu_torch.ops import segment_rows as sr
+    from geosplatting_tpu_torch.train.gsplat_trainer import GSplatTrainer, GSplatTrainerConfig
+
+    c = GSPLAT
+    b, res = c["cameras"], c["resolution"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    splats = Splats.random(c["gaussians"], sh_degree=0, random_scale=c["random_scale"],
+                           generator=gen, device=device)
+    splats = splats.replace(opacities=torch.full_like(splats.opacities, c["opacity_logit"]))
+    model = GSplatter(sh_degree=0, background_color="black",
+                      pairs_per_gaussian=c["pairs_per_gaussian"], device=device)
+    cams = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=c["radius"],
+                              elevation_degrees=c["elevation"], num_samples=b, width=res,
+                              height=res, device=device)
+    trainer = GSplatTrainer(GSplatTrainerConfig(batch_size=b, warmup_length=10**9), model,
+                            dataset_size=b)
+    trainer.init_state(splats)
+    gt = torch.linspace(0, 1, res, device=device)[None, None, :, None].expand(
+        b, res, res, 4).contiguous()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, per_step, totals = [], [], {k: 0 for k in kernels.KERNELS}
+    recorders = [Recorder(rp, "composite_bwd"), Recorder(sr, "cumsum_rows")]
+    n_steps = c["warmup_steps"] + c["timed_steps"]
+    for i in range(n_steps):
+        timed = i >= c["warmup_steps"]
+        if i == n_steps - 1:
+            for r in recorders:
+                r.__enter__()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        m = trainer.train_step(cams, gt, max_sh_degree=None, generator=gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: kernels.launches[k] for k in kernels.KERNELS}
+        metrics = {k: float(v) for k, v in m.items()}
+        per_step.append({**metrics, "seconds": dt, "timed": timed})
+        if not (math.isfinite(metrics["loss"]) and metrics["nonfinite_grads"] == 0
+                and metrics["pair_fill"] <= 1.0):
+            raise AssertionError(f"gsplat step {i}: {metrics}")
+        if not all(counts[k] == b for k in kernels.KERNELS):
+            raise AssertionError(f"gsplat step {i}: kernel launches {counts} for {b} cameras")
+        if timed:
+            seconds.append(dt)
+            for k in totals:
+                totals[k] += counts[k]
+    for r in recorders:
+        r.__exit__()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    traced = trace_step(lambda: trainer.train_step(cams, gt, max_sh_degree=None, generator=gen))
+    with torch.no_grad():
+        pairs = [int(model.render_rgba(trainer.splats(), cams[i])[1]["total_pairs"])
+                 for i in range(b)]
+    med = sorted(seconds)[len(seconds) // 2]
+    budget = c["pairs_per_gaussian"] * c["gaussians"]
+    summary = {
+        "config": {k: c[k] for k in ("gaussians", "cameras", "resolution", "radius",
+                                     "elevation", "random_scale", "opacity_logit",
+                                     "pairs_per_gaussian", "warmup_steps", "timed_steps")},
+        "pair_budget": budget, "pairs_per_camera": pairs,
+        "pairs_per_gaussian_needed": max(pairs) / c["gaussians"],
+        "pair_fill": max(pairs) / budget, "timed_step_seconds": seconds,
+        "median_step_s": med, "its": 1.0 / med, "peak_memory_gib": peak, "traced": traced,
+        "loss": [s["loss"] for s in per_step], "launches": totals,
+        "launches_per_step": {k: v / c["timed_steps"] for k, v in totals.items()},
+    }
+    return summary, {"bwd": recorders[0].args, "k3": recorders[1].args}
+
+
+def gsplat_densify(device, seed) -> dict:
+    """(b) of phase 9: the same scene at SH degree 3, trained with
+    max_sh_degree 3, then after_update at a reset step and two densify
+    steps (refine every 2, reset every 20, the densify threshold at this
+    run's 90th percentile of the averaged screen gradient, so a tenth of the
+    Gaussians split). After each: the count is param_map's, the kept slots
+    hold the old rows and Adam moments, the new slots zero moments, and the
+    next step is finite."""
+    import dataclasses
+
+    import torch
+
+    from geosplatting_tpu_torch.graphics.cameras import Cameras
+    from geosplatting_tpu_torch.graphics.splats import FIELDS, Splats
+    from geosplatting_tpu_torch.models.gsplatter import GSplatter
+    from geosplatting_tpu_torch.train.gsplat_trainer import GSplatTrainer, GSplatTrainerConfig
+
+    c = GSPLAT
+    b, res = c["cameras"], c["resolution"]
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    splats = Splats.random(c["gaussians"], sh_degree=3, random_scale=c["random_scale"],
+                           generator=gen, device=device)
+    splats = splats.replace(opacities=torch.full_like(splats.opacities, c["opacity_logit"]))
+    model = GSplatter(sh_degree=3, background_color="black",
+                      pairs_per_gaussian=c["pairs_per_gaussian"], device=device)
+    cams = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=c["radius"],
+                              elevation_degrees=c["elevation"], num_samples=b, width=res,
+                              height=res, device=device)
+    trainer = GSplatTrainer(GSplatTrainerConfig(batch_size=b, warmup_length=1, refine_every=2,
+                                                reset_alpha_every=10), model, dataset_size=b)
+    trainer.init_state(splats)
+    gt = torch.linspace(0, 1, res, device=device)[None, None, :, None].expand(
+        b, res, res, 4).contiguous()
+
+    def step():
+        m = {k: float(v) for k, v in trainer.train_step(cams, gt, max_sh_degree=3,
+                                                       generator=gen).items()}
+        if not (math.isfinite(m["loss"]) and m["nonfinite_grads"] == 0 and m["pair_fill"] <= 1):
+            raise AssertionError(f"gsplat SH-3 step: {m}")
+        return m
+
+    steps = [step() for _ in range(c["sh_steps"])]
+    events = []
+    for at in (c["reset_step"], *c["densify_steps"]):
+        old = {k: p.detach().clone() for k, p in trainer.params.items()}
+        moments = {k: {m: s.clone() for m, s in trainer.optimizers.adam.state[
+            trainer.params[k]].items() if m != "step"} for k in trainer.specs}
+        vis = torch.clamp(trainer.vis_counts, min=1.0)
+        avg = 0.5 * res * (trainer.xys_grad_norm / vis)
+        thresh = float(torch.quantile(avg, c["densify_quantile"]))
+        trainer.config = dataclasses.replace(trainer.config, densify_grad_thresh=thresh)
+        info = trainer.after_update(at, (res, res), generator=gen)
+        n_old, n_new = old["means"].shape[0], trainer.params["means"].shape[0]
+        event = {"step": at, "before": n_old, "after": n_new, "densify_grad_thresh": thresh,
+                 "reset_opacities": info["reset_opacities"]}
+        ok = info is not None
+        pmap = info["param_map"]
+        if pmap is None:   # the reset step: opacities clamped, their moments cleared
+            limit = math.log(0.2 / 0.8)
+            st = trainer.optimizers.adam.state[trainer.params["opacities"]]
+            ok = ok and info["reset_opacities"] and n_new == n_old and bool(
+                (trainer.params["opacities"] <= limit + 1e-6).all()) and not bool(
+                st["exp_avg"].any() or st["exp_avg_sq"].any())
+        else:
+            kept = pmap >= 0
+            src = pmap[kept]
+            event.update(kept=int(kept.sum()), new=int((~kept).sum()),
+                         dropped_or_split=n_old - int(kept.sum()))
+            ok = ok and n_new == pmap.shape[0] and n_new != n_old and all(
+                torch.equal(trainer.params[k].detach()[kept], old[k][src]) for k in FIELDS)
+            for k in trainer.specs:
+                st = trainer.optimizers.adam.state[trainer.params[k]]
+                for m in ("exp_avg", "exp_avg_sq"):
+                    ok = ok and torch.equal(st[m][kept], moments[k][m][src]) and not bool(
+                        st[m][~kept].any())
+        event["next_step"] = step()
+        events.append(event)
+        if not ok:
+            raise AssertionError(f"gsplat densification failed a check: {event}")
+    return {"sh_steps": steps, "events": events,
+            "final_gaussians": int(trainer.params["means"].shape[0])}
+
+
+def gsplat_task(device, seed, kernels, scene: Path) -> dict:
+    """(c) of phase 9: GSplatTrainTask at the blender preset's widths on the
+    product phase's scene: 4 steps with checkpoints at 2 and 4, validation
+    and the export, a resume to 6, the export held against the step-6
+    checkpoint key by key."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from geosplatting_tpu_torch.engine.stage_io import load_export
+    from geosplatting_tpu_torch.engine.train_task import GSplatTrainTask
+    from geosplatting_tpu_torch.scripts import train_gsplat as cli
+    from geosplatting_tpu_torch.utils.config import load_dataclass
+
+    c = GSPLAT
+    preset = cli.TASKS["blender"]
+    task = dataclasses.replace(preset, dataset_path=scene, experiment_name="gsplat-task",
+                               seed=seed, num_steps=c["task_steps"], num_steps_per_save=2,
+                               num_steps_per_val=c["task_steps"], num_val_images=2,
+                               device=str(device))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    runs = []
+    with Timed(GSplatTrainTask, "step_fn") as steps, Timed(GSplatTrainTask, "val_render") as val:
+        out = task.run()
+        run_dir = Path(out["output_dir"]).resolve()
+        runs.append(out)
+        again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
+                                    num_steps=c["task_resume_to"])
+        runs.append(again.run(resume_dir=run_dir))
+    launches = {k: kernels.launches[k] for k in kernels.KERNELS}
+    log = (run_dir / "log.txt").read_text()
+    exported = load_export(run_dir)
+    ckpt = torch.load(run_dir / "ckpts" / f"{c['task_resume_to']}.pt", map_location="cpu")
+    params = {k: v.numpy() for k, v in ckpt["trainer"]["params"].items()}
+    mismatched = sorted(k for k in params if not np.array_equal(exported.get(k), params[k]))
+    per_step = [{k: float(m[k]) for k in ("loss", "psnr", "nonfinite_grads", "pair_fill",
+                                           "num_gaussians")} for m in steps.outputs]
+    summary = {
+        "preset": {k: getattr(preset, k) for k in ("num_init_gaussians", "sh_degree",
+                                                   "batch_size", "rasterize_mode",
+                                                   "pairs_per_gaussian")},
+        "steps": per_step, "step_seconds": steps.seconds, "val_render_seconds": val.seconds,
+        "val_psnr": [r["val_psnr"] for r in runs],
+        "export_shapes": {k: list(v.shape) for k, v in exported.items()},
+        "export_mismatched": mismatched, "launches": launches,
+        "resumed": f"resumed from step {c['task_steps']}" in log,
+        "log_tail": log.splitlines()[-3:],
+    }
+    if not (all(math.isfinite(m["loss"]) and m["nonfinite_grads"] == 0 and m["pair_fill"] <= 1
+                for m in per_step)
+            and len(per_step) == c["task_resume_to"] and len(val.seconds) == 2
+            and all(math.isfinite(v) for v in summary["val_psnr"])
+            and summary["resumed"] and f"step {c['task_resume_to']}:" in log
+            and not mismatched and sorted(exported) == sorted(params)
+            and all(launches[k] > 0 for k in kernels.KERNELS)):
+        raise AssertionError(f"the 3DGS task failed a check: {summary}")
+    return summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1162,16 +1452,34 @@ def main() -> int:
         t0 = time.perf_counter()
         s3, captured = chain(device, args.seed, _kernels, Path(tmp))
         seconds["chain"] = time.perf_counter() - t0
-    # and at the inputs of stage 3's last G-buffer camera (C = 14)
+        # and at the inputs of stage 3's last G-buffer camera (C = 14)
+        t0 = time.perf_counter()
+        measured = measure_kernels(captured, s3["launches"], len(s3["stage3_steps"]))
+        del captured
+        phase("kernels_vs_plain_at_stage3", **measured["checks"], **measured["counts"],
+              max_abs_err={k: r["max_abs_err"] for k, r in measured["rows"].items()},
+              tol=TOLERANCES)
+        for entry in line["kernels"]:
+            entry["stage3"] = measured["rows"][entry["name"]]
+        seconds["kernels_stage3"] = time.perf_counter() - t0
+        # 3DGS: bench.py's workload, SH 3 with densification, the task
+        t0 = time.perf_counter()
+        bench, captured = gsplat_bench(device, args.seed, _kernels)
+        phase("gsplat_bench", **bench, card=smi)
+        dens = gsplat_densify(device, args.seed)
+        phase("gsplat_densify", **dens)
+        gtask = gsplat_task(device, args.seed, _kernels, Path(tmp) / "scene")
+        phase("gsplat_task", **gtask)
+        seconds["gsplat"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    measured = measure_kernels(captured, s3["launches"], len(s3["stage3_steps"]))
+    measured = measure_kernels(captured, bench["launches"], GSPLAT["timed_steps"])
     del captured
-    phase("kernels_vs_plain_at_stage3", **measured["checks"], **measured["counts"],
+    phase("kernels_vs_plain_at_gsplat", **measured["checks"], **measured["counts"],
           max_abs_err={k: r["max_abs_err"] for k, r in measured["rows"].items()},
           tol=TOLERANCES)
     for entry in line["kernels"]:
-        entry["stage3"] = measured["rows"][entry["name"]]
-    seconds["kernels_stage3"] = time.perf_counter() - t0
+        entry["gsplat"] = measured["rows"][entry["name"]]
+    seconds["kernels_gsplat"] = time.perf_counter() - t0
     phase("phase_seconds", **seconds, total=time.perf_counter() - start)
     print(smi)
     print(json.dumps(line))

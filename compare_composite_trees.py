@@ -58,7 +58,7 @@ def capture(out: Path, seed: int) -> dict:
     with Recorder(rp, "composite_bwd") as rec:
         trainer.train_step(cams, gt, 201.0, sampling="face", generator=gen)
     pairs, seg_start, grid, channels, grad_out, _, n_contrib, max_pairs = rec.args[:8]
-    counts = pair_pixel_counts(pairs, seg_start, grid, n_contrib)
+    counts = pair_pixel_counts(pairs, seg_start, grid, n_contrib, rp.CHUNK_PAIRS)
     out.parent.mkdir(parents=True, exist_ok=True)
     torch.save({"pairs": pairs[:, :rp.HDR + channels].cpu(), "seg_start": seg_start.cpu(),
                 "grid": tuple(grid), "channels": channels, "grad_out": grad_out.cpu(),

@@ -13,6 +13,12 @@ flat: the Gaussians' ``means``, ``scales``, ``quats``, ``opacities``,
 ``latlng_value`` and the nested ``ks_enc`` {``planes``, ``ks`` {``w0``,
 ``w1``}}. MLP weights are [out, in] on both sides and triplane planes
 [3, R, R, C], so nothing is transposed.
+
+Vanilla 3DGS (``GSplatTrainer.init_state``): the params tree is flat,
+``means``, ``scales``, ``quats``, ``colors``, ``opacities`` and ``shs``,
+which is also the JAX task's export; each Adam group's state is the
+first and second moments ``mu`` and ``nu`` of its one leaf and the
+update ``count`` (optax's ``ScaleByAdamState``).
 """
 from __future__ import annotations
 
@@ -70,3 +76,46 @@ def params_to_numpy(state: Mapping[str, torch.Tensor]) -> dict:
             field[head] = leaves
     tree["field"] = field
     return tree
+
+
+# --- vanilla 3DGS -------------------------------------------------------------------
+
+
+def splats_from_numpy(tree: Mapping, device=None):
+    """3DGS params tree (numpy leaves) -> the port's ``Splats``."""
+    from .graphics.splats import FIELDS, Splats
+
+    return Splats(**{k: _f32(tree[k]).to(device) for k in FIELDS})
+
+
+def splats_to_numpy(splats) -> dict:
+    """``Splats`` -> the JAX package's 3DGS params tree with numpy leaves."""
+    from .graphics.splats import FIELDS
+
+    return {k: getattr(splats, k).detach().cpu().numpy() for k in FIELDS}
+
+
+def adam_to_numpy(optimizers) -> dict:
+    """Each group's Adam state of a ``GroupOptimizers`` whose groups hold
+    one parameter each -> {group: {"mu", "nu", "count"}} (numpy)."""
+    out = {}
+    for group in optimizers.adam.param_groups:
+        state = optimizers.adam.state.get(group["params"][0])
+        if state:
+            out[group["name"]] = {"mu": state["exp_avg"].cpu().numpy(),
+                                  "nu": state["exp_avg_sq"].cpu().numpy(),
+                                  "count": int(state["step"])}
+    return out
+
+
+def adam_from_numpy(optimizers, tree: Mapping) -> None:
+    """Set the Adam state of each group named in ``tree`` ({group: {"mu",
+    "nu", "count"}}) and the schedule's update count."""
+    for name, leaf in tree.items():
+        p = optimizers.group(name)["params"][0]
+        optimizers.adam.state[p] = {
+            "step": torch.tensor(float(leaf["count"])),
+            "exp_avg": _f32(leaf["mu"]).to(p.device),
+            "exp_avg_sq": _f32(leaf["nu"]).to(p.device),
+        }
+        optimizers.count = int(leaf["count"])

@@ -1,13 +1,14 @@
-"""Blender-style dataparsers: Blender and MaskedBlender (the NeRF-synthetic
-layout, PNG frames) and Syn4Relight (HDR training frames with masks, relit
-test frames and material maps).
+"""Blender-style dataparsers: Blender, MaskedBlender and DepthBlender (the
+NeRF-synthetic layout, PNG frames), Syn4Relight (HDR training frames with
+masks, relit test frames and material maps), TensoIR (z-up poses,
+``_sunset.png`` frames) and Shiny Blender (no val split).
 
 Counterpart of ``geosplatting_tpu/data/dataparsers/blender_family.py``
 (``ParsedSplit``, ``_load_transforms``, ``_focal``, ``BlenderDataparser``,
-``MaskedBlenderDataparser``, ``_srgb_encode``, ``_exr_or_hdr``,
-``Syn4RelightDataparser``). Parsers give numpy camera and image stacks;
-the dataset puts them on the device. The TensoIR and Shiny Blender layouts
-are recognised by ``data.dataset`` but not parsed yet.
+``DepthBlenderDataparser``, ``MaskedBlenderDataparser``, ``_srgb_encode``,
+``_exr_or_hdr``, ``Syn4RelightDataparser``, ``TensoIRDataparser`` and
+``ShinyBlenderDataparser``). Parsers give numpy camera and image stacks;
+the dataset puts them on the device.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Any
 
 import numpy as np
 
-from ..io import load_masked_image, resize_image
+from ..io import load_float32_image, load_masked_image, resize_image
 
 IMAGE_WH = 800
 
@@ -45,9 +46,16 @@ class ParsedSplit:
     # linear HDR frames (.exr / .hdr) are clipped to [0, 1] and sRGB-encoded
     # at load, so every split holds the sRGB values the trainers expect
     hdr_to_srgb: bool = False
+    # images a parser decodes itself (DepthBlender's depth and alpha)
+    images: np.ndarray | None = None
 
     def load_images(self, scale_factor: float | None = None) -> np.ndarray:
-        """[N, H, W, 4] rgba float32 (LDR values as stored, i.e. sRGB)."""
+        """[N, H, W, 4] rgba float32 (LDR values as stored, i.e. sRGB); a
+        parser's own ``images`` as they are, resized."""
+        if self.images is not None:
+            if scale_factor is None:
+                return self.images
+            return np.stack([resize_image(im, scale_factor) for im in self.images])
         out = []
         for i, p in enumerate(self.image_paths):
             img = load_masked_image(p, self.mask_paths[i] if self.mask_paths else None)
@@ -103,6 +111,27 @@ class BlenderDataparser:
             for p in ("train", "test", "transforms_train.json",
                       "transforms_test.json", "transforms_val.json")
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class DepthBlenderDataparser:
+    """Blender layout for depth supervision: images [N, H, W, 2] = (metric
+    depth = red x 4, alpha); ``meta`` names ``gt.ply`` where it exists.
+    Selected explicitly (the layout is Blender's)."""
+
+    def parse(self, path: Path, split: str) -> ParsedSplit:
+        base = _blender_split(path, split)
+        imgs = np.stack([load_float32_image(p) for p in base.image_paths])
+        alpha = imgs[..., 3:4] if imgs.shape[-1] >= 4 else np.ones_like(imgs[..., :1])
+        gt_mesh = path / "gt.ply"
+        return dataclasses.replace(
+            base, image_paths=[],
+            images=np.concatenate((imgs[..., :1] * 4.0, alpha), -1).astype(np.float32),
+            meta={"gt_mesh": gt_mesh if gt_mesh.exists() else None, "mesh_scale": 2 / 3})
+
+    @staticmethod
+    def recognize(path: Path) -> bool:
+        return False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,3 +195,41 @@ class Syn4RelightDataparser:
         return all((path / p).exists() for p in (
             "train", "test", "transforms_train.json", "transforms_test.json")) and all(
             _exr_or_hdr(path.parent / n).exists() for n in ("envmap6.exr", "envmap12.exr"))
+
+
+@dataclasses.dataclass(frozen=True)
+class TensoIRDataparser:
+    """TensoIR-synthetic: translations scaled by 2/3, then the z-up poses
+    mapped by rows (-y, z, -x); frames ``<file_path>_sunset.png``."""
+
+    def parse(self, path: Path, split: str) -> ParsedSplit:
+        base = _blender_split(path, split)
+        meta, _ = _load_transforms(path, split)
+        c2w = base.c2w
+        return dataclasses.replace(
+            base, c2w=np.stack((-c2w[:, 1, :], c2w[:, 2, :], -c2w[:, 0, :]), axis=-2),
+            image_paths=[path / (f_["file_path"] + "_sunset.png") for f_ in meta["frames"]])
+
+    @staticmethod
+    def recognize(path: Path) -> bool:
+        if not (path / "transforms_train.json").exists():
+            return False
+        with open(path / "transforms_train.json") as f:
+            first = json.load(f)["frames"][0]["file_path"]
+        return (path / (first + "_sunset.png")).exists()
+
+
+@dataclasses.dataclass(frozen=True)
+class ShinyBlenderDataparser:
+    """Shiny Blender: the Blender layout without a val transforms file (the
+    val split is the train split)."""
+
+    def parse(self, path: Path, split: str) -> ParsedSplit:
+        return _blender_split(path, "train" if split == "val" else split)
+
+    @staticmethod
+    def recognize(path: Path) -> bool:
+        return ((path / "transforms_train.json").exists()
+                and (path / "transforms_test.json").exists()
+                and not (path / "transforms_val.json").exists()
+                and not (path.parent / "envmap6.exr").exists())

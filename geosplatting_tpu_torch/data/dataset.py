@@ -11,7 +11,6 @@ both give the same batches.
 from __future__ import annotations
 
 import dataclasses
-import json
 from pathlib import Path
 from typing import Any, Iterator
 
@@ -20,19 +19,14 @@ import torch
 
 from .. import _kernels
 from ..graphics.cameras import Cameras
-from .dataparsers.blender_family import BlenderDataparser, ParsedSplit, Syn4RelightDataparser
+from .dataparsers.blender_family import (
+    BlenderDataparser, ParsedSplit, ShinyBlenderDataparser, Syn4RelightDataparser,
+    TensoIRDataparser,
+)
 
-# Layouts the JAX package reads that come before or after Blender's in its
-# recognition order and are not ported yet: each is recognised so that it
-# is named, never parsed as another layout.
-
-
-def _is_tensoir(path: Path) -> bool:
-    if not (path / "transforms_train.json").exists():
-        return False
-    with open(path / "transforms_train.json") as f:
-        first = json.load(f)["frames"][0]["file_path"]
-    return (path / (first + "_sunset.png")).exists()
+# StanfordORB comes before Blender in the JAX package's recognition order
+# and is not ported yet: it is recognised so that it is named, never parsed
+# as another layout.
 
 
 def _is_stanford_orb(path: Path) -> bool:
@@ -42,21 +36,14 @@ def _is_stanford_orb(path: Path) -> bool:
             and (path.parent.parent / "ground_truth" / path.name).exists())
 
 
-def _is_shiny_blender(path: Path) -> bool:
-    return ((path / "transforms_train.json").exists()
-            and (path / "transforms_test.json").exists()
-            and not (path / "transforms_val.json").exists()
-            and not (path.parent / "envmap6.exr").exists())
-
-
 # (name, recognizer, parser class or None while not ported), in the JAX
 # package's recognition order
 DATAPARSERS = (
     ("Syn4Relight", Syn4RelightDataparser.recognize, Syn4RelightDataparser),
-    ("TensoIR", _is_tensoir, None),
+    ("TensoIR", TensoIRDataparser.recognize, TensoIRDataparser),
     ("StanfordORB", _is_stanford_orb, None),
     ("Blender", BlenderDataparser.recognize, BlenderDataparser),
-    ("ShinyBlender", _is_shiny_blender, None),
+    ("ShinyBlender", ShinyBlenderDataparser.recognize, ShinyBlenderDataparser),
 )
 
 
@@ -72,8 +59,9 @@ def recognize_dataparser(path: Path):
                     f"{path} is a {name} dataset; its dataparser is not ported yet")
             return cls()
     raise ValueError(
-        f"no dataparser recognizes {path} (the port reads the Blender and Syn4Relight "
-        "layouts; IDR, LLFF, COLMAP and the synthetic-mesh layouts are not ported yet)")
+        f"no dataparser recognizes {path} (the port reads the Blender, Syn4Relight, "
+        "TensoIR and Shiny Blender layouts; IDR, LLFF, COLMAP and the synthetic-mesh "
+        "layouts are not ported yet)")
 
 
 def cameras_of(parsed: ParsedSplit, scale_factor: float | None, device) -> Cameras:

@@ -6,11 +6,17 @@ Counterpart of ``geosplatting_tpu/engine/eval_tasks.py``
 ``RelightEvaler``, ``_mean_metrics``): per-channel albedo scaling against
 the ground-truth albedo (least squares or median), PSNR / SSIM of the test
 views, of the frames relit under each ground-truth environment (albedo
-scaled, occ collapsed) and of the scaled albedo, and the roughness MSE.
-LPIPS is not ported (``ops/lpips.py``): its entries are ``None``, with the
-JAX package's message. Unlike the JAX package's, the ground-truth maps and
-relit frames are resized by the dataset's ``scale_factor``, as its images
-are, so a scene evaluates at a reduced resolution too.
+scaled, occ collapsed) and of the scaled albedo, and the roughness MSE;
+LPIPS (``ops/lpips.py``) where ``GEOSPLAT_LPIPS_WEIGHTS`` names a weights
+file, else ``None``, as in the JAX package.
+
+Deviations from the JAX package: the ground-truth maps and relit frames
+are resized by the dataset's ``scale_factor``, as its images are, so a
+scene evaluates at a reduced resolution too; and a relight environment
+that exists but cannot be decoded raises (naming
+``OPENCV_IO_ENABLE_OPENEXR`` for an ``.exr``), where the JAX evaluator
+skips it without a word (``except Exception``). Only a missing
+environment file is skipped.
 
 Every camera of a chunk sees the same shade draws in every render kind, as
 the JAX package's one fixed key gives them: by default a generator seeded
@@ -20,6 +26,7 @@ replay the JAX draws).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Callable
 
 import numpy as np
@@ -29,6 +36,7 @@ from ..graphics import images as gimages
 from ..graphics.cameras import Cameras
 from ..models.geosplat_defer import GeoSplatterDefer
 from ..ops.envshade import ShadeDraws
+from ..ops.lpips import lpips
 from ..ops.ssim import ssim
 
 CHUNK = 8
@@ -77,21 +85,25 @@ _LPIPS_WARNED = False
 
 
 def image_metrics(pred, gt, fast: bool = False) -> dict:
-    """PSNR of two images in [0, 1]; unless ``fast``, SSIM too and LPIPS as
-    None (not ported)."""
+    """PSNR of two images in [0, 1]; unless ``fast``, SSIM and LPIPS too.
+    LPIPS is None when ``GEOSPLAT_LPIPS_WEIGHTS`` names no weights file."""
     pred = torch.as_tensor(np.asarray(pred), dtype=torch.float32)
     gt = torch.as_tensor(np.asarray(gt), dtype=torch.float32)
     mse = float(((pred - gt) ** 2).mean())
     out = {"psnr": -10.0 * np.log10(max(mse, 1e-12))}
     if not fast:
         out["ssim"] = float(ssim(pred, gt))
-        global _LPIPS_WARNED
-        if not _LPIPS_WARNED:
-            _LPIPS_WARNED = True
-            print("lpips: weights absent — set GEOSPLAT_LPIPS_WEIGHTS to a vgg16+lin .npz to "
-                  "enable (graph validated in tests/test_lpips.py); reporting lpips: null",
-                  flush=True)
-        out["lpips"] = None
+        try:
+            out["lpips"] = lpips(pred, gt)
+        except FileNotFoundError as err:
+            global _LPIPS_WARNED
+            if not _LPIPS_WARNED:
+                _LPIPS_WARNED = True
+                reason = ("weights absent — set GEOSPLAT_LPIPS_WEIGHTS to a vgg16+lin .npz "
+                          "to enable (graph validated in tests/test_torch_lpips.py)"
+                          if not os.environ.get("GEOSPLAT_LPIPS_WEIGHTS") else str(err))
+                print(f"lpips: {reason}; reporting lpips: null", flush=True)
+            out["lpips"] = None
     return out
 
 

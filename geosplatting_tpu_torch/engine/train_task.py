@@ -1,20 +1,22 @@
-"""The stage-1, stage-2 and stage-3 training tasks, the shared training loop
-and the relight evaluation of a stage-3 run.
+"""The stage-1, stage-2, stage-3 and vanilla-3DGS training tasks, the shared
+training loop and the relight evaluation of a stage-3 run.
 
 Counterpart of ``geosplatting_tpu/engine/train_task.py`` (``resume``,
-``ResumeTask``, ``RelightEvalTask``, ``_TrainTaskBase.run``,
-``GeoSplatTrainTask``, ``GeoSplatMCTrainTask`` and
-``GeoSplatDeferTrainTask``): the loop
-with validation PSNR and image dumps on the val split, ``log.txt`` lines,
-the pair-fill alarm, checkpoints and the export that the next stage loads.
+``ResumeTask``, ``RelightEvalTask``, ``_TrainTaskBase.run`` with its
+``after_update`` hook, ``GeoSplatTrainTask``, ``GeoSplatMCTrainTask``,
+``GeoSplatDeferTrainTask`` and ``GSplatTrainTask``): the loop with
+validation PSNR and image dumps on the val split, ``log.txt`` lines, the
+alarm on every budget fill a trainer reports, checkpoints and the export
+that the next stage loads.
 Each run writes its config as ``task.py`` into its output directory, so
 ``resume`` can rebuild it.
 
 Randomness: one ``torch.Generator`` on the task's device, seeded from
 ``seed``, builds the model and draws every step's noise. A checkpoint
 (``ckpts/<step>.pt``, ``torch.save``) holds the model's and the
-optimizers' state, the step and the generator's state, so a resumed run
-draws what the uninterrupted run would have drawn.
+optimizers' state (3DGS: the trainer's, with the Gaussians at that step's
+count and the densification statistics), the step and the generator's
+state, so a resumed run draws what the uninterrupted run would have drawn.
 
 Options of the JAX tasks without a meaning in the port yet are left out:
 ``backend``, ``tile_capacity`` and ``data_parallel`` (multi-GPU; with it
@@ -23,7 +25,8 @@ the stage-3 ``train_step_dp``), and
 the JAX tasks lack: ``GeoSplatTrainTask.sdf_sphere_init`` (default off) and
 ``triplane_resolution`` (the JAX model's 512). The stage-3 task builds its
 model with a mesh tile capacity of 1024 where the JAX model keeps 256
-(``MESH_TILE_CAPACITY``).
+(``MESH_TILE_CAPACITY``), and the 3DGS task budgets 48 screen pairs a
+Gaussian where the JAX model's default is 8 (``PAIRS_PER_GAUSSIAN``).
 """
 from __future__ import annotations
 
@@ -42,17 +45,22 @@ from .experiment import Experiment
 from .stage_io import find_export, load_export, save_export
 
 
+def _trainer_state(trainer) -> dict:
+    """What a checkpoint keeps of a trainer: its own ``state_dict`` where it
+    has one (3DGS, whose parameters change shape between steps), else the
+    model's and the optimizers' state."""
+    if hasattr(trainer, "state_dict"):
+        return {"trainer": trainer.state_dict()}
+    opt = trainer.optimizers
+    return {"model": trainer.model.state_dict(), "optimizer": opt.adam.state_dict(),
+            "optimizer_count": opt.count}
+
+
 def save_checkpoint(ckpt_dir: Path, step: int, trainer, generator: torch.Generator) -> Path:
     path = Path(ckpt_dir) / f"{step}.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
-    opt = trainer.optimizers
-    torch.save({
-        "step": step,
-        "model": trainer.model.state_dict(),
-        "optimizer": opt.adam.state_dict(),
-        "optimizer_count": opt.count,
-        "generator": generator.get_state(),
-    }, path)
+    torch.save({"step": step, **_trainer_state(trainer), "generator": generator.get_state()},
+               path)
     return path
 
 
@@ -65,9 +73,12 @@ def load_checkpoint(ckpt_dir: Path, trainer, generator: torch.Generator,
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
     step = steps[-1] if step is None else step
     state = torch.load(Path(ckpt_dir) / f"{step}.pt", map_location="cpu")
-    trainer.model.load_state_dict(state["model"])
-    trainer.optimizers.adam.load_state_dict(state["optimizer"])
-    trainer.optimizers.count = state["optimizer_count"]
+    if "trainer" in state:
+        trainer.load_state_dict(state["trainer"])
+    else:
+        trainer.model.load_state_dict(state["model"])
+        trainer.optimizers.adam.load_state_dict(state["optimizer"])
+        trainer.optimizers.count = state["optimizer_count"]
     generator.set_state(state["generator"])
     return state["step"]
 
@@ -131,6 +142,16 @@ class RelightEvalTask:
         return results
 
 
+# every fill a trainer reports: (its budget, what overflow drops, the knob)
+FILLS = {
+    "pair_fill": ("pair budget", "farthest gaussians", "pairs_budget / pairs_per_gaussian"),
+    "face_fill": ("render-face budget", "faces past the budget", "max_render_faces"),
+    "mesh_tile_fill": ("mesh tile capacity", "farthest triangles of a tile",
+                       "mesh_tile_capacity"),
+    "mesh_pair_fill": ("mesh pair budget", "farthest triangles' tiles", "pairs_per_triangle"),
+}
+
+
 def _psnr(pred: np.ndarray, gt: np.ndarray) -> float:
     mse = float(np.mean((pred - gt) ** 2))
     return -10.0 * float(np.log10(max(mse, 1e-12)))
@@ -158,6 +179,10 @@ class _TrainTaskBase:
 
     def step_fn(self, trainer, cams, gt, generator, step: int) -> dict:
         raise NotImplementedError
+
+    def after_update(self, trainer, step: int, last_wh: tuple[int, int],
+                     generator: torch.Generator) -> None:
+        """Called after every step (3DGS: densify, cull, reset opacities)."""
 
     def val_render(self, model, cams) -> torch.Tensor:
         """-> [B, H, W, 4] premultiplied-sRGB rgba prediction."""
@@ -194,6 +219,7 @@ class _TrainTaskBase:
         for step in range(start_step, self.num_steps):
             cams, gt, _ = next(it)
             metrics = self.step_fn(trainer, cams, gt, generator, step)
+            self.after_update(trainer, step, (cams.width, cams.height), generator)
             last = step + 1 == self.num_steps
             if (step + 1) % self.num_steps_per_val == 0 or last:
                 val_metrics = self._validate(model, dataset, exp, step + 1)
@@ -202,16 +228,17 @@ class _TrainTaskBase:
                 exp.log(f"step {step + 1}: {line} "
                         + " ".join(f"{k}={v:.4g}" for k, v in val_metrics.items())
                         + f" it/s={its:.2f}")
-                # pair_fill >= 1 means the pair budget drops the farthest
-                # Gaussians' pairs; > 0.95 means its headroom is gone
-                fill = float(metrics.get("pair_fill", 0.0))
-                if fill > 0.95:
-                    msg = (f"WARNING step {step + 1}: pair_fill={fill:.3f}"
-                           + (" — pair budget EXCEEDED, farthest gaussians are being dropped"
-                              if fill >= 1.0 else " — pair budget nearly full")
-                           + "; raise pairs_budget (model config)")
-                    exp.log(msg)
-                    print(msg, flush=True)
+                # a fill >= 1 means its budget is dropping work; > 0.95
+                # means its headroom is gone
+                for name, (budget, dropped, knob) in FILLS.items():
+                    fill = float(metrics.get(name, 0.0))
+                    if fill > 0.95:
+                        msg = (f"WARNING step {step + 1}: {name}={fill:.3f}"
+                               + (f" — {budget} EXCEEDED, {dropped} are being dropped"
+                                  if fill >= 1.0 else f" — {budget} nearly full")
+                               + f"; raise {knob} (model config)")
+                        exp.log(msg)
+                        print(msg, flush=True)
             if (step + 1) % self.num_steps_per_save == 0 or last:
                 save_checkpoint(exp.ckpt_dir, step + 1, trainer, generator)
 
@@ -461,3 +488,66 @@ class GeoSplatDeferTrainTask(_TrainTaskBase):
         # export stored it
         return {"params": params_to_numpy(model.state_dict()),
                 "geometry": frozen_geometry(self._stage2)}
+
+
+# --- vanilla 3DGS ----------------------------------------------------------------
+
+# screen pairs budgeted per Gaussian by the 3DGS task (the budget is this x
+# N, re-sized as densification changes N). The JAX model's 8 drops ~3/4 of
+# the pairs at the presets' start: 65,536 random Gaussians in the unit cube
+# at 800 x 800 need 29-32 pairs each from Blender-like cameras, so 48
+# leaves a third of headroom
+PAIRS_PER_GAUSSIAN = 48
+
+
+@dataclasses.dataclass
+class GSplatTrainTask(_TrainTaskBase):
+    """Vanilla 3DGS with the densify / cull schedule (GSplatter,
+    GSplatTrainer), from ``Splats.random`` in the unit cube. A checkpoint
+    holds the Gaussians at their count of that step with their Adam state
+    and statistics, so a resume after a densification continues the
+    uninterrupted run. The export is the params tree (``means``,
+    ``scales``, ``quats``, ``colors``, ``opacities``, ``shs``)."""
+
+    experiment_name: str = "gsplat"
+    num_steps: int = 7000
+    batch_size: int = 1
+    num_steps_per_save: int = 2000
+    num_steps_per_val: int = 500
+    num_init_gaussians: int = 65536
+    sh_degree: int = 3
+    rasterize_mode: str = "classic"   # 'classic' | 'antialiased' ('2dgs' raises)
+    # the JAX model's 8 overflows at the random init (PAIRS_PER_GAUSSIAN)
+    pairs_per_gaussian: int = PAIRS_PER_GAUSSIAN
+
+    def build(self, dataset, generator):
+        from ..graphics.splats import Splats
+        from ..models.gsplatter import GSplatter
+        from ..train.gsplat_trainer import GSplatTrainer, GSplatTrainerConfig
+
+        model = GSplatter(sh_degree=self.sh_degree, rasterize_mode=self.rasterize_mode,
+                          pairs_per_gaussian=self.pairs_per_gaussian, device=dataset.device)
+        trainer = GSplatTrainer(
+            GSplatTrainerConfig(num_steps=self.num_steps, batch_size=self.batch_size),
+            model, dataset_size=dataset.get_size("train"))
+        trainer.init_state(Splats.random(self.num_init_gaussians, sh_degree=self.sh_degree,
+                                         random_scale=1.0, generator=generator,
+                                         device=dataset.device))
+        self._trainer = trainer
+        return model, trainer
+
+    def step_fn(self, trainer, cams, gt, generator, step):
+        return trainer.train_step(cams, gt, max_sh_degree=trainer.max_sh_degree_at(step),
+                                  generator=generator)
+
+    def after_update(self, trainer, step, last_wh, generator):
+        trainer.after_update(step, last_wh, generator=generator)
+
+    def val_render(self, model, cams):
+        splats = self._trainer.splats()
+        return torch.stack([model.render_rgba(splats, cams[i])[0] for i in range(len(cams))])
+
+    def export(self, model):
+        from ..convert import splats_to_numpy
+
+        return splats_to_numpy(self._trainer.splats())

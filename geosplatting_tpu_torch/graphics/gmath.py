@@ -1,8 +1,8 @@
-"""Quaternion and rotation math for the stage-1 path.
+"""Quaternion, rotation and spherical-harmonics math.
 
-Counterpart of ``geosplatting_tpu/graphics/gmath.py`` (only what stage-1
-training and its exact-quality validation call). Quaternions are wxyz
-throughout.
+Counterpart of ``geosplatting_tpu/graphics/gmath.py`` (what the three
+stages, their exact-quality validation and vanilla 3DGS call).
+Quaternions are wxyz throughout.
 """
 from __future__ import annotations
 
@@ -97,3 +97,72 @@ def rotation_from_relative_vectors(src: torch.Tensor, dst: torch.Tensor) -> torc
     r = eye + k + (k @ k) * scale
     # antiparallel fallback: 180-degree flip
     return torch.where((c < -1.0 + 1e-8)[..., None, None], -eye, r)
+
+
+# --- spherical harmonics (the vanilla 3DGS colours) --------------------------------
+
+SH_C0 = 0.28209479177387814
+_SH_C1 = 0.4886025119029199
+_SH_C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
+          -1.0925484305920792, 0.5462742152960396)
+_SH_C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
+          0.3731763325901154, -0.4570457994644658, 1.445305721320277,
+          -0.5900435899266435)
+
+
+def rgb2sh(rgb: torch.Tensor) -> torch.Tensor:
+    return (rgb - 0.5) / SH_C0
+
+
+def sh2rgb(sh: torch.Tensor) -> torch.Tensor:
+    return sh * SH_C0 + 0.5
+
+
+def sh_deg2dim(deg: int) -> int:
+    return (deg + 1) ** 2
+
+
+def sh_dim2deg(dim: int) -> int:
+    deg = int(round(dim ** 0.5)) - 1
+    if sh_deg2dim(deg) != dim:
+        raise ValueError(f"invalid sh dim {dim}")
+    return deg
+
+
+def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Real SH of degree ``deg`` (0-3) with coefficients sh [..., (deg+1)^2, C]
+    at unit directions [..., 3] -> [..., C], term by term in the JAX
+    package's order."""
+    result = SH_C0 * sh[..., 0, :]
+    if deg >= 1:
+        x, y, z = dirs[..., 0:1], dirs[..., 1:2], dirs[..., 2:3]
+        result = (result - _SH_C1 * y * sh[..., 1, :] + _SH_C1 * z * sh[..., 2, :]
+                  - _SH_C1 * x * sh[..., 3, :])
+        if deg >= 2:
+            xx, yy, zz = x * x, y * y, z * z
+            xy, yz, xz = x * y, y * z, x * z
+            result = (result
+                      + _SH_C2[0] * xy * sh[..., 4, :]
+                      + _SH_C2[1] * yz * sh[..., 5, :]
+                      + _SH_C2[2] * (2.0 * zz - xx - yy) * sh[..., 6, :]
+                      + _SH_C2[3] * xz * sh[..., 7, :]
+                      + _SH_C2[4] * (xx - yy) * sh[..., 8, :])
+            if deg >= 3:
+                result = (result
+                          + _SH_C3[0] * y * (3 * xx - yy) * sh[..., 9, :]
+                          + _SH_C3[1] * xy * z * sh[..., 10, :]
+                          + _SH_C3[2] * y * (4 * zz - xx - yy) * sh[..., 11, :]
+                          + _SH_C3[3] * z * (2 * zz - 3 * xx - 3 * yy) * sh[..., 12, :]
+                          + _SH_C3[4] * x * (4 * zz - xx - yy) * sh[..., 13, :]
+                          + _SH_C3[5] * z * (xx - yy) * sh[..., 14, :]
+                          + _SH_C3[6] * x * (xx - 3 * yy) * sh[..., 15, :])
+    return result
+
+
+def random_quaternion(shape: tuple[int, ...], *, generator: torch.Generator | None = None,
+                      device=None, normal: torch.Tensor | None = None) -> torch.Tensor:
+    """Uniform random unit quaternions: normalised standard-normal draws
+    [*shape, 4], from ``generator`` or injected as ``normal``."""
+    if normal is None:
+        normal = torch.randn(tuple(shape) + (4,), generator=generator, device=device)
+    return safe_normalize(normal)

@@ -7,9 +7,8 @@
 
 Every preset is a subcommand with ``--dotted.flag`` overrides; a run writes
 ``outputs/<experiment_name>/<timestamp>/`` with ``task.py``, ``log.txt``,
-``ckpts/``, ``dump/`` and ``export.npz``. The port reads the Blender and
-Syn4Relight layouts: the TensoIR and Shiny Blender presets raise, naming
-their layout, until their dataparsers are ported.
+``ckpts/``, ``dump/`` and ``export.npz``. The port reads the Blender,
+Syn4Relight, TensoIR and Shiny Blender layouts.
 """
 import dataclasses
 

@@ -12,9 +12,8 @@ Every preset is a subcommand with ``--dotted.flag`` overrides; a run writes
 ``outputs/<experiment_name>/<timestamp>/`` with ``task.py``, ``log.txt``,
 ``ckpts/``, ``dump/`` and the stage-3 ``export.npz`` (parameters and
 frozen geometry). ``nvseval`` and ``reliteval`` evaluate a stage-3 run and
-write ``eval.json`` into it. The port reads the Blender and Syn4Relight
-layouts: the TensoIR and Shiny Blender presets raise, naming their layout,
-until their dataparsers are ported.
+write ``eval.json`` into it. The port reads the Blender, Syn4Relight,
+TensoIR and Shiny Blender layouts.
 """
 import dataclasses
 

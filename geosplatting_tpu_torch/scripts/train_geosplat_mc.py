@@ -8,9 +8,8 @@
 Every preset is a subcommand with ``--dotted.flag`` overrides; a run writes
 ``outputs/<experiment_name>/<timestamp>/`` with ``task.py``, ``log.txt``,
 ``ckpts/``, ``dump/`` and the stage-2 ``export.npz`` that stage 3 loads.
-The port reads the Blender and Syn4Relight layouts: the TensoIR and Shiny
-Blender presets raise, naming their layout, until their dataparsers are
-ported.
+The port reads the Blender, Syn4Relight, TensoIR and Shiny Blender
+layouts.
 """
 import dataclasses
 

@@ -1,11 +1,13 @@
 """Per-group Adam with learning-rate schedules.
 
 Counterpart of ``geosplatting_tpu/train/optim.py`` (``make_schedule``,
-``OptimizerSpec``, ``GroupOptimizers``). Each group is one ``torch.optim.Adam``
-param group whose ``lr`` is set from the schedule before every update,
-counted from 0 per update as ``optax.scale_by_schedule`` counts; Adam's
-update mu_hat / (sqrt(nu_hat) + eps) is optax's ``scale_by_adam``.
-The cosine schedule and densification state surgery are not ported yet.
+``OptimizerSpec``, ``GroupOptimizers`` with ``mutate_params``). Each group
+is one ``torch.optim.Adam`` param group whose ``lr`` is set from the
+schedule before every update, counted from 0 per update as
+``optax.scale_by_schedule`` counts; Adam's update mu_hat / (sqrt(nu_hat) +
+eps) is optax's ``scale_by_adam``. ``mutate_params`` is the densification's
+state surgery (``mutate_optax_state``). The cosine schedule is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -63,6 +65,36 @@ class GroupOptimizers:
         ]
         self.adam = torch.optim.Adam(groups, foreach=False)
         self.count = 0
+
+    def group(self, name: str) -> dict:
+        return next(g for g in self.adam.param_groups if g["name"] == name)
+
+    @torch.no_grad()
+    def mutate_params(self, name: str, params: Sequence[torch.nn.Parameter] | None = None, *,
+                      param_map: torch.Tensor | None = None, clear: bool = False) -> None:
+        """Re-index the Adam moments of group ``name`` through ``param_map``
+        (new slot -> old index, -1 -> zero), or zero them all with
+        ``clear``. ``params`` replace the group's parameters (their first
+        dimension is ``param_map``'s length). Each parameter's step count
+        stays as it was."""
+        group = self.group(name)
+        old = group["params"]
+        new = old if params is None else list(params)
+        for p_old, p_new in zip(old, new):
+            state = self.adam.state.pop(p_old, None)
+            if state is None:   # no update yet: no moments
+                continue
+            for key in ("exp_avg", "exp_avg_sq"):
+                m = state[key]
+                if clear:
+                    state[key] = torch.zeros_like(m)
+                    continue
+                idx = param_map.to(m.device)
+                out = m[idx.clamp(min=0)]
+                out[idx < 0] = 0.0
+                state[key] = out
+            self.adam.state[p_new] = state
+        group["params"] = new
 
     def lr(self, name: str) -> float:
         return self.schedules[name](self.count)

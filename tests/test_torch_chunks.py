@@ -142,14 +142,21 @@ def test_chunk_suffix_plain_matches_a_loop(kc):
 def test_pair_pixel_counts_match_a_loop():
     pairs, seg_start = scene(3)
     _, _, n_contrib = rp.composite_fwd_plain(pairs, seg_start, GRID, 3)
-    got = pair_pixel_counts(pairs, seg_start, GRID, n_contrib)
+    kc = 16
+    got = pair_pixel_counts(pairs, seg_start, GRID, n_contrib, kc)
     p, cnt = n(pairs), n(n_contrib)
-    kept = 0
+    kept = walked = walked_chunks = 0
     for t in range(GRID.num_tiles):
         px, py = pixel_centers(t)
+        deepest = 0
         for q in range(GRID.pixels):
             kept += sum(np_alpha(p[seg_start[t] + k], px[q], py[q]) > 0 for k in range(cnt[t, q]))
+            deepest = max(deepest, min(int(cnt[t, q]), COUNTS[t]))
+        walked += deepest
+        walked_chunks += -(-deepest // kc)
     assert got == {
+        "walked_pairs": walked,
+        "walked_chunks": walked_chunks,
         "walked_pair_pixels": int(cnt.sum()),
         "kept_pair_pixels": kept,
         "tile_pair_pixels": sum(COUNTS) * GRID.pixels,

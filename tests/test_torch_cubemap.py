@@ -70,7 +70,7 @@ def test_cubemap_gradients_match_jax():
         diff = jcm.sample_cubemap(base, jnp.asarray(normals))
         return jnp.sum(spec * w) + jnp.sum(diff * w)
 
-    g_j = jax.grad(loss_j)(jnp.asarray(cube))
+    g_j = jax.jit(jax.grad(loss_j))(jnp.asarray(cube))
     c = t(cube).requires_grad_()
     base, mips = cm.prefilter_splitsum(c)
     _, spec = cm.sample_splitsum(base, mips, t(normals), t(dirs), t(rough), with_diffuse=False)

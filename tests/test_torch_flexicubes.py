@@ -39,9 +39,9 @@ def test_dmc_tables_match():
 def test_extract_buffers_match_jax():
     grid, sdf, deform, weights = sphere_inputs()
     np.testing.assert_array_equal(n(grid.base_vertices()), np.asarray(jgrid().base_vertices()))
-    oj = jfc.extract(jgrid(), jnp.asarray(sdf), jnp.asarray(deform),
-                     alpha=jnp.asarray(weights[:, :8]), beta=jnp.asarray(weights[:, 8:20]),
-                     gamma=jnp.asarray(weights[:, 20:]))
+    oj = jax.jit(lambda s, d, w: jfc.extract(jgrid(), s, d, alpha=w[:, :8], beta=w[:, 8:20],
+                                             gamma=w[:, 20:]))(
+        jnp.asarray(sdf), jnp.asarray(deform), jnp.asarray(weights))
     ot = fc.extract(grid, t(sdf), t(deform), alpha=t(weights[:, :8]),
                     beta=t(weights[:, 8:20]), gamma=t(weights[:, 20:]))
     assert int(oj.num_surf_cubes) == int(ot.num_surf_cubes) > 0
@@ -73,7 +73,7 @@ def test_extract_gradients_match_jax():
         return (jnp.sum(jnp.where(used[:, None], o.mesh.vertices, 0.0) * w)
                 + o.l_dev + jfc.sdf_entropy(jgrid(), s))
 
-    g_j = jax.grad(loss_j, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (sdf, deform, weights)))
+    g_j = jax.jit(jax.grad(loss_j, argnums=(0, 1, 2)))(*(jnp.asarray(a) for a in (sdf, deform, weights)))
     leaves = [t(a).requires_grad_() for a in (sdf, deform, weights)]
     o = fc.extract(grid, leaves[0], leaves[1], alpha=leaves[2][:, :8],
                    beta=leaves[2][:, 8:20], gamma=leaves[2][:, 20:])

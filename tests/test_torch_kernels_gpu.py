@@ -6,6 +6,8 @@ only PyTorch is installed:
 
     python -m pytest -m gpu --noconftest -o addopts="" tests/test_torch_kernels_gpu.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -438,3 +440,83 @@ def test_stage3_step_card_vs_cpu(cuda_device):
     for k, want in grads[0].items():
         close_card_cpu(grads[1][k], want)
     assert (np.abs(relit[1] - relit[0]) > 1e-3).mean() < 0.01
+
+
+# --- vanilla 3DGS on the card ------------------------------------------------------
+
+
+def test_k1_k2_k3_at_3dgs_density(cuda_device):
+    """K1-K3 on bench.py's kind of input: free Gaussians of the 3-NN spacing
+    of 50k points in the cube of half-width 0.8 (0.0316), opacity
+    sigmoid(1), seen at 800x800 from radius 2.5: ~22 pairs a Gaussian, the
+    central tiles several chunks long."""
+    g = torch.Generator().manual_seed(11)
+    num = 20_000
+    means = (torch.rand((num, 3), generator=g) - 0.5) * 1.6
+    quats = torch.nn.functional.normalize(torch.randn((num, 4), generator=g), dim=-1)
+    scales = torch.full((num, 3), 0.0316)
+    opacities = torch.full((num,), 1 / (1 + math.exp(-1.0)))
+    colors = torch.rand((num, 3), generator=g)
+    cam = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=2.5, elevation_degrees=15.0,
+                             num_samples=1, width=800, height=800, device="cpu")[0]
+    means, quats, scales, opacities, colors = (x.to(cuda_device) for x in (
+        means, quats, scales, opacities, colors))
+    proj = project(means, quats, scales, opacities, cam.view_matrix.to(cuda_device),
+                   cam.intrinsic_matrix.to(cuda_device), 800, 800)
+    grid = rp.tile_grid(800, 800, 16)
+    bins = rp.bin_pairs(proj, 800, 800, tile_size=(grid.tsx, grid.tsy), max_pairs=32 * num)
+    total = int(bins.total_pairs)
+    assert 18 * num < total <= 32 * num, total / num
+    pairs = rp.pack_pairs(bins, proj.means2d, proj.conics, proj.opacities, colors, proj.depths)
+    counts = bins.seg_start[1:] - bins.seg_start[:-1]
+    assert int(counts.max()) > rp.CHUNK_PAIRS        # a tile past a chunk boundary
+    check_passes(pairs, bins.seg_start, grid, 3, rp.CHUNK_PAIRS)
+    rows = torch.randn((total, rp.HDR + 3), generator=g).to(cuda_device)
+    k3_close(cumsum_rows(rows), rows)
+
+
+def test_gsplat_step_card_vs_cpu(cuda_device):
+    """One GSplatTrainer step at SH degree 3 (2 cameras at 64x64, 2,000
+    Gaussians) on the card and on the CPU from the same state: the loss, the
+    gradients, the densification statistics; then a densification on the
+    card and a finite next step."""
+    from geosplatting_tpu_torch.graphics.splats import Splats
+    from geosplatting_tpu_torch.models.gsplatter import GSplatter
+    from geosplatting_tpu_torch.train.gsplat_trainer import GSplatTrainer, GSplatTrainerConfig
+
+    g = torch.Generator().manual_seed(2)
+    splats = Splats.random(2000, sh_degree=3, random_scale=0.8, generator=g, device="cpu")
+    # anisotropic, so that the rotations have a gradient
+    splats = splats.replace(shs=torch.randn(splats.shs.shape, generator=g) * 0.1,
+                            scales=splats.scales + torch.randn((2000, 3), generator=g) * 0.4,
+                            colors=torch.rand((2000, 3), generator=g),
+                            opacities=torch.full_like(splats.opacities, 1.0))
+    cams = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=2.5, elevation_degrees=15.0,
+                              num_samples=2, width=64, height=64, device="cpu")
+    gt = torch.rand((2, 64, 64, 4), generator=g)
+    cfg = GSplatTrainerConfig(batch_size=2, warmup_length=1, refine_every=2,
+                              reset_alpha_every=10, densify_grad_thresh=1e-6)
+    out = []
+    for dev in ("cpu", cuda_device):
+        trainer = GSplatTrainer(cfg, GSplatter(background_color="random", device=dev), 2)
+        trainer.init_state(Splats(**{k: getattr(splats, k).to(dev) for k in (
+            "means", "scales", "quats", "colors", "opacities", "shs")}))
+        _kernels.reset_launches()
+        m = trainer.train_step(cams.to(dev), gt.to(dev), max_sh_degree=3,
+                               background=torch.tensor([0.2, 0.5, 0.7], device=dev))
+        out.append((trainer, {k: float(v) for k, v in m.items()},
+                    {k: n(p.grad) for k, p in trainer.params.items() if p.grad is not None}))
+    assert all(_kernels.launches[k] == 2 for k in _kernels.KERNELS)
+    (_, m_cpu, g_cpu), (trainer, m_gpu, g_gpu) = out
+    assert m_gpu["nonfinite_grads"] == 0 and m_gpu["pair_fill"] <= 1
+    for k in ("loss", "psnr", "pair_fill"):
+        np.testing.assert_allclose(m_gpu[k], m_cpu[k], rtol=1e-3, err_msg=k)
+    for k, want in g_cpu.items():
+        close_card_cpu(g_gpu[k], want)
+    close_card_cpu(n(trainer.xys_grad_norm), n(out[0][0].xys_grad_norm))
+    np.testing.assert_array_equal(n(trainer.vis_counts), n(out[0][0].vis_counts))
+    info = trainer.after_update(6, (64, 64), generator=torch.Generator(cuda_device))
+    assert info["param_map"] is not None
+    assert trainer.params["means"].shape[0] == info["param_map"].shape[0] != 2000
+    m = trainer.train_step(cams.to(cuda_device), gt.to(cuda_device), max_sh_degree=3)
+    assert np.isfinite(float(m["loss"])) and int(m["nonfinite_grads"]) == 0

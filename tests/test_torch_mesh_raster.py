@@ -33,7 +33,8 @@ def camera(eye=(0.0, 2.2, 0.0)):
 @pytest.fixture(scope="module")
 def sphere():
     grid = jfc.make_grid(12, scale=1.0)
-    return jfc.extract(grid, jnp.linalg.norm(grid.base_vertices() - 0.013, axis=-1) - 0.5).mesh
+    sdf = jnp.linalg.norm(grid.base_vertices() - 0.013, axis=-1) - 0.5
+    return jax.jit(lambda s: jfc.extract(grid, s).mesh)(sdf)
 
 
 def to_torch(mesh: JMesh) -> TriangleMesh:

@@ -1,7 +1,8 @@
 """Port parity: the stage-1 product path — Dataset on a Blender-layout
 scene, the stage_io export format in both directions, and the train task's
 run, checkpoint, resume and export, which the JAX package's stage-2 task
-loads. Everything runs on the CPU at resolution 10 and 32x32 images.
+loads. Everything runs on the CPU at resolution 10, a 32-texel triplane and
+32x32 images.
 
 Tolerances: none. The dataset's cameras, images and batch order, the
 export files' keys and arrays, and a resumed run against an uninterrupted
@@ -65,12 +66,16 @@ def test_dataset_matches_jax(scene):
 
 
 def test_unported_layouts_are_named(tmp_path):
-    shiny = tmp_path / "shiny"
-    (shiny / "train").mkdir(parents=True)
-    for split in ("train", "test"):
-        (shiny / f"transforms_{split}.json").write_text('{"frames": [{"file_path": "x"}]}')
-    with pytest.raises(NotImplementedError, match="ShinyBlender"):
-        recognize_dataparser(shiny)
+    # StanfordORB (blender_LDR/<scene> beside ground_truth/<scene>) comes
+    # before Blender in the recognition order and is not ported
+    orb = tmp_path / "blender_LDR" / "scene"
+    for d in ("train", "train_mask", "test", "test_mask"):
+        (orb / d).mkdir(parents=True)
+    for split in ("train", "test", "novel"):
+        (orb / f"transforms_{split}.json").write_text('{"frames": [{"file_path": "x"}]}')
+    (tmp_path / "ground_truth" / "scene").mkdir(parents=True)
+    with pytest.raises(NotImplementedError, match="StanfordORB"):
+        recognize_dataparser(orb)
     with pytest.raises(ValueError, match="no dataparser"):
         Dataset(tmp_path, device="cpu")
 
@@ -102,7 +107,8 @@ def s1_task(root, steps):
     return GeoSplatTrainTask(
         dataset_path=root, experiment_name="t-s1", seed=0, num_steps=steps, batch_size=2,
         num_steps_per_save=2, num_steps_per_val=2, num_val_images=1, scale_factor=SF,
-        resolution=10, light_resolution=32, scene_scale=1.0, device="cpu",
+        resolution=10, light_resolution=32, scene_scale=1.0, triplane_resolution=32,
+        device="cpu",
     )
 
 

@@ -52,7 +52,7 @@ def test_projection_gradients_match_jax():
                 + jnp.sum(keep[:, None] * p.conics * w3) * 1e-3
                 + jnp.sum(keep * (p.opacities * w1 + p.depths * w1)))
 
-    g_j = jax.grad(loss_j, argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in arrays[:4]))
+    g_j = jax.jit(jax.grad(loss_j, argnums=(0, 1, 2, 3)))(*(jnp.asarray(a) for a in arrays[:4]))
     leaves = [t(a).requires_grad_() for a in arrays[:4]]
     p = project(*leaves, *(t(a) for a in arrays[4:]), W, H, rasterize_mode="antialiased")
     keep = (p.radii > 0).float()

@@ -63,11 +63,15 @@ def test_bin_pairs_pair_sets_match(tile, max_pairs):
     including the depth-priority drop when the budget overflows."""
     vm, K = cam()
     means, quats, scales, opacities, _ = scene(0)
-    pj = jproject(*(jnp.asarray(a) for a in (means, quats, scales, opacities, vm, K)),
-                  WIDTH, HEIGHT, rasterize_mode="antialiased")
     pt = project(*(t(a) for a in (means, quats, scales, opacities, vm, K)),
                  WIDTH, HEIGHT, rasterize_mode="antialiased")
-    bj = jrp.bin_pairs(pj, WIDTH, HEIGHT, tile_size=tile, max_pairs=max_pairs, chunk_size=128)
+
+    def bin_j(*a):
+        pj = jproject(*a, WIDTH, HEIGHT, rasterize_mode="antialiased")
+        return jrp.bin_pairs(pj, WIDTH, HEIGHT, tile_size=tile, max_pairs=max_pairs,
+                             chunk_size=128)
+
+    bj = jax.jit(bin_j)(*(jnp.asarray(a) for a in (means, quats, scales, opacities, vm, K)))
     bt = rp.bin_pairs(pt, WIDTH, HEIGHT, tile_size=tile, max_pairs=max_pairs)
     assert int(bj.total_pairs) == int(bt.total_pairs)
     if max_pairs == 300:
@@ -98,7 +102,7 @@ def test_forward_matches_jax_pairs(channels, tile):
     def ft(*a):
         return rasterize(*a, WIDTH, HEIGHT, tile_size=tile)
 
-    (rj, aj, ij), (rt, at, it) = both(fj, ft, arrays)
+    (rj, aj, ij), (rt, at, it) = both(jax.jit(fj), ft, arrays)
     assert int(ij["total_pairs"]) == int(it["total_pairs"])
     # cutoff flips: isolated pixels may differ by ~1e-4 * color
     np.testing.assert_allclose(n(rt), n(rj), atol=1e-3)
@@ -117,7 +121,7 @@ def test_gradients_match_jax_pairs(channels, tile):
                              WIDTH, HEIGHT, means2d_offset=d, backend="pairs", tile_size=tile)
         return jnp.sum((r - tgt) ** 2) + jnp.sum(a * 0.3)
 
-    g_j = jax.grad(loss_j, argnums=(0, 1, 2, 3, 4))(
+    g_j = jax.jit(jax.grad(loss_j, argnums=(0, 1, 2, 3, 4)))(
         *(jnp.asarray(a) for a in (means, scales, opacities, colors, off)))
     args = [t(a).requires_grad_() for a in (means, scales, opacities, colors, off)]
     r, a, _ = rasterize(args[0], t(quats), args[1], args[2], args[3], t(vm), t(K),
@@ -147,7 +151,7 @@ def test_saturated_tiles_match_jax_pairs():
                              jnp.asarray(K), WIDTH, HEIGHT, backend="pairs")
         return jnp.sum((r - tgt) ** 2) + jnp.sum(a)
 
-    g_j = jax.grad(loss_j, argnums=(0, 1, 2))(
+    g_j = jax.jit(jax.grad(loss_j, argnums=(0, 1, 2)))(
         jnp.asarray(means), jnp.asarray(opacities), jnp.asarray(colors))
     args = [t(a).requires_grad_() for a in (means, opacities, colors)]
     r, a, _ = rasterize(args[0], t(quats), t(scales), args[1], args[2], t(vm), t(K),

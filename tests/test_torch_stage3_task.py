@@ -165,11 +165,14 @@ def test_cli_presets():
 
 
 def test_other_layouts_are_named(tmp_path):
-    """A TensoIR preset on a TensoIR-layout scene raises naming its layout."""
-    scene = tmp_path / "tsir"
-    (scene / "train").mkdir(parents=True)
-    (scene / "train" / "r_0_sunset.png").write_bytes(b"")
-    (scene / "transforms_train.json").write_text('{"frames": [{"file_path": "./train/r_0"}]}')
-    with pytest.raises(NotImplementedError, match="TensoIR"):
+    """A preset on a scene of a layout the port does not read yet
+    (StanfordORB) raises naming its layout."""
+    scene = tmp_path / "blender_LDR" / "scene"
+    for d in ("train", "train_mask", "test", "test_mask"):
+        (scene / d).mkdir(parents=True)
+    for split in ("train", "test", "novel"):
+        (scene / f"transforms_{split}.json").write_text('{"frames": [{"file_path": "x"}]}')
+    (tmp_path / "ground_truth" / "scene").mkdir(parents=True)
+    with pytest.raises(NotImplementedError, match="StanfordORB"):
         run_task_group(cli3.TASKS, ["tsir-lego", "--dataset_path", str(scene), "--load", "x",
                                     "--device", "cpu"])

@@ -51,26 +51,30 @@ def sphere_gt(cams):
     return np.concatenate((np.asarray(jimages.rgb2srgb(jnp.asarray(rgb))) * a, a), -1)
 
 
-def relu_flips(mj, params, mt, noise, jitter_std) -> dict:
-    """Per head: hidden units whose ReLU pre-activation has opposite signs in
-    the two packages at some field point (face centroids and their jittered
-    twins), from the initial parameters."""
+def jax_preacts(mj, params, noise, jitter_std) -> dict:
+    """Per head, the JAX package's first-layer pre-activations at its field
+    points (face centroids and their jittered twins); traceable."""
     mesh_j, _, _ = mj.get_geometry(params)
     pts_j = jnp.clip(jcompact(mesh_j, mj.max_render_faces).face_vertices().mean(1) / mj.scale,
                      -1, 1)
     planes = params["field"]["planes"]
     feats_j = jnp.concatenate([mj.field.trunk.apply(planes, x) for x in (
-        pts_j, jnp.clip(pts_j + jnp.asarray(n(noise)) * jitter_std, -1, 1))])
+        pts_j, jnp.clip(pts_j + noise * jitter_std, -1, 1))])
+    return {name: feats_j @ params["field"][name]["w0"].T for name in ("kd", "ks", "z")}
+
+
+def relu_flips(preacts_j, mt, noise, jitter_std) -> dict:
+    """Per head: hidden units whose ReLU pre-activation has opposite signs in
+    the two packages at some field point, from the initial parameters."""
     with torch.no_grad():
         mesh_t, _, _ = mt.get_geometry()
         pts_t = field_points(compact_faces(mesh_t, mt.max_render_faces), mt.scale)
         feats_t = torch.cat([mt.field.trunk(x) for x in (
             pts_t, torch.clamp(pts_t + noise * jitter_std, -1, 1))])
     out = {}
-    for name in ("kd", "ks", "z"):
-        h_j = np.asarray(feats_j @ params["field"][name]["w0"].T)
+    for name, h_j in preacts_j.items():
         h_t = n(feats_t @ getattr(mt.field, name).w0.T)
-        out[name] = ((h_j > 0) != (h_t > 0)).any(0)
+        out[name] = ((np.asarray(h_j) > 0) != (h_t > 0)).any(0)
     return out
 
 
@@ -84,17 +88,24 @@ def test_train_step_matches_jax():
     k_render, k_bg = jax.random.split(key)
     bg = jax.random.uniform(k_bg, gt[..., :3].shape)
     rw = trainer_j.reg_weights(jnp.asarray(step, jnp.float32))
+    mt = torch_model(jax.tree.map(np.asarray, params))
+    trainer_t = GeoSplatTrainer(GeoSplatTrainerConfig(batch_size=2), mt)
+    noise = face_noise(k_render, mt)
+    std = trainer_t.config.kd_perturb_std
 
     def loss_j(p):
         return trainer_j._local_loss(p, cams, jnp.asarray(gt), bg, rw, k_render, "face")
 
-    grads, ((loss, mse, reg), aux) = jax.jit(jax.grad(loss_j, has_aux=True))(params)
-    _, metrics_j = trainer_j._apply_grads(state, grads, loss, mse, reg, aux)
+    def jax_side(p):
+        # one compile for the gradient, the trainer's metrics and the
+        # pre-activations of the flip check
+        grads, ((loss, mse, reg), aux) = jax.grad(loss_j, has_aux=True)(p)
+        _, metrics = trainer_j._apply_grads(state, grads, loss, mse, reg, aux)
+        return grads, metrics, jax_preacts(mj, p, noise, std)
 
-    mt = torch_model(jax.tree.map(np.asarray, params))
-    trainer_t = GeoSplatTrainer(GeoSplatTrainerConfig(batch_size=2), mt)
-    noise = t(face_noise(k_render, mt))
-    flips = relu_flips(mj, params, mt, noise, trainer_t.config.kd_perturb_std)
+    grads, metrics_j, preacts_j = jax.jit(jax_side)(params)
+    noise = t(noise)
+    flips = relu_flips(preacts_j, mt, noise, std)
     metrics_t = trainer_t.train_step(
         cameras_from_jax(cams), t(gt), step, sampling="face", background=t(bg),
         jitter_noise=noise,
