@@ -178,24 +178,36 @@ def pair_pixel_counts(pairs, seg_start, grid, n_contrib, kc: int) -> dict:
     the pairs in some tile, the tiles holding a pair and the largest tile;
     and the pairs some pixel walks (each tile's pairs up to its largest
     contributor count) with the chunks of kc that hold them, the only ones
-    the compositing passes after K1's products need to read."""
+    the compositing passes after K1's products need to read. The suffix_*
+    counts are the same past each tile's first chunk, the only part K2's
+    suffix pass walks (a tile's first chunk has no earlier chunk to feed);
+    multi_chunk_tiles hold more than one chunk."""
     import torch
 
     from geosplatting_tpu_torch.ops import rasterize_pairs as rp
 
-    kept = 0
+    kept = kept_late = 0
     for t0, t1, idx, live in rp._tile_groups(seg_start, grid.pixels):
         px, py = rp._pixel_centers(grid, t0, t1, pairs.device)
         keep = rp._alphas(pairs[idx], live, px, py)[-1]
         rank = torch.arange(idx.shape[1], device=pairs.device)[None, :, None]
-        kept += int((keep & (rank < n_contrib[t0:t1, None, :])).sum())
+        walked_keep = keep & (rank < n_contrib[t0:t1, None, :])
+        kept += int(walked_keep.sum())
+        kept_late += int((walked_keep & (rank >= kc)).sum())
     counts = seg_start[1:] - seg_start[:-1]
     walked = torch.minimum(counts, n_contrib.long().amax(-1))
+    walked_chunks = (walked + kc - 1) // kc
     return {
         "walked_pairs": int(walked.sum()),
-        "walked_chunks": int(((walked + kc - 1) // kc).sum()),
+        "walked_chunks": int(walked_chunks.sum()),
         "walked_pair_pixels": int(n_contrib.long().sum()),
         "kept_pair_pixels": kept,
+        "suffix_walked_pairs": int((walked - kc).clamp(min=0).sum()),
+        "suffix_walked_chunks": int((walked_chunks - 1).clamp(min=0).sum()),
+        "suffix_walked_tiles": int((walked > kc).sum()),
+        "suffix_pair_pixels": int((n_contrib.long() - kc).clamp(min=0).sum()),
+        "suffix_kept_pair_pixels": kept_late,
+        "multi_chunk_tiles": int((counts > kc).sum()),
         "tile_pair_pixels": int(seg_start[-1]) * grid.pixels,
         "tiles_with_pairs": int((counts > 0).sum()),
         "max_pairs_per_tile": int(counts.max()),
@@ -709,7 +721,9 @@ def measure_kernels(captured, launches: dict, steps: int) -> dict:
 
     # bytes each pass must move: inputs read once, outputs written once. K1's
     # products pass reads every pair and writes every chunk's products; the
-    # passes after it need only the pairs some pixel walks and their chunks
+    # passes after it need only the pairs some pixel walks and their chunks,
+    # and K2's suffix pass only those past each tile's first chunk (with the
+    # products of the chunks before them) but writes every chunk's suffix
     f = 4
     row = rp.row_stride(channels) * f
     list_bytes = (tiles + 1) * 8 + (tiles + 1) * 4 + chunks.chunk_tile.shape[0] * 4
@@ -720,18 +734,22 @@ def measure_kernels(captured, launches: dict, steps: int) -> dict:
         "k1_chunk_products": (
             lambda: rp.chunk_products(pairs, seg_start, grid, channels, chunks),
             lambda: rp.chunk_products_plain(pairs, seg_start, grid, chunks),
-            int(seg_start[-1]) * row + list_bytes + per_chunk, counts["tile_pair_pixels"]),
+            int(seg_start[-1]) * row + list_bytes + per_chunk, counts["tile_pair_pixels"],
+            counts["kept_pair_pixels"]),
         "k1_composite_fwd": (
             lambda: rp.composite_fwd(pairs, seg_start, grid, channels, chunks, prod),
             lambda: rp.composite_fwd_plain(pairs, seg_start, grid, channels),
-            walked + list_bytes + per_tile * (channels + 4), counts["walked_pair_pixels"]),
+            walked + list_bytes + per_tile * (channels + 4), counts["walked_pair_pixels"],
+            counts["kept_pair_pixels"]),
         "k2_chunk_suffix": (
             lambda: rp.chunk_suffix(pairs, seg_start, grid, channels, chunks, prod, grad_out,
                                     n_contrib),
             lambda: rp.chunk_suffix_plain(pairs, seg_start, grid, channels, chunks, grad_out,
                                           n_contrib),
-            walked + counts["walked_chunks"] * npx * f + list_bytes
-            + per_tile * (channels + 3), counts["walked_pair_pixels"]),
+            (counts["suffix_walked_pairs"] * row + counts["suffix_walked_chunks"] * npx * f
+             + per_chunk + list_bytes + counts["multi_chunk_tiles"] * npx * 4
+             + counts["suffix_walked_tiles"] * (channels + 2) * npx * f),
+            counts["suffix_pair_pixels"], counts["suffix_kept_pair_pixels"]),
         "k2_composite_bwd": (
             lambda: rp.composite_bwd(pairs, seg_start, grid, channels, grad_out, t_final,
                                      n_contrib, max_pairs, chunks, prod, suffix),
@@ -739,13 +757,13 @@ def measure_kernels(captured, launches: dict, steps: int) -> dict:
                                            n_contrib, max_pairs),
             walked + counts["walked_chunks"] * npx * f + list_bytes
             + per_tile * (channels + 4) + max_pairs * (rp.HDR + channels) * f,
-            counts["walked_pair_pixels"]),
+            counts["walked_pair_pixels"], counts["kept_pair_pixels"]),
     }
     # the plain versions and torch.cumsum take 0.1-0.5 s of device time a
     # call (and the plain versions seconds of host time): fewer calls time them
     rows = {}
-    for name, (kernel, plain, nbytes, evaluated) in passes.items():
-        ops = evaluated * EVAL_OPS + counts["kept_pair_pixels"] * kept_ops(name, channels)
+    for name, (kernel, plain, nbytes, evaluated, kept) in passes.items():
+        ops = evaluated * EVAL_OPS + kept * kept_ops(name, channels)
         bound, by = bound_ms(nbytes, ops)
         rows[name] = {
             "launches": launches[name], "launches_per_step": launches[name] / steps,
@@ -1170,6 +1188,31 @@ def trace_step(step) -> dict:
             "kernel_launches": len(kernels), "top_kernels_s": dict(top)}
 
 
+def gsplat_scene(device, gen, sh_degree: int):
+    """bench.py's 3DGS scene at GSPLAT's widths: random Gaussians at
+    opacity logit 1, the model on black, the orbit cameras and the
+    horizontal-gradient ground truth. Returns (splats, model, cams, gt)."""
+    import torch
+
+    from geosplatting_tpu_torch.graphics.cameras import Cameras
+    from geosplatting_tpu_torch.graphics.splats import Splats
+    from geosplatting_tpu_torch.models.gsplatter import GSplatter
+
+    c = GSPLAT
+    b, res = c["cameras"], c["resolution"]
+    splats = Splats.random(c["gaussians"], sh_degree=sh_degree,
+                           random_scale=c["random_scale"], generator=gen, device=device)
+    splats = splats.replace(opacities=torch.full_like(splats.opacities, c["opacity_logit"]))
+    model = GSplatter(sh_degree=sh_degree, background_color="black",
+                      pairs_per_gaussian=c["pairs_per_gaussian"], device=device)
+    cams = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=c["radius"],
+                              elevation_degrees=c["elevation"], num_samples=b, width=res,
+                              height=res, device=device)
+    gt = torch.linspace(0, 1, res, device=device)[None, None, :, None].expand(
+        b, res, res, 4).contiguous()
+    return splats, model, cams, gt
+
+
 def gsplat_bench(device, seed, kernels) -> tuple[dict, dict]:
     """(a) of phase 9: 50k random Gaussians (SH degree 0, opacity logit 1),
     8 orbit cameras at 800x800 on black, bench.py's horizontal-gradient
@@ -1177,29 +1220,17 @@ def gsplat_bench(device, seed, kernels) -> tuple[dict, dict]:
     steps. Returns (summary, the last camera's kernel inputs)."""
     import torch
 
-    from geosplatting_tpu_torch.graphics.cameras import Cameras
-    from geosplatting_tpu_torch.graphics.splats import Splats
-    from geosplatting_tpu_torch.models.gsplatter import GSplatter
     from geosplatting_tpu_torch.ops import rasterize_pairs as rp
     from geosplatting_tpu_torch.ops import segment_rows as sr
     from geosplatting_tpu_torch.train.gsplat_trainer import GSplatTrainer, GSplatTrainerConfig
 
     c = GSPLAT
-    b, res = c["cameras"], c["resolution"]
+    b = c["cameras"]
     gen = torch.Generator(device=device).manual_seed(seed)
-    splats = Splats.random(c["gaussians"], sh_degree=0, random_scale=c["random_scale"],
-                           generator=gen, device=device)
-    splats = splats.replace(opacities=torch.full_like(splats.opacities, c["opacity_logit"]))
-    model = GSplatter(sh_degree=0, background_color="black",
-                      pairs_per_gaussian=c["pairs_per_gaussian"], device=device)
-    cams = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=c["radius"],
-                              elevation_degrees=c["elevation"], num_samples=b, width=res,
-                              height=res, device=device)
+    splats, model, cams, gt = gsplat_scene(device, gen, sh_degree=0)
     trainer = GSplatTrainer(GSplatTrainerConfig(batch_size=b, warmup_length=10**9), model,
                             dataset_size=b)
     trainer.init_state(splats)
-    gt = torch.linspace(0, 1, res, device=device)[None, None, :, None].expand(
-        b, res, res, 4).contiguous()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     seconds, per_step, totals = [], [], {k: 0 for k in kernels.KERNELS}
@@ -1263,27 +1294,16 @@ def gsplat_densify(device, seed) -> dict:
 
     import torch
 
-    from geosplatting_tpu_torch.graphics.cameras import Cameras
-    from geosplatting_tpu_torch.graphics.splats import FIELDS, Splats
-    from geosplatting_tpu_torch.models.gsplatter import GSplatter
+    from geosplatting_tpu_torch.graphics.splats import FIELDS
     from geosplatting_tpu_torch.train.gsplat_trainer import GSplatTrainer, GSplatTrainerConfig
 
     c = GSPLAT
     b, res = c["cameras"], c["resolution"]
     gen = torch.Generator(device=device).manual_seed(seed + 1)
-    splats = Splats.random(c["gaussians"], sh_degree=3, random_scale=c["random_scale"],
-                           generator=gen, device=device)
-    splats = splats.replace(opacities=torch.full_like(splats.opacities, c["opacity_logit"]))
-    model = GSplatter(sh_degree=3, background_color="black",
-                      pairs_per_gaussian=c["pairs_per_gaussian"], device=device)
-    cams = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=c["radius"],
-                              elevation_degrees=c["elevation"], num_samples=b, width=res,
-                              height=res, device=device)
+    splats, model, cams, gt = gsplat_scene(device, gen, sh_degree=3)
     trainer = GSplatTrainer(GSplatTrainerConfig(batch_size=b, warmup_length=1, refine_every=2,
                                                 reset_alpha_every=10), model, dataset_size=b)
     trainer.init_state(splats)
-    gt = torch.linspace(0, 1, res, device=device)[None, None, :, None].expand(
-        b, res, res, 4).contiguous()
 
     def step():
         m = {k: float(v) for k, v in trainer.train_step(cams, gt, max_sh_degree=3,
@@ -1369,7 +1389,7 @@ def gsplat_task(device, seed, kernels, scene: Path) -> dict:
     log = (run_dir / "log.txt").read_text()
     exported = load_export(run_dir)
     ckpt = torch.load(run_dir / "ckpts" / f"{c['task_resume_to']}.pt", map_location="cpu")
-    params = {k: v.numpy() for k, v in ckpt["trainer"]["params"].items()}
+    params = {k: v.numpy() for k, v in ckpt["params"].items()}
     mismatched = sorted(k for k in params if not np.array_equal(exported.get(k), params[k]))
     per_step = [{k: float(m[k]) for k in ("loss", "psnr", "nonfinite_grads", "pair_fill",
                                            "num_gaussians")} for m in steps.outputs]

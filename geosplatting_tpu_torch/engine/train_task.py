@@ -13,10 +13,10 @@ Each run writes its config as ``task.py`` into its output directory, so
 
 Randomness: one ``torch.Generator`` on the task's device, seeded from
 ``seed``, builds the model and draws every step's noise. A checkpoint
-(``ckpts/<step>.pt``, ``torch.save``) holds the model's and the
-optimizers' state (3DGS: the trainer's, with the Gaussians at that step's
-count and the densification statistics), the step and the generator's
-state, so a resumed run draws what the uninterrupted run would have drawn.
+(``ckpts/<step>.pt``, ``torch.save``) holds the trainer's ``state_dict``
+(the model's and the optimizers' state; 3DGS: the Gaussians at that step's
+count, their Adam state and the densification statistics), the step and
+the generator's state, so a resumed run draws what the uninterrupted run would have drawn.
 
 Options of the JAX tasks without a meaning in the port yet are left out:
 ``backend``, ``tile_capacity`` and ``data_parallel`` (multi-GPU; with it
@@ -45,21 +45,10 @@ from .experiment import Experiment
 from .stage_io import find_export, load_export, save_export
 
 
-def _trainer_state(trainer) -> dict:
-    """What a checkpoint keeps of a trainer: its own ``state_dict`` where it
-    has one (3DGS, whose parameters change shape between steps), else the
-    model's and the optimizers' state."""
-    if hasattr(trainer, "state_dict"):
-        return {"trainer": trainer.state_dict()}
-    opt = trainer.optimizers
-    return {"model": trainer.model.state_dict(), "optimizer": opt.adam.state_dict(),
-            "optimizer_count": opt.count}
-
-
 def save_checkpoint(ckpt_dir: Path, step: int, trainer, generator: torch.Generator) -> Path:
     path = Path(ckpt_dir) / f"{step}.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({"step": step, **_trainer_state(trainer), "generator": generator.get_state()},
+    torch.save({"step": step, **trainer.state_dict(), "generator": generator.get_state()},
                path)
     return path
 
@@ -73,12 +62,7 @@ def load_checkpoint(ckpt_dir: Path, trainer, generator: torch.Generator,
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
     step = steps[-1] if step is None else step
     state = torch.load(Path(ckpt_dir) / f"{step}.pt", map_location="cpu")
-    if "trainer" in state:
-        trainer.load_state_dict(state["trainer"])
-    else:
-        trainer.model.load_state_dict(state["model"])
-        trainer.optimizers.adam.load_state_dict(state["optimizer"])
-        trainer.optimizers.count = state["optimizer_count"]
+    trainer.load_state_dict(state)
     generator.set_state(state["generator"])
     return state["step"]
 

@@ -32,7 +32,7 @@ from ..models.geosplat_defer import GeoSplatterDefer
 from ..ops.envshade import ShadeDraws
 from ..ops.ssim import ssim_l1_loss
 from .grad_utils import sanitize
-from .optim import GroupOptimizers, OptimizerSpec
+from .optim import GroupOptimizers, ModelTrainerState, OptimizerSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +62,7 @@ def _edge_aware(pred_maps: torch.Tensor, gt_comp: torch.Tensor) -> torch.Tensor:
     return (px * torch.exp(-gx)).mean() + (py * torch.exp(-gy)).mean()
 
 
-class GeoSplatDeferTrainer:
+class GeoSplatDeferTrainer(ModelTrainerState):
     def __init__(self, config: GeoSplatDeferTrainerConfig, model: GeoSplatterDefer):
         # f32 convolutions in the SSIM blur (cuDNN defaults to TF32 on the card)
         torch.backends.cudnn.allow_tf32 = False

@@ -29,7 +29,7 @@ from ..ops.envshade import ShadeDraws
 from ..ops.ssim import ssim_l1_loss
 from .geosplat_trainer import _ramp
 from .grad_utils import sanitize
-from .optim import GroupOptimizers, OptimizerSpec
+from .optim import GroupOptimizers, ModelTrainerState, OptimizerSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +55,7 @@ class GeoSplatMCTrainerConfig:
     light_grad_scale: float = 64.0
 
 
-class GeoSplatMCTrainer:
+class GeoSplatMCTrainer(ModelTrainerState):
     def __init__(self, config: GeoSplatMCTrainerConfig, model: GeoSplatterMC):
         # f32 convolutions in the SSIM blur (cuDNN defaults to TF32 on the card)
         torch.backends.cudnn.allow_tf32 = False

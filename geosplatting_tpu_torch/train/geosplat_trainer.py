@@ -24,7 +24,7 @@ from ..graphics.cameras import Cameras
 from ..models.geosplat import GeoSplatter
 from ..ops.ssim import ssim_l1_loss
 from .grad_utils import sanitize
-from .optim import GroupOptimizers, OptimizerSpec
+from .optim import GroupOptimizers, ModelTrainerState, OptimizerSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +65,7 @@ def _ramp(begin: float, end: float, decay: int, step: float) -> float:
     return float(f32(begin) - (f32(begin) - f32(end)) * t)
 
 
-class GeoSplatTrainer:
+class GeoSplatTrainer(ModelTrainerState):
     def __init__(self, config: GeoSplatTrainerConfig, model: GeoSplatter):
         # the reference trains in f32 at 'highest' precision, but cuDNN's
         # convolutions (the SSIM blur) run in TF32 by default on the card;

@@ -93,8 +93,7 @@ class GSplatTrainer:
         the Adam state, the update count and the statistics."""
         return {
             "params": {k: p.detach().clone() for k, p in self.params.items()},
-            "optimizer": self.optimizers.adam.state_dict(),
-            "optimizer_count": self.optimizers.count,
+            **self.optimizers.state_dict(),
             "xys_grad_norm": self.xys_grad_norm.clone(),
             "vis_counts": self.vis_counts.clone(),
         }
@@ -102,8 +101,7 @@ class GSplatTrainer:
     def load_state_dict(self, state: dict) -> None:
         device = self.params["means"].device
         self.init_state(Splats(**{k: v.to(device) for k, v in state["params"].items()}))
-        self.optimizers.adam.load_state_dict(state["optimizer"])
-        self.optimizers.count = state["optimizer_count"]
+        self.optimizers.load_state_dict(state)
         self.xys_grad_norm = state["xys_grad_norm"].to(device)
         self.vis_counts = state["vis_counts"].to(device)
 

@@ -6,7 +6,8 @@ is one ``torch.optim.Adam`` param group whose ``lr`` is set from the
 schedule before every update, counted from 0 per update as
 ``optax.scale_by_schedule`` counts; Adam's update mu_hat / (sqrt(nu_hat) +
 eps) is optax's ``scale_by_adam``. ``mutate_params`` is the densification's
-state surgery (``mutate_optax_state``). The cosine schedule is not ported
+state surgery (``mutate_optax_state``). ``ModelTrainerState`` is what a
+checkpoint keeps of the stage trainers. The cosine schedule is not ported
 yet.
 """
 from __future__ import annotations
@@ -99,8 +100,27 @@ class GroupOptimizers:
     def lr(self, name: str) -> float:
         return self.schedules[name](self.count)
 
+    def state_dict(self) -> dict:
+        return {"optimizer": self.adam.state_dict(), "optimizer_count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adam.load_state_dict(state["optimizer"])
+        self.count = state["optimizer_count"]
+
     def step(self) -> None:
         for group in self.adam.param_groups:
             group["lr"] = self.lr(group["name"])
         self.adam.step()
         self.count += 1
+
+
+class ModelTrainerState:
+    """A checkpoint's state of a trainer whose parameters are its model's:
+    the model's state, the Adam state and the update count."""
+
+    def state_dict(self) -> dict:
+        return {"model": self.model.state_dict(), **self.optimizers.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.model.load_state_dict(state["model"])
+        self.optimizers.load_state_dict(state)

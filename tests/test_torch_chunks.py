@@ -146,21 +146,37 @@ def test_pair_pixel_counts_match_a_loop():
     got = pair_pixel_counts(pairs, seg_start, GRID, n_contrib, kc)
     p, cnt = n(pairs), n(n_contrib)
     kept = walked = walked_chunks = 0
+    # what the suffix pass walks: each tile's chunks after its first
+    late = {"pairs": 0, "chunks": 0, "tiles": 0, "pair_pixels": 0, "kept": 0}
     for t in range(GRID.num_tiles):
         px, py = pixel_centers(t)
         deepest = 0
         for q in range(GRID.pixels):
-            kept += sum(np_alpha(p[seg_start[t] + k], px[q], py[q]) > 0 for k in range(cnt[t, q]))
+            for k in range(cnt[t, q]):
+                keep = np_alpha(p[seg_start[t] + k], px[q], py[q]) > 0
+                kept += keep
+                late["kept"] += keep and k >= kc
+                late["pair_pixels"] += k >= kc
             deepest = max(deepest, min(int(cnt[t, q]), COUNTS[t]))
         walked += deepest
         walked_chunks += -(-deepest // kc)
+        late["pairs"] += max(deepest - kc, 0)
+        late["chunks"] += max(-(-deepest // kc) - 1, 0)
+        late["tiles"] += deepest > kc
     assert got == {
         "walked_pairs": walked,
         "walked_chunks": walked_chunks,
         "walked_pair_pixels": int(cnt.sum()),
         "kept_pair_pixels": kept,
+        "suffix_walked_pairs": late["pairs"],
+        "suffix_walked_chunks": late["chunks"],
+        "suffix_walked_tiles": late["tiles"],
+        "suffix_pair_pixels": late["pair_pixels"],
+        "suffix_kept_pair_pixels": late["kept"],
+        "multi_chunk_tiles": sum(c > kc for c in COUNTS),
         "tile_pair_pixels": sum(COUNTS) * GRID.pixels,
         "tiles_with_pairs": 4,
         "max_pairs_per_tile": 70,
     }
     assert 0 < kept < cnt.sum()
+    assert 0 < late["kept"] < late["pair_pixels"] < cnt.sum() and late["chunks"] > 0

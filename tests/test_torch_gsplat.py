@@ -12,10 +12,12 @@ Tolerances: SH values rtol 1e-6, their gradients rtol 1e-5; images atol
 1e-3 (transmittance-cutoff flips, tests/test_rasterize_pallas.py:53); the
 rasterizer's gradients and the screen-space gradient statistics 1 % in L2
 and 2 % of the largest entry (close_grads), as the stage-1 tests; the loss
-rtol 1e-4; the updated parameters within 2 % of the update's largest entry
-(their Adam state starts from the same moments, fed to both through
-``convert``, so the update is smooth in the gradient); densification and
-the optimizer surgery exactly, and the knn scales rtol 1e-5."""
+rtol 1e-4; every group's gradient close_grads against the JAX one (read
+from its new first moment, which starts at zero); the updated parameters
+within 2 % of the update's largest entry (their Adam state starts from the
+same moments, fed to both through ``convert``, so the update is smooth in
+the gradient); densification and the optimizer surgery exactly, and the
+knn scales rtol 1e-5."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -147,11 +149,11 @@ def test_unported_modes_raise():
         GSplatter(device="cpu").render_depth(None, None)
 
 
-def adam_moments(p: dict, seed: int) -> dict:
+def adam_moments(p: dict, seed: int, mu_scale: float = 1e-3) -> dict:
     """Seeded Adam moments for every optimised leaf, of the size of a few
     steps' gradients (so an update depends smoothly on the new gradient)."""
     rng = np.random.default_rng(seed)
-    return {k: {"mu": (rng.normal(size=p[k].shape) * 1e-3).astype(np.float32),
+    return {k: {"mu": (rng.normal(size=p[k].shape) * mu_scale).astype(np.float32),
                 "nu": rng.uniform(1e-6, 4e-6, p[k].shape).astype(np.float32), "count": 10}
             for k in FIELDS}
 
@@ -174,7 +176,8 @@ def test_train_step_matches_jax():
     cams = jcams()
     gt = np.random.default_rng(7).uniform(0, 1, (2, H, W, 4)).astype(np.float32)
     cfg = dict(batch_size=2)
-    moments = adam_moments(p, 1)
+    # mu starts at zero, so the new mu is (1 - b1) times the step's gradient
+    moments = adam_moments(p, 1, mu_scale=0.0)
 
     trainer_j = JTrainer(JConfig(**cfg), JGSplatter(background_color="black"), dataset_size=2)
     state = trainer_j.init_state(jsplats.Splats(**{k: jnp.asarray(v) for k, v in p.items()}))
@@ -196,6 +199,12 @@ def test_train_step_matches_jax():
     np.testing.assert_array_equal(n(trainer_t.vis_counts), np.asarray(new_j["vis_counts"]))
     assert float(trainer_t.vis_counts.max()) == 5.0      # seen by both cameras
     close_grads("xys_grad_norm", n(trainer_t.xys_grad_norm), new_j["xys_grad_norm"])
+    for k in FIELDS:
+        grad_j = np.asarray(new_j["opt_state"][k][0].mu) / (1.0 - 0.9)
+        assert np.abs(grad_j).max() > 0, k
+        close_grads(f"{k} grad", n(trainer_t.params[k].grad), grad_j)
+        with pytest.raises(AssertionError):   # the check sees a zero gradient
+            close_grads(f"{k} grad", np.zeros_like(grad_j), grad_j)
     got = splats_to_numpy(trainer_t.splats())
     for k in FIELDS:
         step_j = np.asarray(new_j["params"][k]) - p[k]

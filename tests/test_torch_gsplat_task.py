@@ -71,22 +71,22 @@ def test_task_runs_resumes_across_densification_and_exports(scene, tmp_path, mon
     assert "resumed from step 5" in log and "step 10:" in log
     whole = Path(task(scene, 10, "gs-whole").run()["output_dir"])
     resumed, straight = (torch.load(d / "ckpts" / "10.pt") for d in (run_dir, whole))
-    n = resumed["trainer"]["params"]["means"].shape[0]
+    n = resumed["params"]["means"].shape[0]
     assert n != 500 and int(out2["num_gaussians"]) != 500
-    for k, v in straight["trainer"]["params"].items():
-        assert torch.equal(resumed["trainer"]["params"][k], v), k
+    for k, v in straight["params"].items():
+        assert torch.equal(resumed["params"][k], v), k
     for k in ("xys_grad_norm", "vis_counts"):
-        assert torch.equal(resumed["trainer"][k], straight["trainer"][k]), k
-        assert resumed["trainer"][k].shape == (n,)
-    for pid, st in straight["trainer"]["optimizer"]["state"].items():
+        assert torch.equal(resumed[k], straight[k]), k
+        assert resumed[k].shape == (n,)
+    for pid, st in straight["optimizer"]["state"].items():
         for k in ("exp_avg", "exp_avg_sq", "step"):
-            assert torch.equal(resumed["trainer"]["optimizer"]["state"][pid][k], st[k]), k
+            assert torch.equal(resumed["optimizer"]["state"][pid][k], st[k]), k
     assert torch.equal(resumed["generator"], straight["generator"])
     # the export is the last checkpoint's parameters, the JAX task's keys
     exported = load_export(run_dir)
     assert sorted(exported) == sorted(FIELDS)
     for k in FIELDS:
-        np.testing.assert_array_equal(exported[k], resumed["trainer"]["params"][k].numpy())
+        np.testing.assert_array_equal(exported[k], resumed["params"][k].numpy())
     assert exported["shs"].shape == (n, 3, 3)
 
 
