@@ -87,6 +87,28 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
    against the last checkpoint key by key. Then every kernel pass is held
    against its plain version at the inputs of (a)'s last camera, and its row
    of the kernels line gains a "gsplat" entry measured there.
+10. prior: the mesh-prior variant. (a) The defining scale of
+   scripts/prior_scale_demo.py:96-124: GeoSplatterPrior on a 300 x 280 UV
+   sphere of radius 0.5 (168,000 faces, 1,008,000 Gaussians) with the
+   shared field (occ head), scale 1.0, 4 x 4 sample steps, shadows at 0.95
+   through the 64^3 occupancy grid, denoising, pairs budget 2.5M; 4 orbit
+   cameras at radius 2 and elevation 20 degrees at 800x800, the analytic
+   sphere as ground truth; GeoSplatPriorTrainer at batch 2 for 1 warm-up
+   and 3 timed steps (median s/step, pairs of each camera and pair_fill,
+   the peak memory, the visibility march's synchronised seconds in the last
+   step, one more step traced for the device's busy time and idle share,
+   the live Gaussians, that deform moved); every step's loss and reg
+   finite, no non-finite gradient, pair_fill <= 1, K1, K2 and K3 launched
+   once per camera. (b) The same with the hash-grid GaussianField (the occ
+   encoder of OCC_ENC) for 2 steps, the same gates and numbers.
+   (c) GeoSplatPriorTrainTask at the object preset's widths (batch 8, 8 x 8
+   sample steps, scene scale 1.05) on the product phase's scene, its prior
+   a 120 x 112 UV sphere (26,880 faces) written as binary PLY: 2 steps with
+   a checkpoint, validation and the export, a resume to 3, the export held
+   key by key against the step-3 checkpoint (sdf and mc_face_mask None).
+   Then every kernel pass is held against its plain version at the inputs
+   of (a)'s last camera, and its row of the kernels line gains a "prior"
+   entry measured there.
 The last three lines are the card's name and power limit, the kernels JSON
 line and the result JSON line; the line before them gives each phase's
 seconds. Without a CUDA device it exits non-zero before printing any result.
@@ -112,7 +134,7 @@ def phase(name: str, **fields) -> None:
     print(json.dumps({"phase": name, **fields}), flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warm_s: float | None = None) -> float:
     """Device milliseconds per call of fn(): the mean over reps calls queued
     behind a device-side sleep, after one warm-up call. The host enqueues
     all of them while the device sleeps, so the CUDA events bracket device
@@ -120,14 +142,18 @@ def cuda_ms(fn, reps: int) -> float:
     single call bracketed alone measures that host work wherever it exceeds
     the kernel's time. The sleep starts at 1.25x the warm-up call's wall
     time for each call (at ~2 GHz) and grows 4x until the queue outlasts
-    the enqueueing."""
+    the enqueueing. ``warm_s``, the wall seconds of a synchronised call of
+    fn just made, stands in for the warm-up call (the plain versions take
+    seconds of host time a call)."""
     import torch
 
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    cycles = max(20_000_000, int(1.25 * reps * (time.perf_counter() - t0) * 2e9))
+    if warm_s is None:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    cycles = max(20_000_000, int(1.25 * reps * warm_s * 2e9))
     while True:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -181,20 +207,32 @@ def pair_pixel_counts(pairs, seg_start, grid, n_contrib, kc: int) -> dict:
     the compositing passes after K1's products need to read. The suffix_*
     counts are the same past each tile's first chunk, the only part K2's
     suffix pass walks (a tile's first chunk has no earlier chunk to feed);
-    multi_chunk_tiles hold more than one chunk."""
+    multi_chunk_tiles hold more than one chunk. The (pair, pixel) tests run
+    on the device over every pair of every tile, in slices of pairs, with no
+    padding to the longest tile."""
     import torch
 
     from geosplatting_tpu_torch.ops import rasterize_pairs as rp
 
-    kept = kept_late = 0
-    for t0, t1, idx, live in rp._tile_groups(seg_start, grid.pixels):
-        px, py = rp._pixel_centers(grid, t0, t1, pairs.device)
-        keep = rp._alphas(pairs[idx], live, px, py)[-1]
-        rank = torch.arange(idx.shape[1], device=pairs.device)[None, :, None]
-        walked_keep = keep & (rank < n_contrib[t0:t1, None, :])
-        kept += int(walked_keep.sum())
-        kept_late += int((walked_keep & (rank >= kc)).sum())
+    dev = pairs.device
     counts = seg_start[1:] - seg_start[:-1]
+    total = int(seg_start[-1])
+    tile_of = torch.repeat_interleave(torch.arange(grid.num_tiles, device=dev), counts)
+    rank = torch.arange(total, device=dev) - seg_start[tile_of]
+    flat = torch.arange(grid.pixels, device=dev)
+    kept = kept_late = 0
+    step = max(1, (1 << 24) // grid.pixels)
+    for s0 in range(0, total, step):
+        s1 = min(s0 + step, total)
+        t = tile_of[s0:s1, None]
+        px = ((t % grid.tw) * grid.tsx + flat % grid.tsx).float() + 0.5
+        py = ((t // grid.tw) * grid.tsy + flat // grid.tsx).float() + 0.5
+        live = torch.ones((s1 - s0, 1), dtype=torch.bool, device=dev)
+        keep = rp._alphas(pairs[s0:s1, None, :], live, px[:, None], py[:, None])[-1][:, 0]
+        r = rank[s0:s1, None]
+        walked_keep = keep & (r < n_contrib[t[:, 0]])
+        kept += int(walked_keep.sum())
+        kept_late += int((walked_keep & (r >= kc)).sum())
     walked = torch.minimum(counts, n_contrib.long().amax(-1))
     walked_chunks = (walked + kc - 1) // kc
     return {
@@ -298,7 +336,8 @@ def small_scene(device, gen, num=2000, width=128, height=128):
 
 def check_passes(pairs, seg_start, grid, channels, chunks, grad_out) -> dict:
     """Each pass of K1 and K2 on these inputs against its plain version.
-    Raises where one disagrees; returns the errors and the kernels' outputs.
+    Raises where one disagrees; returns the errors, the kernels' outputs and
+    each plain version's synchronised wall seconds.
     Tolerances: K1's products 2e-5 * |x| + 1e-7 (at most 256 factors, each
     rounding by up to 2^-24, multiplied in another order); K1's
     image atol 1e-3 and under 1 % of contributor counts flipped (the kernel
@@ -315,12 +354,24 @@ def check_passes(pairs, seg_start, grid, channels, chunks, grad_out) -> dict:
     suffix = rp.chunk_suffix(pairs, seg_start, grid, channels, chunks, prod, grad_out, nc)
     d = rp.composite_bwd(pairs, seg_start, grid, channels, grad_out, tf, nc, pairs.shape[0],
                          chunks, prod, suffix)
-    prod_p = rp.chunk_products_plain(pairs, seg_start, grid, chunks)
-    out_p, _, nc_p = rp.composite_fwd_plain(pairs, seg_start, grid, channels)
-    suffix_p = rp.chunk_suffix_plain(pairs, seg_start, grid, channels, chunks, grad_out, nc)
-    d_p = rp.composite_bwd_plain(pairs, seg_start, grid, channels, grad_out, tf, nc,
-                                 pairs.shape[0])
     torch.cuda.synchronize()
+    plain_s = {}
+
+    def plain(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        plain_s[name] = time.perf_counter() - t0
+        return out
+
+    prod_p = plain("k1_chunk_products",
+                   lambda: rp.chunk_products_plain(pairs, seg_start, grid, chunks))
+    out_p, _, nc_p = plain("k1_composite_fwd",
+                           lambda: rp.composite_fwd_plain(pairs, seg_start, grid, channels))
+    suffix_p = plain("k2_chunk_suffix", lambda: rp.chunk_suffix_plain(
+        pairs, seg_start, grid, channels, chunks, grad_out, nc))
+    d_p = plain("k2_composite_bwd", lambda: rp.composite_bwd_plain(
+        pairs, seg_start, grid, channels, grad_out, tf, nc, pairs.shape[0]))
 
     def over(x, x_p):
         return float(((x - x_p).abs() > 2e-3 * float(x_p.abs().max()) + 2e-3 * x_p.abs())
@@ -343,7 +394,8 @@ def check_passes(pairs, seg_start, grid, channels, chunks, grad_out) -> dict:
     ok = (checks["k1_products_share_over_tol"] == 0 and errors["k1_composite_fwd"] <= 1e-3
           and checks["contributor_count_flips"] < 0.01
           and checks["k2_suffix_share_over_tol"] == 0 and checks["k2_grad_share_over_tol"] == 0)
-    return {"errors": errors, "checks": checks, "ok": ok, "out": (out, tf, nc, prod, suffix)}
+    return {"errors": errors, "checks": checks, "ok": ok, "out": (out, tf, nc, prod, suffix),
+            "plain_s": plain_s}
 
 
 def check_k1_k2(device, gen) -> dict:
@@ -759,8 +811,9 @@ def measure_kernels(captured, launches: dict, steps: int) -> dict:
             + per_tile * (channels + 4) + max_pairs * (rp.HDR + channels) * f,
             counts["walked_pair_pixels"], counts["kept_pair_pixels"]),
     }
-    # the plain versions and torch.cumsum take 0.1-0.5 s of device time a
-    # call (and the plain versions seconds of host time): fewer calls time them
+    # the plain versions and torch.cumsum take 0.1-0.7 s of device time a
+    # call (and the plain versions seconds of host time): fewer calls time
+    # them, the plain versions' check above standing in for the warm-up
     rows = {}
     for name, (kernel, plain, nbytes, evaluated, kept) in passes.items():
         ops = evaluated * EVAL_OPS + kept * kept_ops(name, channels)
@@ -768,7 +821,8 @@ def measure_kernels(captured, launches: dict, steps: int) -> dict:
         rows[name] = {
             "launches": launches[name], "launches_per_step": launches[name] / steps,
             "max_abs_err": res["errors"][name],
-            "ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 1),
+            "ms": cuda_ms(kernel, 20),
+            "plain_ms": cuda_ms(plain, 1, warm_s=res["plain_s"][name]),
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "bytes": nbytes, "ops": ops, **counts,
         }
@@ -1163,10 +1217,12 @@ GSPLAT = dict(gaussians=50_000, cameras=8, resolution=800, radius=2.5, elevation
               densify_quantile=0.9, task_steps=4, task_resume_to=6)
 
 
-def trace_step(step) -> dict:
+def trace_step(step, spans=("gsplat.", "rasterize.")) -> dict:
     """One synchronised call of step() under torch.profiler: its wall time,
-    the device's busy time (the sum of its kernels' times), the idle share
-    and the five kernels with the most device time."""
+    the device's busy time (the sum of its kernels' times; the profiler also
+    lists the record_function spans, named with the prefixes ``spans``, as
+    device events), the idle share and the five kernels with the most device
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1178,7 +1234,7 @@ def trace_step(step) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not e.name.startswith(("gsplat.", "rasterize."))]
+               and not e.name.startswith(spans)]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
     by_name: dict[str, float] = {}
     for e in kernels:
@@ -1415,6 +1471,257 @@ def gsplat_task(device, seed, kernels, scene: Path) -> dict:
     return summary
 
 
+# phase 10: the mesh prior at the defining scale of scripts/prior_scale_demo.py
+PRIOR = dict(rows=300, cols=280, radius=0.5, scale=1.0, num_samples_x=4, shadow_scale=0.95,
+             visibility_resolution=64, denoise=True, pairs_budget=2_500_000, resolution=800,
+             cam_radius=2.0, elevation=20.0, cameras=4, batch=2, warmup_steps=1, timed_steps=3,
+             hash_steps=2, task_rows=120, task_cols=112, task_steps=2, task_resume_to=3)
+PRIOR_SPANS = ("trainer.", "prior.", "envshade.", "geosplat.", "rasterize.")
+
+
+def uv_sphere(rows: int, cols: int, radius: float = 0.5, device=None):
+    """The UV sphere of scripts/prior_scale_demo.py:43-63: (rows + 1) rings
+    of cols vertices from polar angle 1e-3 to pi - 1e-3, two triangles a
+    quad, the columns wrapped: 2 x rows x cols faces."""
+    import torch
+
+    from geosplatting_tpu_torch.graphics.mesh import TriangleMesh
+
+    th = torch.linspace(1e-3, math.pi - 1e-3, rows + 1, dtype=torch.float64)
+    ph = torch.arange(cols, dtype=torch.float64) * (2 * math.pi / cols)
+    tt, pp = torch.meshgrid(th, ph, indexing="ij")
+    v = torch.stack((tt.sin() * pp.cos(), tt.cos(), tt.sin() * pp.sin()), -1).reshape(-1, 3)
+    r = torch.arange(rows)[:, None]
+    c = torch.arange(cols)[None, :]
+    c1 = (c + 1) % cols
+    i00, i01, i10, i11 = r * cols + c, r * cols + c1, (r + 1) * cols + c, (r + 1) * cols + c1
+    f = torch.cat((torch.stack((i00, i10, i01), -1).reshape(-1, 3),
+                   torch.stack((i01, i10, i11), -1).reshape(-1, 3)))
+    return TriangleMesh(vertices=(v * radius).float().to(device), indices=f.to(device))
+
+
+class TimedVisibility:
+    """Wraps the visibility functions that GeoSplatterPrior builds for the
+    duration of a with-block: each call is synchronised and its host
+    seconds appended to ``seconds`` (the occupancy grid's build too)."""
+
+    def __init__(self):
+        from geosplatting_tpu_torch.models import geosplat_prior
+
+        self.module = geosplat_prior
+        self.fn = geosplat_prior.make_mesh_visibility
+        self.seconds = []
+
+    def __enter__(self):
+        import torch
+
+        def timed(fn):
+            def wrapped(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.seconds.append(time.perf_counter() - t0)
+                return out
+            return wrapped
+
+        self.module.make_mesh_visibility = lambda *a, **kw: timed(timed(self.fn)(*a, **kw))
+        return self
+
+    def __exit__(self, *exc):
+        self.module.make_mesh_visibility = self.fn
+
+
+def prior_train(device, seed, kernels, hash_field: bool) -> tuple[dict, dict]:
+    """(a) and (b) of phase 10: GeoSplatterPrior on the 300 x 280 UV sphere
+    (1,008,000 Gaussians) at 800x800, batch 2, through GeoSplatPriorTrainer,
+    with the shared field (a: warm-up and timed steps, one step traced, the
+    visibility march timed) or the hash field (b). Gates on every step.
+    Returns (summary, the last camera's kernel inputs; a only)."""
+    import torch
+
+    from geosplatting_tpu_torch.graphics.cameras import Cameras
+    from geosplatting_tpu_torch.models.geosplat import GaussianField
+    from geosplatting_tpu_torch.models.geosplat_mc import OCC_ENC
+    from geosplatting_tpu_torch.models.geosplat_prior import GeoSplatterPrior
+    from geosplatting_tpu_torch.ops import rasterize_pairs as rp
+    from geosplatting_tpu_torch.ops import segment_rows as sr
+    from geosplatting_tpu_torch.train.geosplat_prior_trainer import (
+        GeoSplatPriorTrainer, GeoSplatPriorTrainerConfig,
+    )
+
+    c = PRIOR
+    b = c["batch"]
+    gen = torch.Generator(device=device).manual_seed(seed + (7 if hash_field else 5))
+    mesh = uv_sphere(c["rows"], c["cols"], c["radius"], device)
+    field = GaussianField(occ_enc=OCC_ENC, generator=gen, device=device) if hash_field else None
+    model = GeoSplatterPrior(
+        mesh, scale=c["scale"], num_samples_x=c["num_samples_x"],
+        shadow_scale=c["shadow_scale"], visibility_resolution=c["visibility_resolution"],
+        denoise=c["denoise"], pairs_budget=c["pairs_budget"], field=field, generator=gen,
+        device=device)
+    trainer = GeoSplatPriorTrainer(GeoSplatPriorTrainerConfig(batch_size=b), model)
+    cams = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=c["cam_radius"],
+                              elevation_degrees=c["elevation"], num_samples=c["cameras"],
+                              width=c["resolution"], height=c["resolution"], device=device)
+    gt = sphere_gt(cams)
+    deform0 = model.deform.detach().clone()
+    n_steps = c["hash_steps"] if hash_field else c["warmup_steps"] + c["timed_steps"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per_step, seconds, totals = [], [], {k: 0 for k in kernels.KERNELS}
+    recorders = [Recorder(rp, "composite_bwd"), Recorder(sr, "cumsum_rows")]
+    vis = TimedVisibility()
+    with Timed(GeoSplatterPrior, "render") as renders:
+        for i in range(n_steps):
+            idx = (torch.arange(b, device=device) + i * b) % c["cameras"]
+            timed = hash_field or i >= c["warmup_steps"]
+            if i == n_steps - 1 and not hash_field:
+                for r in (*recorders, vis):
+                    r.__enter__()
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            m = trainer.train_step(cams[idx], gt[idx], generator=gen)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = {k: kernels.launches[k] for k in kernels.KERNELS}
+            metrics = {k: float(v) for k, v in m.items()}
+            per_step.append({**metrics, "seconds": dt, "launches": counts})
+            if not (math.isfinite(metrics["loss"]) and math.isfinite(metrics["reg"])
+                    and metrics["nonfinite_grads"] == 0 and metrics["pair_fill"] <= 1.0):
+                raise AssertionError(f"prior step {i} (hash={hash_field}): {metrics}")
+            if not all(counts[k] == b for k in kernels.KERNELS):
+                raise AssertionError(f"prior step {i}: kernel launches {counts} for {b} cameras")
+            if timed:
+                seconds.append(dt)
+                for k in totals:
+                    totals[k] += counts[k]
+    if not hash_field:
+        for r in (*recorders, vis):
+            r.__exit__()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    traced = None if hash_field else trace_step(
+        lambda: trainer.train_step(cams[:b], gt[:b], generator=gen), spans=PRIOR_SPANS)
+    pairs = [int(out[2]["total_pairs"]) for out in renders.outputs]
+    med = sorted(seconds)[len(seconds) // 2]
+    n_live = int(per_step[-1]["num_gaussians"])
+    summary = {
+        "field": "hash" if hash_field else "shared",
+        "config": {k: c[k] for k in ("rows", "cols", "radius", "scale", "num_samples_x",
+                                     "shadow_scale", "visibility_resolution", "denoise",
+                                     "pairs_budget", "resolution", "cam_radius", "elevation",
+                                     "batch")},
+        "faces": mesh.num_faces, "num_gaussians": n_live,
+        "pairs_per_camera": pairs, "pairs_per_gaussian": max(pairs) / n_live,
+        "pair_fill": [s["pair_fill"] for s in per_step],
+        "step_seconds": [s["seconds"] for s in per_step], "median_step_s": med,
+        "render_forward_seconds": renders.seconds,
+        "loss": [s["loss"] for s in per_step], "reg": [s["reg"] for s in per_step],
+        "peak_memory_gib": peak, "launches": totals,
+        "deform_moved": float((model.deform.detach() - deform0).abs().max()),
+    }
+    if not hash_field:
+        last = per_step[-1]["seconds"]
+        summary.update(traced=traced, visibility_seconds_last_step=sum(vis.seconds),
+                       visibility_share_last_step=sum(vis.seconds) / last)
+    if not (n_live == 6 * mesh.num_faces and summary["deform_moved"] > 0
+            and len(pairs) == b * n_steps):
+        raise AssertionError(f"the prior phase failed a check: {summary}")
+    captured = {} if hash_field else {"bwd": recorders[0].args, "k3": recorders[1].args}
+    return summary, captured
+
+
+def prior_task(device, seed, kernels, scene: Path, tmp: Path) -> dict:
+    """(c) of phase 10: GeoSplatPriorTrainTask at the object preset's widths
+    on the product phase's scene, its prior the 120 x 112 UV sphere written
+    as binary PLY: 2 steps with checkpoints, validation and the export, a
+    resume to 3, the export held against the step-3 checkpoint key by key."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from geosplatting_tpu_torch.convert import params_to_numpy
+    from geosplatting_tpu_torch.engine.stage_io import load_export
+    from geosplatting_tpu_torch.engine.train_task import GeoSplatPriorTrainTask
+    from geosplatting_tpu_torch.graphics.mesh_io import load_mesh, save_mesh
+    from geosplatting_tpu_torch.scripts import train_geosplat_prior as cli
+    from geosplatting_tpu_torch.utils.config import load_dataclass
+
+    c = PRIOR
+    mesh = uv_sphere(c["task_rows"], c["task_cols"], c["radius"])
+    mesh_path = tmp / "prior_uv_sphere.ply"
+    save_mesh(mesh_path, mesh.vertices.numpy(), mesh.indices.numpy().astype(np.int32))
+    base = load_mesh(mesh_path)
+    preset = cli.TASKS["object"]
+    task = dataclasses.replace(preset, dataset_path=scene, mesh_path=mesh_path,
+                               experiment_name="prior-task", seed=seed,
+                               num_steps=c["task_steps"], num_steps_per_save=1,
+                               num_steps_per_val=c["task_steps"], num_val_images=2,
+                               device=str(device))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    runs = []
+    with Timed(GeoSplatPriorTrainTask, "step_fn") as steps, \
+            Timed(GeoSplatPriorTrainTask, "val_render") as val:
+        out = task.run()
+        run_dir = Path(out["output_dir"]).resolve()
+        runs.append(out)
+        again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
+                                    num_steps=c["task_resume_to"])
+        runs.append(again.run(resume_dir=run_dir))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: kernels.launches[k] for k in kernels.KERNELS}
+    log = (run_dir / "log.txt").read_text()
+    exported = load_export(run_dir)
+    ckpt = torch.load(run_dir / "ckpts" / f"{c['task_resume_to']}.pt", map_location="cpu")
+    params = params_to_numpy(ckpt["model"])
+    want = {"latlng": params["latlng"], "exposure": params["exposure"],
+            "ks_enc/planes": params["field"]["planes"],
+            "mc_vertices": base["vertices"] + params["deform"],
+            "mc_indices": base["indices"],
+            **{f"ks_enc/ks/{k}": v for k, v in params["field"]["ks"].items()}}
+
+    def leaf(key):
+        node = exported
+        for part in key.split("/"):
+            node = node[part]
+        return node
+
+    mismatched = sorted(k for k in want if not np.array_equal(leaf(k), want[k]))
+    n_gauss = 6 * len(base["indices"])
+    per_gaussian = ("means", "scales", "quats", "opacities", "normals", "kd", "ks", "occ",
+                    "mc_positions")
+    rows_ok = all(exported[k].shape[0] == n_gauss and np.isfinite(exported[k]).all()
+                  for k in per_gaussian)
+    per_step = [{k: float(m[k]) for k in ("loss", "reg", "nonfinite_grads", "pair_fill",
+                                           "num_gaussians")} for m in steps.outputs]
+    summary = {
+        "preset": {k: getattr(preset, k) for k in ("num_steps", "batch_size", "scene_scale",
+                                                   "tile_capacity", "num_samples_x",
+                                                   "backend", "field")},
+        "mesh": {"faces": len(base["indices"]), "vertices": len(base["vertices"]),
+                 "gaussians": n_gauss},
+        "steps": per_step, "step_seconds": steps.seconds, "val_render_seconds": val.seconds,
+        "val_psnr": [r["val_psnr"] for r in runs], "peak_memory_gib": peak,
+        "export_mismatched": mismatched, "export_rows_ok": rows_ok,
+        "export_sdf_none": exported["sdf"] is None and exported["mc_face_mask"] is None,
+        "launches": launches, "resumed": f"resumed from step {c['task_steps']}" in log,
+        "log_tail": log.splitlines()[-3:],
+    }
+    if not (all(math.isfinite(m["loss"]) and math.isfinite(m["reg"])
+                and m["nonfinite_grads"] == 0 and m["pair_fill"] <= 1 for m in per_step)
+            and len(per_step) == c["task_resume_to"] and len(val.seconds) == 2
+            and all(math.isfinite(v) for v in summary["val_psnr"])
+            and summary["resumed"] and f"step {c['task_resume_to']}:" in log
+            and not mismatched and rows_ok and summary["export_sdf_none"]
+            and all(launches[k] > 0 for k in kernels.KERNELS)):
+        raise AssertionError(f"the prior task failed a check: {summary}")
+    return summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1491,15 +1798,33 @@ def main() -> int:
         gtask = gsplat_task(device, args.seed, _kernels, Path(tmp) / "scene")
         phase("gsplat_task", **gtask)
         seconds["gsplat"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        measured = measure_kernels(captured, bench["launches"], GSPLAT["timed_steps"])
+        del captured
+        phase("kernels_vs_plain_at_gsplat", **measured["checks"], **measured["counts"],
+              max_abs_err={k: r["max_abs_err"] for k, r in measured["rows"].items()},
+              tol=TOLERANCES)
+        for entry in line["kernels"]:
+            entry["gsplat"] = measured["rows"][entry["name"]]
+        seconds["kernels_gsplat"] = time.perf_counter() - t0
+        # the mesh prior: the 1M-Gaussian sphere, the hash field, the task
+        t0 = time.perf_counter()
+        prior, captured = prior_train(device, args.seed, _kernels, hash_field=False)
+        phase("prior_scale", **prior, card=smi)
+        prior_hash, _ = prior_train(device, args.seed, _kernels, hash_field=True)
+        phase("prior_hash_field", **prior_hash, card=smi)
+        ptask = prior_task(device, args.seed, _kernels, Path(tmp) / "scene", Path(tmp))
+        phase("prior_task", **ptask)
+        seconds["prior"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    measured = measure_kernels(captured, bench["launches"], GSPLAT["timed_steps"])
+    measured = measure_kernels(captured, prior["launches"], PRIOR["timed_steps"])
     del captured
-    phase("kernels_vs_plain_at_gsplat", **measured["checks"], **measured["counts"],
+    phase("kernels_vs_plain_at_prior", **measured["checks"], **measured["counts"],
           max_abs_err={k: r["max_abs_err"] for k, r in measured["rows"].items()},
           tol=TOLERANCES)
     for entry in line["kernels"]:
-        entry["gsplat"] = measured["rows"][entry["name"]]
-    seconds["kernels_gsplat"] = time.perf_counter() - t0
+        entry["prior"] = measured["rows"][entry["name"]]
+    seconds["kernels_prior"] = time.perf_counter() - t0
     phase("phase_seconds", **seconds, total=time.perf_counter() - start)
     print(smi)
     print(json.dumps(line))

@@ -1,6 +1,6 @@
 """Carry weights between the JAX package's parameter trees and the port's
-``GeoSplatter`` (stage 1), ``GeoSplatterMC`` (stage 2) and
-``GeoSplatterDefer`` (stage 3).
+``GeoSplatter`` (stage 1), ``GeoSplatterMC`` (stage 2),
+``GeoSplatterDefer`` (stage 3) and ``GeoSplatterPrior`` (the mesh prior).
 
 The JAX trees are ``{"sdf", "deform", "weights", "cubemap", "exposure",
 "field": {"planes", "kd": {"w0", "w1"}, "ks": {...}, "z": {...}}}`` for
@@ -13,6 +13,13 @@ flat: the Gaussians' ``means``, ``scales``, ``quats``, ``opacities``,
 ``latlng_value`` and the nested ``ks_enc`` {``planes``, ``ks`` {``w0``,
 ``w1``}}. MLP weights are [out, in] on both sides and triplane planes
 [3, R, R, C], so nothing is transposed.
+
+The hash-grid field (``GaussianField``) is ``{"kd_enc", "ks_enc", "z_enc"[,
+"occ_enc"]}``, each ``{"table": [L * T, F], "mlp": {"w0", ...}}``, and a
+stage-3 hash ``ks_enc`` is one such encoder: both map to the state dict
+name for name. The prior's tree is ``{"deform", "latlng", "exposure",
+"field"}`` and, without the jitter smoothing, ``kdks`` [6F, 5] and ``zs``
+[6F, 1]; its base mesh is a buffer, not a parameter.
 
 Vanilla 3DGS (``GSplatTrainer.init_state``): the params tree is flat,
 ``means``, ``scales``, ``quats``, ``colors``, ``opacities`` and ``shs``,
@@ -27,7 +34,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-_TOP = ("sdf", "deform", "weights", "cubemap", "latlng", "exposure")
+_TOP = ("sdf", "deform", "weights", "cubemap", "latlng", "exposure", "kdks", "zs")
 _HEADS = ("kd", "ks", "z", "occ")
 _STAGE3 = ("means", "scales", "quats", "opacities", "normals", "kd", "occ", "exposure",
            "latlng_hue", "latlng_value")
@@ -37,17 +44,44 @@ def _f32(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
+def _flatten(tree: Mapping, prefix: str) -> dict[str, torch.Tensor]:
+    """Nested dict -> {"<prefix>.<key>.<key>": tensor}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, f"{prefix}.{k}"))
+        else:
+            out[f"{prefix}.{k}"] = _f32(v)
+    return out
+
+
+def _unflatten(state: Mapping[str, torch.Tensor], prefix: str) -> dict:
+    """The entries of ``state`` under ``prefix`` as a nested dict of numpy."""
+    out: dict = {}
+    for k, v in state.items():
+        if not k.startswith(prefix + "."):
+            continue
+        *path, leaf = k[len(prefix) + 1:].split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = v.detach().cpu().numpy()
+    return out
+
+
 def params_from_numpy(tree: Mapping) -> dict[str, torch.Tensor]:
     """JAX stage-1, stage-2 or stage-3 parameter tree (numpy leaves) ->
     state-dict entries of the port's model; load them with
     ``model.load_state_dict``."""
     if "latlng_hue" in tree:
         out = {k: _f32(tree[k]) for k in _STAGE3}
-        out["ks_enc.planes"] = _f32(tree["ks_enc"]["planes"])
-        out.update({f"ks_enc.ks.{k}": _f32(v) for k, v in tree["ks_enc"]["ks"].items()})
+        out.update(_flatten(tree["ks_enc"], "ks_enc"))
         return out
     out = {k: torch.from_numpy(np.array(tree[k], dtype=np.float32)) for k in _TOP if k in tree}
     field = tree["field"]
+    if "planes" not in field:   # the hash-grid field
+        out.update(_flatten(field, "field"))
+        return out
     out["field.trunk.planes"] = torch.from_numpy(np.array(field["planes"], dtype=np.float32))
     for head in _HEADS:
         for name, leaf in field.get(head, {}).items():
@@ -60,13 +94,12 @@ def params_to_numpy(state: Mapping[str, torch.Tensor]) -> dict:
     numpy leaves."""
     if "latlng_hue" in state:
         tree = {k: state[k].detach().cpu().numpy() for k in _STAGE3}
-        prefix = "ks_enc.ks."
-        tree["ks_enc"] = {
-            "planes": state["ks_enc.planes"].detach().cpu().numpy(),
-            "ks": {k[len(prefix):]: v.detach().cpu().numpy()
-                   for k, v in state.items() if k.startswith(prefix)}}
+        tree["ks_enc"] = _unflatten(state, "ks_enc")
         return tree
     tree = {k: state[k].detach().cpu().numpy() for k in _TOP if k in state}
+    if "field.trunk.planes" not in state:   # the hash-grid field
+        tree["field"] = _unflatten(state, "field")
+        return tree
     field: dict = {"planes": state["field.trunk.planes"].detach().cpu().numpy()}
     for head in _HEADS:
         prefix = f"field.{head}."

@@ -4,7 +4,8 @@ training loop and the relight evaluation of a stage-3 run.
 Counterpart of ``geosplatting_tpu/engine/train_task.py`` (``resume``,
 ``ResumeTask``, ``RelightEvalTask``, ``_TrainTaskBase.run`` with its
 ``after_update`` hook, ``GeoSplatTrainTask``, ``GeoSplatMCTrainTask``,
-``GeoSplatDeferTrainTask`` and ``GSplatTrainTask``): the loop with
+``GeoSplatDeferTrainTask``, ``GeoSplatPriorTrainTask`` and
+``GSplatTrainTask``): the loop with
 validation PSNR and image dumps on the val split, ``log.txt`` lines, the
 alarm on every budget fill a trainer reports, checkpoints and the export
 that the next stage loads.
@@ -21,9 +22,13 @@ the generator's state, so a resumed run draws what the uninterrupted run would h
 Options of the JAX tasks without a meaning in the port yet are left out:
 ``backend``, ``tile_capacity`` and ``data_parallel`` (multi-GPU; with it
 the stage-3 ``train_step_dp``), and
-``dashboard``, ``turntable`` and ``vis_export_every`` (tooling). Options
-the JAX tasks lack: ``GeoSplatTrainTask.sdf_sphere_init`` (default off) and
-``triplane_resolution`` (the JAX model's 512). The stage-3 task builds its
+``dashboard``, ``turntable`` and ``vis_export_every`` (tooling); the prior
+task keeps ``backend`` (the pairs path) and ``tile_capacity`` (unused) so
+its presets are the JAX ones. Options the JAX tasks lack:
+``GeoSplatTrainTask.sdf_sphere_init`` (default off), ``triplane_resolution``
+(the JAX model's 512, also the prior task's) and the prior task's ``field``.
+A stage-2 or stage-3 task takes the hash field when the export it loads
+carries a hash-grid roughness predictor. The stage-3 task builds its
 model with a mesh tile capacity of 1024 where the JAX model keeps 256
 (``MESH_TILE_CAPACITY``), and the 3DGS task budgets 48 screen pairs a
 Gaussian where the JAX model's default is 8 (``PAIRS_PER_GAUSSIAN``).
@@ -351,22 +356,27 @@ class GeoSplatMCTrainTask(_TrainTaskBase):
     load: Path | None = None
 
     def build(self, dataset, generator):
-        from ..models.geosplat_mc import GeoSplatterMC
+        from ..models.geosplat import GaussianField, ks_bundle_layout
+        from ..models.geosplat_mc import OCC_ENC, GeoSplatterMC
         from ..train.geosplat_mc_trainer import GeoSplatMCTrainer, GeoSplatMCTrainerConfig
 
         if self.load is None:
             raise ValueError("stage-2 requires --load <stage-1 output dir>")
         export = load_export(find_export(self.load))
-        # the trunk is sized by the stage-1 planes it inherits (without them
-        # init_from_stage1 names the layout mismatch)
+        # the field follows the stage-1 roughness predictor it inherits: the
+        # hash field for a hash bundle, else a trunk sized by its planes
         bundle = export["ks_enc"]
+        field = None
+        if ks_bundle_layout(bundle) == "hash":
+            field = GaussianField(occ_enc=OCC_ENC, generator=generator, device=dataset.device)
         planes = np.shape(bundle["planes"]) if "planes" in bundle else (3, 512, 512, 32)
         model = GeoSplatterMC(
             resolution=self.resolution, scale=self.scene_scale,
             initial_guess=self.initial_guess, num_samples_x=self.num_samples_x,
             pairs_budget=self.pairs_budget, tile_shape=self.tile_shape,
             max_render_faces=self.max_render_faces, triplane_resolution=planes[1],
-            triplane_components=planes[-1], generator=generator, device=dataset.device,
+            triplane_components=planes[-1], field=field, generator=generator,
+            device=dataset.device,
         )
         model.init_from_stage1(export)
         trainer = GeoSplatMCTrainer(
@@ -428,13 +438,14 @@ class GeoSplatDeferTrainTask(_TrainTaskBase):
         """A GeoSplatterDefer sized for ``params`` (a stage-2 export or a
         stage-3 export's ``params``: the Gaussians and ``ks_enc``)."""
         from ..models.geosplat import check_ks_bundle
-        from ..models.geosplat_defer import GeoSplatterDefer
+        from ..models.geosplat_defer import KS_ENC, GeoSplatterDefer
 
-        check_ks_bundle(params["ks_enc"])
-        planes = np.shape(params["ks_enc"]["planes"])
+        hashed = check_ks_bundle(params["ks_enc"]) == "hash"
+        planes = (3, 512, 512, 32) if hashed else np.shape(params["ks_enc"]["planes"])
         return GeoSplatterDefer(
             num_gaussians=np.shape(params["means"])[0], ks_resolution=planes[1],
-            ks_components=planes[-1], resolution=self.resolution, scale=self.scene_scale,
+            ks_components=planes[-1], ks_hash=KS_ENC if hashed else None,
+            resolution=self.resolution, scale=self.scene_scale,
             num_samples_x=self.num_samples_x, pairs_budget=self.pairs_budget,
             tile_shape=self.tile_shape, mesh_tile_capacity=MESH_TILE_CAPACITY, device=device,
         )
@@ -472,6 +483,77 @@ class GeoSplatDeferTrainTask(_TrainTaskBase):
         # export stored it
         return {"params": params_to_numpy(model.state_dict()),
                 "geometry": frozen_geometry(self._stage2)}
+
+
+# --- mesh-prior variant ----------------------------------------------------------
+
+# the port's one rasterizer backend: the pairs path ("auto" selects it)
+BACKENDS = ("auto", "pairs")
+
+
+@dataclasses.dataclass
+class GeoSplatPriorTrainTask(_TrainTaskBase):
+    """The mesh-prior variant (GeoSplatterPrior, GeoSplatPriorTrainer):
+    ``mesh_path`` is the initial mesh, OBJ or PLY (ascii or binary), whose
+    vertices the run offsets. ``field`` "hash" shades from the hash-grid
+    ``GaussianField`` (with the occ encoder), "shared" from the shared
+    triplane field the JAX task builds. ``tile_capacity`` is the JAX dense
+    backend's per-tile capacity, kept so the presets match; the port's
+    pairs path has no such capacity (its budget is ``pairs_budget``). The
+    export is the JAX ``export_model``'s, ``sdf`` None."""
+
+    experiment_name: str = "geosplat-prior"
+    mesh_path: Path = Path("mesh.obj")
+    scene_scale: float = 1.05
+    tile_capacity: int = 768
+    num_samples_x: int = 8
+    backend: str = "auto"
+    field: str = "shared"
+    triplane_resolution: int = 512    # the shared field's (GeoSplatTrainTask)
+
+    def build(self, dataset, generator):
+        from ..graphics.mesh import TriangleMesh
+        from ..graphics.mesh_io import load_mesh
+        from ..models.geosplat import GaussianField
+        from ..models.geosplat_mc import OCC_ENC
+        from ..models.geosplat_prior import GeoSplatterPrior
+        from ..train.geosplat_prior_trainer import (
+            GeoSplatPriorTrainer, GeoSplatPriorTrainerConfig,
+        )
+
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend {self.backend!r}: the port has the pairs path only "
+                             f"({BACKENDS})")
+        if self.field not in ("shared", "hash"):
+            raise ValueError(f"field: {self.field!r} (shared or hash)")
+        data = load_mesh(self.mesh_path)
+        base = TriangleMesh(vertices=torch.from_numpy(data["vertices"]),
+                            indices=torch.from_numpy(data["indices"]).long())
+        field = (GaussianField(occ_enc=OCC_ENC, generator=generator, device=dataset.device)
+                 if self.field == "hash" else None)
+        model = GeoSplatterPrior(
+            base, scale=self.scene_scale, num_samples_x=self.num_samples_x, field=field,
+            triplane_resolution=self.triplane_resolution, generator=generator,
+            device=dataset.device,
+        )
+        trainer = GeoSplatPriorTrainer(
+            GeoSplatPriorTrainerConfig(num_steps=self.num_steps, batch_size=self.batch_size),
+            model)
+        return model, trainer
+
+    def step_fn(self, trainer, cams, gt, generator, step):
+        return trainer.train_step(cams, gt, generator=generator)
+
+    def val_render(self, model, cams):
+        # the validation's own draws (see GeoSplatMCTrainTask.val_render)
+        generator = torch.Generator(device=cams.device).manual_seed(self.seed)
+        rgba, _, _ = model.render(cams, kd_perturb_std=0.0, ks_perturb_std=0.0,
+                                  generator=generator)
+        rgb = gimages.rgb2srgb(rgba[..., :3].clamp(0, 1)) * rgba[..., 3:]
+        return torch.cat((rgb, rgba[..., 3:]), -1)
+
+    def export(self, model):
+        return model.export_model()
 
 
 # --- vanilla 3DGS ----------------------------------------------------------------

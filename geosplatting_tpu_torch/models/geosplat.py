@@ -1,26 +1,32 @@
 """GeoSplatter stage 1 — FlexiCubes -> MGAdapter Gaussians -> split-sum PBR.
 
 Counterpart of ``geosplatting_tpu/models/geosplat.py`` on the stage-1
-training path: ``tone_naive``, ``tone_aces``, ``MGAdapter``, the
-``SharedField`` material field (one triplane trunk + MLP heads),
-``export_ks_bundle`` and, for stage 3, ``KsBundle`` (``apply_ks_bundle``),
+training path: ``tone_naive``, ``tone_aces``, ``MGAdapter``, the two
+material fields (``SharedField``: one triplane trunk + MLP heads, evaluated
+per face; ``GaussianField``: four hash-grid encoders, ``HashEncoding``,
+evaluated per Gaussian in checkpointed chunks), ``export_ks_bundle`` and,
+for stage 3, ``KsBundle`` and ``load_ks_bundle`` (``apply_ks_bundle``),
 ``compact_faces``, face and vertex Gaussian sampling, split-sum shading in
 the fast (training) and exact (validation, export) qualities and
 ``GeoSplatter`` (an ``nn.Module`` that owns the stage-1 parameters) with
 ``get_geometry``, ``get_envmap`` and the per-camera ``render``.
 
 Randomness is explicit: ``render`` takes the jitter noise as a tensor (a
-standard-normal draw, the JAX package's ``geosplat.py:498``) or draws it
-from the caller's ``torch.Generator``.
+standard-normal draw of ``field.jitter_shape``: one row a face for the
+shared field, the JAX package's ``geosplat.py:498``; a kd and a ks row a
+Gaussian for the hash field, ``:443-449``) or draws it from the caller's
+``torch.Generator``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 from torch import nn
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from .. import _kernels
 from ..graphics import flexicubes as fc
@@ -29,6 +35,7 @@ from ..graphics.cameras import Cameras
 from ..graphics.mesh import TriangleMesh
 from ..graphics.splats import Splats
 from ..ops import cubemap as cm
+from ..ops.hashgrid import HashGridConfig, hashgrid_encode
 from ..ops.rasterize import rasterize
 from ..ops.segment_rows import gather_rows
 from .encodings import TriplaneEncoding, triplane_features
@@ -164,6 +171,11 @@ class SharedField(nn.Module):
             groups["occ"] = list(self.occ.parameters())
         return groups
 
+    @staticmethod
+    def jitter_shape(num_faces: int) -> tuple[int, ...]:
+        """Shape of the face-sampling jitter noise: one point a face."""
+        return (num_faces, 3)
+
     def apply_all(self, x: torch.Tensor, x_jitter: torch.Tensor | None = None) -> dict:
         """Every head at positions ``x`` [P, 3] in [-1, 1]. The z head sees a
         position-detached trunk evaluation."""
@@ -182,23 +194,151 @@ class SharedField(nn.Module):
         return out
 
 
-def export_ks_bundle(field: SharedField) -> dict:
-    """The stage-1 -> stage-2/3 roughness-predictor hand-off: the trunk
-    planes and the ks head, in the JAX package's layout
-    (``{"planes": [3, R, R, C], "ks": {"w0", "w1"}}``)."""
+@dataclasses.dataclass(frozen=True)
+class HashEncodingConfig:
+    """A hash grid and its bias-free MLP head (ReLU hidden layers, Kaiming-
+    uniform init): the JAX package's ``HashEncoding(grid, mlp)``."""
+
+    grid: HashGridConfig
+    hidden: tuple[int, ...]
+    out_dim: int
+    activation: str = "none"
+
+
+class HashEncoding(nn.Module):
+    """Parameters ``table`` [L * T, F] and the head ``mlp`` (``w0`` ...,
+    [out, in] each), the JAX package's ``{"table", "mlp"}``."""
+
+    def __init__(self, config: HashEncodingConfig, *, generator: torch.Generator | None = None,
+                 device=None):
+        super().__init__()
+        self.config = config
+        self.table = nn.Parameter(config.grid.init(generator, device))
+        self.mlp = MLP((config.grid.output_dim, *config.hidden, config.out_dim),
+                       activation=config.activation, generator=generator, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mlp(hashgrid_encode(self.table, x, self.config.grid))
+
+
+def _default_enc(out_dim: int, activation: str, hidden: tuple[int, ...]) -> HashEncodingConfig:
+    return HashEncodingConfig(
+        grid=HashGridConfig(max_res=4096, log2_hashmap_size=18, grad_scaling=16.0),
+        hidden=hidden, out_dim=out_dim, activation=activation,
+    )
+
+
+KD_ENC = _default_enc(3, "sigmoid", (32, 32))
+KS_FIELD_ENC = _default_enc(2, "none", (32,))
+Z_ENC = _default_enc(1, "none", (32,))
+
+
+class GaussianField(nn.Module):
+    """The reference's neural material field: four hash-grid encoders
+    (``kd_enc`` sigmoid RGB, ``ks_enc`` raw roughness / metallic, ``z_enc``
+    the raw normal offset, and with ``occ_enc`` the 6 raw residual-light
+    channels), evaluated at every Gaussian's position."""
+
+    def __init__(self, *, kd_enc: HashEncodingConfig = KD_ENC,
+                 ks_enc: HashEncodingConfig = KS_FIELD_ENC, z_enc: HashEncodingConfig = Z_ENC,
+                 occ_enc: HashEncodingConfig | None = None,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.kd_enc = HashEncoding(kd_enc, **kw)
+        self.ks_enc = HashEncoding(ks_enc, **kw)
+        self.z_enc = HashEncoding(z_enc, **kw)
+        self.occ_enc = HashEncoding(occ_enc, **kw) if occ_enc is not None else None
+
+    def param_groups(self) -> dict[str, list[nn.Parameter]]:
+        """Optimizer groups of the JAX package's ``field_group_names`` order:
+        kd, ks, z, then occ (each an encoder's table and head)."""
+        groups = {
+            "kd": list(self.kd_enc.parameters()),
+            "ks": list(self.ks_enc.parameters()),
+            "z": list(self.z_enc.parameters()),
+        }
+        if self.occ_enc is not None:
+            groups["occ"] = list(self.occ_enc.parameters())
+        return groups
+
+    @staticmethod
+    def jitter_shape(num_faces: int) -> tuple[int, ...]:
+        """Shape of the jitter noise: a kd and a ks point a Gaussian."""
+        return (2, 6 * num_faces, 3)
+
+    def apply_all(self, x: torch.Tensor) -> dict:
+        """Every encoder at positions ``x`` [P, 3] in [-1, 1] (the hash
+        branch of the JAX package's ``evaluate_field``); z sees ``x``
+        detached."""
+        out = {"kd": self.kd_enc(x), "ks_raw": self.ks_enc(x), "z_raw": self.z_enc(x.detach())}
+        if self.occ_enc is not None:
+            out["occ_raw"] = self.occ_enc(x)
+        return out
+
+
+def param_tree(module: nn.Module) -> dict:
+    """A module's parameters as the JAX package's nested dict, detached."""
+    out: dict = {}
+    for name, p in module.named_parameters():
+        *path, leaf = name.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = p.detach()
+    return out
+
+
+def export_ks_bundle(field: SharedField | GaussianField) -> dict:
+    """The stage-1 -> stage-2/3 roughness-predictor hand-off in the JAX
+    package's layout: the trunk planes and the ks head of the shared field
+    (``{"planes": [3, R, R, C], "ks": {"w0", "w1"}}``), the ks encoder of
+    the hash field (``{"table": [L * T, F], "mlp": {"w0", "w1"}}``)."""
+    if isinstance(field, GaussianField):
+        return param_tree(field.ks_enc)
     return {
         "planes": field.trunk.planes.detach(),
         "ks": {name: p.detach() for name, p in field.ks.named_parameters()},
     }
 
 
-def check_ks_bundle(bundle) -> None:
-    """Raises unless ``bundle`` is the triplane layout of ``export_ks_bundle``."""
-    if not isinstance(bundle, dict) or "planes" not in bundle:
-        keys = sorted(bundle) if isinstance(bundle, dict) else type(bundle).__name__
-        raise NotImplementedError(
-            f"a hash-grid roughness predictor (bundle {keys}) needs ops/hashgrid.py, which "
-            "is not ported yet; train stage 1 with the shared triplane field")
+def ks_bundle_layout(bundle) -> str | None:
+    """The layout of a roughness-predictor bundle: "triplane", "hash" or
+    None for neither."""
+    if isinstance(bundle, dict) and "planes" in bundle:
+        return "triplane"
+    if isinstance(bundle, dict) and "table" in bundle and "mlp" in bundle:
+        return "hash"
+    return None
+
+
+def check_ks_bundle(bundle) -> str:
+    """``ks_bundle_layout``, raising NotImplementedError for neither."""
+    layout = ks_bundle_layout(bundle)
+    if layout is not None:
+        return layout
+    keys = sorted(bundle) if isinstance(bundle, dict) else type(bundle).__name__
+    raise NotImplementedError(
+        f"roughness-predictor bundle {keys}: the port reads the triplane {{planes, ks}} and "
+        "the hashgrid {table, mlp} layouts only")
+
+
+@torch.no_grad()
+def load_ks_bundle(module: nn.Module, bundle: dict, what: str) -> None:
+    """Copy a bundle of ``export_ks_bundle``'s layout (tensors or arrays)
+    into ``module`` (a ``KsBundle``, a field's ``HashEncoding``), checking
+    every shape."""
+    for name, p in module.named_parameters():
+        node = bundle
+        for part in name.split("."):
+            node = node[part]
+        value = (node.detach() if isinstance(node, torch.Tensor)
+                 else torch.from_numpy(np.array(node, dtype=np.float32)))
+        value = value.to(device=p.device, dtype=torch.float32)
+        if tuple(value.shape) != tuple(p.shape):
+            raise ValueError(f"{what}/{name.replace('.', '/')} has shape {tuple(value.shape)}, "
+                             f"the model expects {tuple(p.shape)}")
+        p.copy_(value)
 
 
 class KsBundle(nn.Module):
@@ -246,23 +386,68 @@ def field_points(mesh: TriangleMesh, scale: float) -> torch.Tensor:
     return torch.clamp(mesh.face_vertices().mean(1) / scale, -1, 1)
 
 
+def _eval_chunked(enc: nn.Module, x: torch.Tensor, chunk: int | None) -> torch.Tensor:
+    """``enc(x)`` over rows of ``chunk`` (all at once for None), each chunk
+    rematerialised in the backward: the hash-grid corner gathers would
+    otherwise keep 8 rows a level and encoder alive per point."""
+    parts = x.split(chunk) if chunk else (x,)
+    if not torch.is_grad_enabled():
+        return torch.cat([enc(p) for p in parts])
+    return torch.cat([checkpoint(enc, p, use_reentrant=False) for p in parts])
+
+
+def _hash_field_gaussians(field: GaussianField, splats, offsets, valid, means, *,
+                          initial_guess, kd_perturb_std, ks_perturb_std, jitter_noise,
+                          eval_chunk):
+    """GaussianField evaluation (the JAX package's ``geosplat.py:426-470``):
+    every encoder at each Gaussian's position, z at the detached position;
+    the kd and ks jitter points take rows 0 and 1 of ``jitter_noise``."""
+    def ev(enc, x):
+        return _eval_chunked(enc, x, eval_chunk)
+
+    offsets = offsets * torch.sigmoid(ev(field.z_enc, means.detach()))
+    kd_jitter = ks_jitter = None
+    if kd_perturb_std > 0 and jitter_noise is not None:
+        kd_jitter = ev(field.kd_enc, torch.clamp(means + jitter_noise[0] * kd_perturb_std, -1, 1))
+        if ks_perturb_std > 0:
+            ks_jitter = torch.sigmoid(
+                ev(field.ks_enc, torch.clamp(means + jitter_noise[1] * ks_perturb_std, -1, 1))
+                + initial_guess)
+    attrs = RenderableAttrs(
+        kd=ev(field.kd_enc, means),
+        ks=torch.sigmoid(ev(field.ks_enc, means) + initial_guess),
+        normals=splats.colors,
+        occ=ev(field.occ_enc, means) if field.occ_enc is not None else None,
+        kd_jitter=kd_jitter,
+        ks_jitter=ks_jitter,
+    )
+    return splats.replace(means=splats.means - offsets), attrs, offsets, valid
+
+
 def get_gaussians_from_face(
-    field: SharedField,
+    field: SharedField | GaussianField,
     mesh: TriangleMesh,
     *,
     scale: float,
     initial_guess: torch.Tensor,       # [2]
     kd_perturb_std: float = 0.0,
     ks_perturb_std: float = 0.0,
-    jitter_noise: torch.Tensor | None = None,   # [F, 3] standard normal
+    jitter_noise: torch.Tensor | None = None,   # field.jitter_shape standard normal
     max_faces: int | None = None,
+    eval_chunk: int | None = 262144,
 ) -> tuple[Splats, RenderableAttrs, torch.Tensor, torch.Tensor]:
-    """(splats, attrs, offsets, valid) with the field evaluated per face and
-    shared by the face's 6 Gaussians. One jitter position (std =
-    kd_perturb_std, else ks_perturb_std) serves both smoothness terms."""
+    """(splats, attrs, offsets, valid). The shared field is evaluated per
+    face and shared by the face's 6 Gaussians, one jitter position (std =
+    kd_perturb_std, else ks_perturb_std) serving both smoothness terms; the
+    hash field per Gaussian, in chunks of ``eval_chunk`` rows."""
     if max_faces is not None:
         mesh = compact_faces(mesh, max_faces)
     splats, offsets, valid = MGAdapter().make(mesh)
+    if isinstance(field, GaussianField):
+        return _hash_field_gaussians(
+            field, splats, offsets, valid, torch.clamp(splats.means / scale, -1, 1),
+            initial_guess=initial_guess, kd_perturb_std=kd_perturb_std,
+            ks_perturb_std=ks_perturb_std, jitter_noise=jitter_noise, eval_chunk=eval_chunk)
     pts = field_points(mesh, scale)
 
     def expand(v):
@@ -290,7 +475,7 @@ def get_gaussians_from_face(
 
 
 def get_gaussians_from_vertex(
-    field: SharedField,
+    field: SharedField | GaussianField,
     mesh: TriangleMesh,
     *,
     scale: float,
@@ -327,6 +512,7 @@ def get_gaussians_from_vertex(
         kd=heads["kd"],
         ks=torch.sigmoid(heads["ks_raw"] + initial_guess),
         normals=vn,
+        occ=heads.get("occ_raw"),
     )
     op = torch.where(valid, math.log(0.99 / 0.01), -20.0)[:, None]
     splats = Splats(
@@ -422,7 +608,10 @@ _INITIAL_GUESS = {
 class GeoSplatter(nn.Module):
     """Stage-1 model. Parameters: ``sdf`` [V], ``deform`` [V, 3], ``weights``
     [cubes, 21], ``cubemap`` [6, R, R, 3], ``exposure`` [1] and the
-    ``field`` module. Runs on CUDA unless ``device`` says otherwise."""
+    ``field`` module: a ``SharedField`` of ``triplane_*`` and
+    ``field_hidden`` unless ``field`` gives one (a ``GaussianField`` on the
+    same device selects the hash grid). Runs on CUDA unless ``device`` says
+    otherwise."""
 
     def __init__(
         self,
@@ -443,6 +632,7 @@ class GeoSplatter(nn.Module):
         triplane_resolution: int = 512,
         triplane_components: int = 32,
         field_hidden: int = 64,
+        field: SharedField | GaussianField | None = None,
         generator: torch.Generator | None = None,
         device: str | torch.device | None = None,
     ):
@@ -472,7 +662,7 @@ class GeoSplatter(nn.Module):
             torch.full((6, light_resolution, light_resolution, 3), 0.5, device=device)
         )
         self.exposure = nn.Parameter(torch.zeros(1, device=device))
-        self.field = SharedField(
+        self.field = field if field is not None else SharedField(
             resolution=triplane_resolution, num_components=triplane_components,
             hidden=field_hidden, generator=generator, device=device,
         )
@@ -507,7 +697,8 @@ class GeoSplatter(nn.Module):
         return base, mips, white_balance_reg
 
     def num_field_points(self, mesh: TriangleMesh) -> int:
-        """Rows of the face-sampling jitter noise for this mesh."""
+        """Faces of the face sampling for this mesh (``field.jitter_shape``
+        of it is the jitter noise's)."""
         return min(self.max_render_faces, mesh.num_faces)
 
     def render(
@@ -542,8 +733,8 @@ class GeoSplatter(nn.Module):
             if sampling == "face":
                 if use_jitter and jitter_noise is None:
                     jitter_noise = torch.randn(
-                        (self.num_field_points(mesh), 3), generator=generator,
-                        device=self.device,
+                        self.field.jitter_shape(self.num_field_points(mesh)),
+                        generator=generator, device=self.device,
                     )
                 splats, attrs, _, valid = get_gaussians_from_face(
                     self.field, mesh, scale=self.scale,

@@ -18,11 +18,12 @@ state dict.
 
 Randomness is explicit: ``render`` takes the ks jitter noise and each
 camera's ``ShadeDraws`` as tensors, or draws them from the caller's
-``torch.Generator``. Left out of the JAX model: ``batched_binning``,
-``tile_capacity``, ``tile_chunk``, ``chunk_size`` and ``backend`` (the port
-has one rasterizer, the pairs path), and the hash-grid roughness predictor
-(``ops/hashgrid.py`` is not ported: a stage-2 export that carries one
-raises).
+``torch.Generator``. The roughness predictor is the stage-2 export's:
+the triplane trunk and head (``KsBundle``) or, for an export of the hash
+field, a ``HashEncoding`` (``ks_hash``, the JAX model's ``KS_ENC`` for a
+task). Left out of the JAX model: ``batched_binning``, ``tile_capacity``,
+``tile_chunk``, ``chunk_size`` and ``backend`` (the port has one
+rasterizer, the pairs path).
 """
 from __future__ import annotations
 
@@ -38,11 +39,21 @@ from ..graphics import gmath
 from ..graphics.cameras import Cameras
 from ..graphics.mesh import TriangleMesh
 from ..ops import envshade as es
+from ..ops.hashgrid import HashGridConfig
 from ..ops.mesh_raster import interpolate, rasterize_mesh
 from ..ops.rasterize import rasterize
 from ..ops.sdf_visibility import make_sdf_visibility
-from .geosplat import KsBundle, check_ks_bundle, tone_aces, tone_naive
+from .geosplat import (
+    HashEncoding, HashEncodingConfig, KsBundle, check_ks_bundle, load_ks_bundle, tone_aces,
+    tone_naive,
+)
 from .geosplat_mc import LATLNG_HW
+
+# the hash-grid roughness predictor of stage 3 (geosplat_defer.py:34-38)
+KS_ENC = HashEncodingConfig(
+    grid=HashGridConfig(max_res=4096, log2_hashmap_size=18, grad_scaling=16.0),
+    hidden=(32,), out_dim=2,
+)
 
 GAUSSIAN_PARAMS = ("means", "scales", "quats", "opacities", "normals", "kd", "occ")
 _WIDTHS = {"means": 3, "scales": 3, "quats": 4, "opacities": 1, "normals": 3, "kd": 3, "occ": 6}
@@ -69,7 +80,8 @@ class GeoSplatterDefer(nn.Module):
     (logit), ``normals``, ``kd``, ``occ``; ``exposure`` [1];
     ``latlng_hue`` and ``latlng_value`` [256, 512, 3]; the ``ks_enc``
     module (a triplane of ``ks_resolution`` x ``ks_components`` and its
-    head). Runs on CUDA unless ``device`` says otherwise;
+    head, or with ``ks_hash`` that hash grid and its head).
+    Runs on CUDA unless ``device`` says otherwise;
     ``init_from_stage2`` fills it from a stage-2 export and ``set_geometry``
     gives it the frozen stage-2 geometry."""
 
@@ -79,6 +91,7 @@ class GeoSplatterDefer(nn.Module):
         num_gaussians: int,
         ks_resolution: int = 512,
         ks_components: int = 32,
+        ks_hash: HashEncodingConfig | None = None,
         background_color: str = "random",
         min_roughness: float = 0.1,
         max_metallic: float = 1.0,
@@ -113,7 +126,8 @@ class GeoSplatterDefer(nn.Module):
         self.exposure = nn.Parameter(torch.zeros(1, device=device))
         self.latlng_hue = nn.Parameter(torch.full(LATLNG_HW + (3,), 0.5, device=device))
         self.latlng_value = nn.Parameter(torch.zeros(LATLNG_HW + (3,), device=device))
-        self.ks_enc = KsBundle(ks_resolution, ks_components, device=device)
+        self.ks_enc = (KsBundle(ks_resolution, ks_components, device=device)
+                       if ks_hash is None else HashEncoding(ks_hash, device=device))
         self.geometry: dict | None = None
 
     @property
@@ -131,7 +145,10 @@ class GeoSplatterDefer(nn.Module):
         its file) into the parameters and take its frozen geometry; the
         lat-long light L becomes hue L / (L + 1) and value log(L + 1.00001)."""
         bundle = export["ks_enc"]
-        check_ks_bundle(bundle)
+        layout = check_ks_bundle(bundle)
+        if layout != ("triplane" if isinstance(self.ks_enc, KsBundle) else "hash"):
+            raise ValueError(f"the stage-2 export's roughness predictor is the {layout} "
+                             "layout; build the stage-3 model for it (ks_hash)")
 
         def load(param: torch.Tensor, value, name: str) -> None:
             value = _tensor(value, self.device)
@@ -145,9 +162,7 @@ class GeoSplatterDefer(nn.Module):
         latlng = _tensor(export["latlng"], self.device)
         load(self.latlng_hue, latlng / (latlng + 1.0), "latlng")
         load(self.latlng_value, torch.log(latlng + 1.00001), "latlng")
-        load(self.ks_enc.planes, bundle["planes"], "ks_enc/planes")
-        for name, p in self.ks_enc.ks.named_parameters():
-            load(p, bundle["ks"][name], f"ks_enc/ks/{name}")
+        load_ks_bundle(self.ks_enc, bundle, "ks_enc")
         self.set_geometry(frozen_geometry(export))
 
     def set_geometry(self, geometry: Mapping) -> None:

@@ -14,9 +14,11 @@ one that ``init_from_stage1`` reads.
 
 Randomness is explicit: ``render`` takes the face jitter noise and each
 camera's ``ShadeDraws`` as tensors, or draws them from the caller's
-``torch.Generator``. Left out of the JAX model: ``batched_binning``,
+``torch.Generator``. The field is the shared triplane field unless the
+caller gives a ``GaussianField`` (with ``occ_enc=OCC_ENC``), whose stage-1
+bundle is the hash grid's. Left out of the JAX model: ``batched_binning``,
 ``tile_capacity``, ``tile_chunk`` and ``backend`` (the port has one
-rasterizer, the pairs path), the hash-grid field, and ``tone_aces``.
+rasterizer, the pairs path), and ``tone_aces``.
 """
 from __future__ import annotations
 
@@ -34,14 +36,22 @@ from ..graphics.cameras import Cameras
 from ..ops import cubemap as cm
 from ..ops import envshade as es
 from ..ops.denoise import bilateral_denoise
+from ..ops.hashgrid import HashGridConfig
 from ..ops.rasterize import rasterize
 from ..ops.sdf_visibility import make_sdf_visibility
 from .geosplat import (
-    _INITIAL_GUESS, GeoSplatter, SharedField, export_ks_bundle, get_gaussians_from_face,
+    _INITIAL_GUESS, GaussianField, GeoSplatter, HashEncodingConfig, SharedField,
+    export_ks_bundle, get_gaussians_from_face, ks_bundle_layout, load_ks_bundle, param_tree,
     tone_naive,
 )
 
 LATLNG_HW = (256, 512)
+
+# the occ encoder of the hash field in stages 2 and prior (geosplat_mc.py:38-42)
+OCC_ENC = HashEncodingConfig(
+    grid=HashGridConfig(max_res=4096, log2_hashmap_size=18, grad_scaling=16.0),
+    hidden=(32, 32), out_dim=6,
+)
 
 
 def cubemap_to_latlng(cube: torch.Tensor, height: int = 256, width: int = 512) -> torch.Tensor:
@@ -59,8 +69,9 @@ def cubemap_to_latlng(cube: torch.Tensor, height: int = 256, width: int = 512) -
 class GeoSplatterMC(nn.Module):
     """Stage-2 model. Parameters: ``sdf`` [V], ``deform`` [V, 3],
     ``weights`` [cubes, 21], ``latlng`` [256, 512, 3], ``exposure`` [1] and
-    the ``field`` module (with the occ head). Runs on CUDA unless ``device``
-    says otherwise; ``init_from_stage1`` fills it from a stage-1 export."""
+    the ``field`` module (with the occ head; ``field`` gives a hash one).
+    Runs on CUDA unless ``device`` says otherwise; ``init_from_stage1``
+    fills it from a stage-1 export."""
 
     def __init__(
         self,
@@ -85,6 +96,7 @@ class GeoSplatterMC(nn.Module):
         triplane_resolution: int = 512,
         triplane_components: int = 32,
         field_hidden: int = 64,
+        field: SharedField | GaussianField | None = None,
         generator: torch.Generator | None = None,
         device: str | torch.device | None = None,
     ):
@@ -113,7 +125,7 @@ class GeoSplatterMC(nn.Module):
         self.weights = nn.Parameter(torch.zeros((g.num_cubes, 21), device=device))
         self.latlng = nn.Parameter(torch.full(LATLNG_HW + (3,), 0.5, device=device))
         self.exposure = nn.Parameter(torch.zeros(1, device=device))
-        self.field = SharedField(
+        self.field = field if field is not None else SharedField(
             resolution=triplane_resolution, num_components=triplane_components,
             hidden=field_hidden, with_occ=True, generator=generator, device=device,
         )
@@ -130,16 +142,17 @@ class GeoSplatterMC(nn.Module):
     @torch.no_grad()
     def init_from_stage1(self, export: dict) -> None:
         """Copy a stage-1 export (``export_stage1``, or ``load_export`` of its
-        file) into the parameters: geometry, exposure, the trunk planes and
-        the ks head; the cubemap becomes the lat-long table. The kd, z and
-        occ heads keep their fresh initialisation."""
+        file) into the parameters: geometry, exposure and the roughness
+        predictor (the trunk planes and the ks head, or the ks encoder of
+        the hash field); the cubemap becomes the lat-long table. The other
+        heads or encoders keep their fresh initialisation."""
         bundle = export["ks_enc"]
-        if "planes" not in bundle:
+        hash_field = isinstance(self.field, GaussianField)
+        if ks_bundle_layout(bundle) != ("hash" if hash_field else "triplane"):
             raise ValueError(
                 "stage-1 ks export layout does not match the configured stage-2 field: "
-                f"bundle keys {sorted(bundle)} vs field params "
-                f"{sorted(['planes', *self.field.param_groups()])} — configure the same "
-                "field family (SharedField vs GaussianField) for both stages")
+                f"bundle keys {sorted(bundle)} vs a {type(self.field).__name__} — configure "
+                "the same field family (SharedField vs GaussianField) for both stages")
 
         def f32(value) -> torch.Tensor:
             if isinstance(value, torch.Tensor):
@@ -157,6 +170,9 @@ class GeoSplatterMC(nn.Module):
             load(getattr(self, name), export[name], name)
         cube = f32(export["cubemap"]).to(self.device)
         self.latlng.copy_(cubemap_to_latlng(cube, *LATLNG_HW))
+        if hash_field:
+            load_ks_bundle(self.field.ks_enc, bundle, "ks_enc")
+            return
         load(self.field.trunk.planes, bundle["planes"], "ks_enc/planes")
         for name, p in self.field.ks.named_parameters():
             load(p, bundle["ks"][name], f"ks_enc/ks/{name}")
@@ -223,8 +239,8 @@ class GeoSplatterMC(nn.Module):
         ks_std = ks_perturb_std if use_jitter else 0.0
         with record_function("geosplat.gaussians"):
             if (kd_std > 0 or ks_std > 0) and jitter_noise is None:
-                jitter_noise = torch.randn((self.num_field_points(), 3), generator=generator,
-                                           device=self.device)
+                jitter_noise = torch.randn(self.field.jitter_shape(self.num_field_points()),
+                                           generator=generator, device=self.device)
             splats, attrs, offsets, valid = get_gaussians_from_face(
                 self.field, mesh, scale=self.scale, initial_guess=self.initial_guess_bias,
                 kd_perturb_std=kd_std, ks_perturb_std=ks_std, jitter_noise=jitter_noise,
@@ -334,7 +350,8 @@ class GeoSplatterMC(nn.Module):
             "ks": attrs.ks,
             "occ": attrs.occ,
             "ks_enc": export_ks_bundle(self.field),
-            "occ_enc": {
+            "occ_enc": param_tree(self.field.occ_enc) if isinstance(self.field, GaussianField)
+            else {
                 "planes": self.field.trunk.planes.detach(),
                 "occ": {name: p.detach() for name, p in self.field.occ.named_parameters()},
             },

@@ -5,14 +5,23 @@ Counterpart of ``geosplatting_tpu/ops/sdf_visibility.py`` (``_pack_cells``,
 number of sphere-tracing steps through the trilinearly interpolated SDF, one
 row-gather of a cell's 8 corners per step, with the distance to the grid's
 box added outside it. The trace is gradient-free (the SDF is detached): stage
-2 runs it under ``torch.no_grad``. The mesh-occupancy variant of the prior
-model (``mesh_occupancy_grid``, ``make_mesh_visibility``) is not ported yet.
+2 runs it under ``torch.no_grad``.
+
+The mesh prior has no SDF: ``mesh_occupancy_grid`` deposits area-weighted
+surface samples into the nearest cells of an R^3 grid (a count, clipped to
+1; the sum counts whole samples, so it is exact in any order), dilates it
+by a 3^3 max, and ``make_mesh_visibility`` marches a fixed number of
+evenly spaced steps through it, the transmittance exp(-density dt sum occ)
+of the trilinear occupancy looked up in the edge-padded grid, one packed
+row a step. Its surface samples are drawn from a ``torch.Generator`` or
+injected (``TriangleMesh.draw_surface``).
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 
 
 def _pack_cells(grid3d: torch.Tensor) -> torch.Tensor:
@@ -115,5 +124,70 @@ def make_sdf_visibility(
             v = torch.minimum(v, torch.clamp(softness * d / torch.clamp(t, min=1e-4), 0.0, 1.0))
             t = torch.clamp(t + torch.clamp(d, min=min_step), max=t_max)
         return torch.clamp(v, 0.0, 1.0)
+
+    return vis
+
+
+@torch.no_grad()
+def mesh_occupancy_grid(mesh, *, resolution: int = 64, scale: float = 1.0,
+                        num_samples: int = 1 << 17, draws=None,
+                        generator: torch.Generator | None = None) -> torch.Tensor:
+    """Soft occupancy [R, R, R] ([z, y, x]) of a (masked) triangle mesh in
+    the box [-scale, scale]^3: ``num_samples`` area-weighted surface
+    samples, each counted in its nearest cell, clipped to 1 and dilated by a
+    3^3 max. ``draws`` are ``sample_surface``'s (face ids, uniforms)."""
+    r = resolution
+    pts, _ = mesh.sample_surface(num_samples, draws=draws, generator=generator)
+    g = torch.clamp((pts / scale * 0.5 + 0.5) * r, 0, r - 1).long()
+    flat = (g[:, 2] * r + g[:, 1]) * r + g[:, 0]
+    occ = torch.bincount(flat, minlength=r ** 3).to(pts.dtype)
+    occ = torch.clamp(occ, 0.0, 1.0).reshape(1, 1, r, r, r)
+    # padding is -inf in max_pool3d: the window shrinks at the border, as
+    # the JAX package's reduce_window(-inf, max, "SAME")
+    return F.max_pool3d(occ, kernel_size=3, stride=1, padding=1)[0, 0]
+
+
+def make_mesh_visibility(
+    mesh,
+    *,
+    resolution: int = 64,
+    scale: float = 1.0,
+    num_steps: int = 32,
+    density: float = 24.0,
+    t_start: float = 0.05,
+    num_samples: int = 1 << 17,
+    draws=None,
+    generator: torch.Generator | None = None,
+) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """Returns ``vis(origins [M, 3], dirs [M, 3]) -> [M]``, the
+    transmittance exp(-density dt sum occ) of ``num_steps`` evenly spaced
+    samples from ``t_start`` to 3 scale through ``mesh_occupancy_grid``
+    (trilinear, clamped to the grid's edge, 0 outside the box)."""
+    occ = mesh_occupancy_grid(mesh, resolution=resolution, scale=scale,
+                              num_samples=num_samples, draws=draws, generator=generator)
+    r = resolution
+    t_max = 3.0 * scale
+    dt = (t_max - t_start) / num_steps
+    # edge-pad by one cell: the packed-cell row of a padded cell holds the
+    # clamp-to-edge lookups of its eight corners
+    occ_pad = F.pad(occ[None, None], (1, 1, 1, 1, 1, 1), mode="replicate")[0, 0]
+    corners = _pack_cells(occ_pad)                  # (r + 1)^3 cells
+    hi = torch.full((3,), r - 1, device=occ.device, dtype=torch.long)
+
+    def sample_occ(p: torch.Tensor) -> torch.Tensor:
+        g = (p / scale * 0.5 + 0.5) * r - 0.5
+        g0 = torch.floor(g)
+        frac = g - g0
+        b = torch.minimum(g0.long().clamp(min=-1), hi) + 1     # padded-cell base, [0, r]
+        cell = (b[..., 2] * (r + 1) + b[..., 1]) * (r + 1) + b[..., 0]
+        out = (corners[cell] * _trilerp_w8(frac)).sum(-1)
+        inside = (p.abs() < scale).all(-1)
+        return torch.where(inside, out, 0.0)
+
+    def vis(origins: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+        tau = torch.zeros(origins.shape[:-1], device=origins.device)
+        for i in range(num_steps):
+            tau = tau + sample_occ(origins + dirs * (t_start + dt * (i + 0.5)))
+        return torch.exp(-density * dt * tau)
 
     return vis

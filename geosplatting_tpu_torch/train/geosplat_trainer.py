@@ -108,12 +108,9 @@ class GeoSplatTrainer(ModelTrainerState):
             "deform": [m.deform],
             "sdf": [m.sdf],
             "weights": [m.weights],
-            "kd": list(m.field.kd.parameters()),
-            "ks": list(m.field.ks.parameters()),
-            "z": list(m.field.z.parameters()),
             "exposure": [m.exposure],
             "light": [m.cubemap],
-            "planes": [m.field.trunk.planes],
+            **m.field.param_groups(),
         }
 
     def reg_weights(self, step: float) -> dict:

@@ -54,11 +54,13 @@ class OptimizerSpec:
 
 class GroupOptimizers:
     """Named Adam groups over named lists of parameters. ``step`` applies
-    each group's gradients (read from ``.grad``) with its scheduled lr."""
+    each group's gradients (read from ``.grad``) with its scheduled lr. A
+    spec whose group ``params`` lacks (the shared field's ``planes`` under
+    the hash field) makes no group."""
 
     def __init__(self, specs: Mapping[str, OptimizerSpec],
                  params: Mapping[str, Sequence[torch.nn.Parameter]]):
-        self.specs = dict(specs)
+        self.specs = {k: s for k, s in specs.items() if k in params}
         self.schedules = {k: s.schedule() for k, s in self.specs.items()}
         groups = [
             {"params": list(params[k]), "lr": s.lr, "eps": s.eps, "name": k}

@@ -520,3 +520,121 @@ def test_gsplat_step_card_vs_cpu(cuda_device):
     assert trainer.params["means"].shape[0] == info["param_map"].shape[0] != 2000
     m = trainer.train_step(cams.to(cuda_device), gt.to(cuda_device), max_sh_degree=3)
     assert np.isfinite(float(m["loss"])) and int(m["nonfinite_grads"]) == 0
+
+
+# --- the mesh prior and the hash field on the card --------------------------------
+
+
+def uv_sphere_mesh(rows, cols, device):
+    """scripts/prior_scale_demo.py's UV sphere of radius 0.5."""
+    from geosplatting_tpu_torch.graphics.mesh import TriangleMesh
+
+    th = torch.linspace(1e-3, math.pi - 1e-3, rows + 1, dtype=torch.float64)
+    ph = torch.arange(cols, dtype=torch.float64) * (2 * math.pi / cols)
+    tt, pp = torch.meshgrid(th, ph, indexing="ij")
+    v = torch.stack((tt.sin() * pp.cos(), tt.cos(), tt.sin() * pp.sin()), -1).reshape(-1, 3)
+    r, c = torch.arange(rows)[:, None], torch.arange(cols)[None, :]
+    c1 = (c + 1) % cols
+    f = torch.cat((torch.stack((r * cols + c, (r + 1) * cols + c, r * cols + c1), -1).reshape(-1, 3),
+                   torch.stack((r * cols + c1, (r + 1) * cols + c, (r + 1) * cols + c1),
+                               -1).reshape(-1, 3)))
+    return TriangleMesh(vertices=(v * 0.5).float().to(device), indices=f.to(device))
+
+
+def test_k1_k2_k3_at_prior_density(cuda_device):
+    """K1-K3 on the prior's kind of input: the MGAdapter Gaussians of a
+    150 x 140 UV sphere (252,000 flat Gaussians, opacity 0.99) at 800x800
+    from radius 2: ~2 pairs a Gaussian, every tile's pairs saturating
+    within its first chunk."""
+    from geosplatting_tpu_torch.graphics import gmath
+    from geosplatting_tpu_torch.models.geosplat import MGAdapter
+
+    with torch.no_grad():
+        splats, offsets, _ = MGAdapter().make(uv_sphere_mesh(150, 140, cuda_device))
+    num = splats.means.shape[0]
+    cam = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=2.0, elevation_degrees=20.0,
+                             num_samples=1, width=800, height=800, device="cpu")[0]
+    proj = project(splats.means - offsets * 0.5, gmath.safe_normalize(splats.quats),
+                   torch.exp(splats.scales), torch.sigmoid(splats.opacities[:, 0]),
+                   cam.view_matrix.to(cuda_device), cam.intrinsic_matrix.to(cuda_device),
+                   800, 800, rasterize_mode="antialiased")
+    grid = rp.tile_grid(800, 800, 16)
+    bins = rp.bin_pairs(proj, 800, 800, tile_size=(grid.tsx, grid.tsy), max_pairs=6 * num)
+    total = int(bins.total_pairs)
+    assert num < total <= 6 * num, total / num
+    colors = torch.rand((num, 3), generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    pairs = rp.pack_pairs(bins, proj.means2d, proj.conics, proj.opacities, colors, proj.depths)
+    check_passes(pairs, bins.seg_start, grid, 3, rp.CHUNK_PAIRS)
+    rows = torch.randn((total, rp.HDR + 3), generator=torch.Generator().manual_seed(5))
+    rows = rows.to(cuda_device)
+    k3_close(cumsum_rows(rows), rows)
+
+
+def test_hashgrid_card_vs_cpu(cuda_device):
+    """The hash encoding at the field's default widths (16 levels of 2^18
+    rows), values and the index_add_ gradients of the table and the points,
+    on the card against the CPU; the coarse levels put thousands of points
+    on one row."""
+    from geosplatting_tpu_torch.ops.hashgrid import HashGridConfig, hashgrid_encode
+
+    cfg = HashGridConfig(max_res=4096, log2_hashmap_size=18, grad_scaling=16.0)
+    g = torch.Generator().manual_seed(6)
+    table = cfg.init(g)
+    x = torch.rand((50_000, 3), generator=g) * 2 - 1
+    w = torch.randn((50_000, cfg.output_dim), generator=g)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        tb, xx = (v.detach().to(dev).requires_grad_() for v in (table, x))
+        out = hashgrid_encode(tb, xx, cfg)
+        (out * w.to(dev)).sum().backward()
+        outs.append([n(out), n(tb.grad), n(xx.grad)])
+    np.testing.assert_allclose(outs[1][0], outs[0][0], atol=1e-6)
+    for got, want in zip(outs[1][1:], outs[0][1:]):
+        close_card_cpu(got, want)
+
+
+@pytest.mark.parametrize("field", ["shared", "hash"])
+def test_prior_step_card_vs_cpu(cuda_device, field):
+    """One GeoSplatPriorTrainer step (a 12 x 14 UV sphere, 2 cameras at
+    64x64, 2 x 2 sample steps with the 16^3 occupancy-grid shadows) on the
+    card and on the CPU from the same weights and draws: the loss, reg and
+    every parameter's gradient."""
+    from geosplatting_tpu_torch.models.geosplat import GaussianField
+    from geosplatting_tpu_torch.models.geosplat_mc import OCC_ENC
+    from geosplatting_tpu_torch.models.geosplat_prior import GeoSplatterPrior
+    from geosplatting_tpu_torch.train.geosplat_prior_trainer import (
+        GeoSplatPriorTrainer, GeoSplatPriorTrainerConfig,
+    )
+
+    g = torch.Generator().manual_seed(7)
+    mesh = uv_sphere_mesh(12, 14, "cpu")
+    cams = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=2.0, elevation_degrees=20.0,
+                              num_samples=2, width=64, height=64, device="cpu")
+    gt = torch.rand((2, 64, 64, 4), generator=g)
+    f = GaussianField(occ_enc=OCC_ENC, generator=g, device="cpu") if field == "hash" else None
+    ref = GeoSplatterPrior(mesh, scale=1.0, num_samples_x=2, visibility_resolution=16,
+                           triplane_resolution=32, field=f, generator=g, device="cpu")
+    state = {k: v.clone() for k, v in ref.state_dict().items()}
+    bg = torch.rand((2, 64, 64, 3), generator=g)
+    jitter = torch.randn(ref.field.jitter_shape(ref.num_faces), generator=g)
+    surface = ref.draw_visibility(g)
+    draws = [ref.draw_shade(g) for _ in range(2)]
+    out = []
+    for dev in ("cpu", cuda_device):
+        fd = GaussianField(occ_enc=OCC_ENC, device=dev) if field == "hash" else None
+        m = GeoSplatterPrior(mesh, scale=1.0, num_samples_x=2, visibility_resolution=16,
+                             triplane_resolution=32, field=fd, device=dev)
+        m.load_state_dict(state)
+        trainer = GeoSplatPriorTrainer(GeoSplatPriorTrainerConfig(batch_size=2), m)
+        _kernels.reset_launches()
+        (loss, reg), _ = trainer.compute_grads(
+            cams.to(dev), gt.to(dev), background=bg.to(dev), jitter_noise=jitter.to(dev),
+            surface_draws=tuple(x.to(dev) for x in surface), draws=[d.to(dev) for d in draws])
+        out.append((float(loss), float(reg), {k: n(p.grad) for k, p in m.named_parameters()}))
+    assert all(_kernels.launches[k] == 2 for k in _kernels.KERNELS)
+    (l_cpu, r_cpu, g_cpu), (l_gpu, r_gpu, g_gpu) = out
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-3)
+    np.testing.assert_allclose(r_gpu, r_cpu, rtol=1e-4)
+    for k, want in g_cpu.items():
+        if np.abs(want).max() > 0:
+            close_card_cpu(g_gpu[k], want)

@@ -142,3 +142,45 @@ def jax_defer_step_draws(key, gt_shape, num_gaussians: int, num_samples_x: int) 
                                     gt_shape[0], num_samples_x, shade_keys=shade_keys)
     return {"background": np.asarray(jax.random.uniform(k_bg, tuple(gt_shape[:-1]) + (3,))),
             "k_render": k_render, "shade_keys": shade_keys, "jitter": jitter, "draws": draws}
+
+
+# --- injected draws of the mesh-prior path ----------------------------------------
+# GeoSplatterPrior.render splits its key into (k_field, k_shade): the field's
+# jitter from k_field (geosplat.py:498 for the shared field; :443-447, split
+# in two, for the hash field), then with shadows k_shade into (k_shade,
+# k_vox), the visibility grid's surface samples from k_vox (mesh.py:77-79,
+# 2^17 of them, over the deformed mesh's areas); its trainer splits a step's
+# key into (k_render, k_bg) and passes split(fold_in(k_render, 1), B) as the
+# shade keys (geosplat_prior.py:141-166, geosplat_prior_trainer.py:122-131).
+
+
+def jax_prior_step_draws(key, gt_shape, mesh_j, num_samples_x: int, hash_field: bool = False,
+                         shadows: bool = True, num_surface: int = 1 << 17) -> dict:
+    """A prior trainer step's draws from ``key``, for the deformed JAX mesh
+    ``mesh_j``: the background, the render key, the shade keys, the jitter
+    noise (the port's ``field.jitter_shape``), the surface draws (face ids,
+    uniforms) and each camera's shade draws."""
+    import jax
+    import jax.numpy as jnp
+
+    k_render, k_bg = jax.random.split(key)
+    shade_keys = jax.random.split(jax.random.fold_in(k_render, 1), gt_shape[0])
+    k_field, k_shade = jax.random.split(k_render)
+    f = mesh_j.num_faces
+    if hash_field:
+        jitter = np.stack([np.asarray(jax.random.normal(k, (6 * f, 3)))
+                           for k in jax.random.split(k_field)])
+    else:
+        jitter = np.asarray(jax.random.normal(k_field, (f, 3)))
+    surface = None
+    if shadows:
+        _, k_vox = jax.random.split(k_shade)
+        _, areas = mesh_j.face_normals_and_areas()
+        k1, k2 = jax.random.split(k_vox)
+        surface = (np.asarray(jax.random.categorical(k1, jnp.log(areas + 1e-20),
+                                                     shape=(num_surface,))),
+                   np.asarray(jax.random.uniform(k2, (num_surface, 2))))
+    return {"background": np.asarray(jax.random.uniform(k_bg, tuple(gt_shape[:-1]) + (3,))),
+            "k_render": k_render, "shade_keys": shade_keys, "jitter": jitter,
+            "surface": surface,
+            "draws": [jax_shade_draws(k, 6 * f, num_samples_x) for k in shade_keys]}
