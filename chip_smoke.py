@@ -94,13 +94,15 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
    through the 64^3 occupancy grid, denoising, pairs budget 2.5M; 4 orbit
    cameras at radius 2 and elevation 20 degrees at 800x800, the analytic
    sphere as ground truth; GeoSplatPriorTrainer at batch 2 for 1 warm-up
-   and 3 timed steps (median s/step, pairs of each camera and pair_fill,
-   the peak memory, the visibility march's synchronised seconds in the last
-   step, one more step traced for the device's busy time and idle share,
-   the live Gaussians, that deform moved); every step's loss and reg
-   finite, no non-finite gradient, pair_fill <= 1, K1, K2 and K3 launched
-   once per camera. (b) The same with the hash-grid GaussianField (the occ
-   encoder of OCC_ENC) for 2 steps, the same gates and numbers.
+   and 3 timed steps, uninstrumented (median s/step, pair_fill, the peak
+   memory), then one instrumented step (pairs of each camera, the
+   visibility build and march synchronised and their share of that step,
+   the kernels' inputs) and one traced step (the device's busy time and
+   idle share), the live Gaussians, that deform moved; every step's loss
+   and reg finite, no non-finite gradient, pair_fill <= 1, K1, K2 and K3
+   launched once per camera. (b) The same with the hash-grid GaussianField
+   (the occ encoder of OCC_ENC): 2 timed steps and the instrumented one,
+   the same gates and numbers.
    (c) GeoSplatPriorTrainTask at the object preset's widths (batch 8, 8 x 8
    sample steps, scene scale 1.05) on the product phase's scene, its prior
    a 120 x 112 UV sphere (26,880 faces) written as binary PLY: 2 steps with
@@ -577,33 +579,45 @@ def write_s4r_scene(root, counts: dict, render_res: int, device) -> None:
 
 
 class Timed:
-    """Wraps a method of a class for the duration of a with-block: each call
-    is synchronised, its host seconds appended to ``seconds`` and its result
-    to ``outputs``."""
+    """Wraps a function of a class or a module for the duration of a
+    with-block: each call is synchronised, its host seconds appended to
+    ``seconds`` and its result to ``outputs``. With ``returns_fn`` the
+    function it returns is timed as well, into the same ``seconds``."""
 
-    def __init__(self, cls, name):
-        self.cls, self.name = cls, name
-        self.fn = getattr(cls, name)
+    def __init__(self, owner, name, returns_fn=False):
+        self.owner, self.name, self.returns_fn = owner, name, returns_fn
+        self.fn = getattr(owner, name)
         self.seconds = []
         self.outputs = []
 
-    def __enter__(self):
+    def timed(self, fn):
         import torch
 
         def wrapped(*args, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = self.fn(*args, **kw)
+            out = fn(*args, **kw)
             torch.cuda.synchronize()
             self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        return wrapped
+
+    def __enter__(self):
+        timed = self.timed(self.fn)
+
+        def wrapped(*args, **kw):
+            out = timed(*args, **kw)
+            if self.returns_fn:
+                out = self.timed(out)
             self.outputs.append(out)
             return out
 
-        setattr(self.cls, self.name, wrapped)
+        setattr(self.owner, self.name, wrapped)
         return self
 
     def __exit__(self, *exc):
-        setattr(self.cls, self.name, self.fn)
+        setattr(self.owner, self.name, self.fn)
 
 
 class Recorder:
@@ -1500,47 +1514,19 @@ def uv_sphere(rows: int, cols: int, radius: float = 0.5, device=None):
     return TriangleMesh(vertices=(v * radius).float().to(device), indices=f.to(device))
 
 
-class TimedVisibility:
-    """Wraps the visibility functions that GeoSplatterPrior builds for the
-    duration of a with-block: each call is synchronised and its host
-    seconds appended to ``seconds`` (the occupancy grid's build too)."""
-
-    def __init__(self):
-        from geosplatting_tpu_torch.models import geosplat_prior
-
-        self.module = geosplat_prior
-        self.fn = geosplat_prior.make_mesh_visibility
-        self.seconds = []
-
-    def __enter__(self):
-        import torch
-
-        def timed(fn):
-            def wrapped(*args, **kw):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fn(*args, **kw)
-                torch.cuda.synchronize()
-                self.seconds.append(time.perf_counter() - t0)
-                return out
-            return wrapped
-
-        self.module.make_mesh_visibility = lambda *a, **kw: timed(timed(self.fn)(*a, **kw))
-        return self
-
-    def __exit__(self, *exc):
-        self.module.make_mesh_visibility = self.fn
-
-
 def prior_train(device, seed, kernels, hash_field: bool) -> tuple[dict, dict]:
     """(a) and (b) of phase 10: GeoSplatterPrior on the 300 x 280 UV sphere
     (1,008,000 Gaussians) at 800x800, batch 2, through GeoSplatPriorTrainer,
-    with the shared field (a: warm-up and timed steps, one step traced, the
-    visibility march timed) or the hash field (b). Gates on every step.
-    Returns (summary, the last camera's kernel inputs; a only)."""
+    with the shared field (a: warm-up and timed steps, one step traced) or
+    the hash field (b: timed steps). The timed steps run uninstrumented;
+    one more step records each camera's pairs and the last camera's kernel
+    inputs, and times the visibility grid's build and march synchronised.
+    Gates on every step. Returns (summary, the last camera's kernel
+    inputs)."""
     import torch
 
     from geosplatting_tpu_torch.graphics.cameras import Cameras
+    from geosplatting_tpu_torch.models import geosplat_prior
     from geosplatting_tpu_torch.models.geosplat import GaussianField
     from geosplatting_tpu_torch.models.geosplat_mc import OCC_ENC
     from geosplatting_tpu_torch.models.geosplat_prior import GeoSplatterPrior
@@ -1567,44 +1553,48 @@ def prior_train(device, seed, kernels, hash_field: bool) -> tuple[dict, dict]:
     gt = sphere_gt(cams)
     deform0 = model.deform.detach().clone()
     n_steps = c["hash_steps"] if hash_field else c["warmup_steps"] + c["timed_steps"]
+    n_warm = 0 if hash_field else c["warmup_steps"]
+    per_step, seconds, totals = [], [], {k: 0 for k in kernels.KERNELS}
+
+    def step(i):
+        idx = (torch.arange(b, device=device) + i * b) % c["cameras"]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        m = trainer.train_step(cams[idx], gt[idx], generator=gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: kernels.launches[k] for k in kernels.KERNELS}
+        metrics = {k: float(v) for k, v in m.items()}
+        per_step.append({**metrics, "seconds": dt, "launches": counts})
+        if not (math.isfinite(metrics["loss"]) and math.isfinite(metrics["reg"])
+                and metrics["nonfinite_grads"] == 0 and metrics["pair_fill"] <= 1.0):
+            raise AssertionError(f"prior step {i} (hash={hash_field}): {metrics}")
+        if not all(counts[k] == b for k in kernels.KERNELS):
+            raise AssertionError(f"prior step {i}: kernel launches {counts} for {b} cameras")
+        return dt, counts
+
+    # the median and the peak memory come from uninstrumented steps
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    per_step, seconds, totals = [], [], {k: 0 for k in kernels.KERNELS}
-    recorders = [Recorder(rp, "composite_bwd"), Recorder(sr, "cumsum_rows")]
-    vis = TimedVisibility()
-    with Timed(GeoSplatterPrior, "render") as renders:
-        for i in range(n_steps):
-            idx = (torch.arange(b, device=device) + i * b) % c["cameras"]
-            timed = hash_field or i >= c["warmup_steps"]
-            if i == n_steps - 1 and not hash_field:
-                for r in (*recorders, vis):
-                    r.__enter__()
-            torch.cuda.synchronize()
-            kernels.reset_launches()
-            t0 = time.perf_counter()
-            m = trainer.train_step(cams[idx], gt[idx], generator=gen)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            counts = {k: kernels.launches[k] for k in kernels.KERNELS}
-            metrics = {k: float(v) for k, v in m.items()}
-            per_step.append({**metrics, "seconds": dt, "launches": counts})
-            if not (math.isfinite(metrics["loss"]) and math.isfinite(metrics["reg"])
-                    and metrics["nonfinite_grads"] == 0 and metrics["pair_fill"] <= 1.0):
-                raise AssertionError(f"prior step {i} (hash={hash_field}): {metrics}")
-            if not all(counts[k] == b for k in kernels.KERNELS):
-                raise AssertionError(f"prior step {i}: kernel launches {counts} for {b} cameras")
-            if timed:
-                seconds.append(dt)
-                for k in totals:
-                    totals[k] += counts[k]
-    if not hash_field:
-        for r in (*recorders, vis):
-            r.__exit__()
+    for i in range(n_steps):
+        dt, counts = step(i)
+        if i >= n_warm:
+            seconds.append(dt)
+            for k in totals:
+                totals[k] += counts[k]
     peak = torch.cuda.max_memory_allocated() / 2**30
+    # one more step, instrumented: each camera's pairs, the last camera's
+    # kernel inputs, the occupancy grid's build and its march synchronised
+    with Timed(GeoSplatterPrior, "render") as renders, \
+            Timed(geosplat_prior, "make_mesh_visibility", returns_fn=True) as vis, \
+            Recorder(rp, "composite_bwd") as bwd, Recorder(sr, "cumsum_rows") as k3:
+        instrumented_s, _ = step(n_steps)
     traced = None if hash_field else trace_step(
         lambda: trainer.train_step(cams[:b], gt[:b], generator=gen), spans=PRIOR_SPANS)
     pairs = [int(out[2]["total_pairs"]) for out in renders.outputs]
     med = sorted(seconds)[len(seconds) // 2]
+    vis_s = sum(vis.seconds)
     n_live = int(per_step[-1]["num_gaussians"])
     summary = {
         "field": "hash" if hash_field else "shared",
@@ -1615,21 +1605,20 @@ def prior_train(device, seed, kernels, hash_field: bool) -> tuple[dict, dict]:
         "faces": mesh.num_faces, "num_gaussians": n_live,
         "pairs_per_camera": pairs, "pairs_per_gaussian": max(pairs) / n_live,
         "pair_fill": [s["pair_fill"] for s in per_step],
-        "step_seconds": [s["seconds"] for s in per_step], "median_step_s": med,
-        "render_forward_seconds": renders.seconds,
+        "step_seconds": [s["seconds"] for s in per_step[:n_steps]], "median_step_s": med,
         "loss": [s["loss"] for s in per_step], "reg": [s["reg"] for s in per_step],
         "peak_memory_gib": peak, "launches": totals,
         "deform_moved": float((model.deform.detach() - deform0).abs().max()),
+        "instrumented_step_s": instrumented_s,
+        "instrumented_render_forward_seconds": renders.seconds,
+        "instrumented_visibility_seconds": vis_s,
+        "instrumented_visibility_share": vis_s / instrumented_s,
+        "traced": traced,
     }
-    if not hash_field:
-        last = per_step[-1]["seconds"]
-        summary.update(traced=traced, visibility_seconds_last_step=sum(vis.seconds),
-                       visibility_share_last_step=sum(vis.seconds) / last)
-    if not (n_live == 6 * mesh.num_faces and summary["deform_moved"] > 0
-            and len(pairs) == b * n_steps):
+    if not (n_live == 6 * mesh.num_faces and summary["deform_moved"] > 0 and len(pairs) == b
+            and len(vis.outputs) == b and bwd.args is not None and k3.args is not None):
         raise AssertionError(f"the prior phase failed a check: {summary}")
-    captured = {} if hash_field else {"bwd": recorders[0].args, "k3": recorders[1].args}
-    return summary, captured
+    return summary, {"bwd": bwd.args, "k3": k3.args}
 
 
 def prior_task(device, seed, kernels, scene: Path, tmp: Path) -> dict:
@@ -1701,7 +1690,7 @@ def prior_task(device, seed, kernels, scene: Path, tmp: Path) -> dict:
     summary = {
         "preset": {k: getattr(preset, k) for k in ("num_steps", "batch_size", "scene_scale",
                                                    "tile_capacity", "num_samples_x",
-                                                   "backend", "field")},
+                                                   "backend")},
         "mesh": {"faces": len(base["indices"]), "vertices": len(base["vertices"]),
                  "gaussians": n_gauss},
         "steps": per_step, "step_seconds": steps.seconds, "val_render_seconds": val.seconds,

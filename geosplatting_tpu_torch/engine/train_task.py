@@ -495,12 +495,11 @@ BACKENDS = ("auto", "pairs")
 class GeoSplatPriorTrainTask(_TrainTaskBase):
     """The mesh-prior variant (GeoSplatterPrior, GeoSplatPriorTrainer):
     ``mesh_path`` is the initial mesh, OBJ or PLY (ascii or binary), whose
-    vertices the run offsets. ``field`` "hash" shades from the hash-grid
-    ``GaussianField`` (with the occ encoder), "shared" from the shared
-    triplane field the JAX task builds. ``tile_capacity`` is the JAX dense
-    backend's per-tile capacity, kept so the presets match; the port's
-    pairs path has no such capacity (its budget is ``pairs_budget``). The
-    export is the JAX ``export_model``'s, ``sdf`` None."""
+    vertices the run offsets. It shades from the shared triplane field, as
+    the JAX task does. ``tile_capacity`` is the JAX dense backend's
+    per-tile capacity, kept so the presets match; the port's pairs path has
+    no such capacity (its budget is ``pairs_budget``). The export is the
+    JAX ``export_model``'s, ``sdf`` None."""
 
     experiment_name: str = "geosplat-prior"
     mesh_path: Path = Path("mesh.obj")
@@ -508,14 +507,11 @@ class GeoSplatPriorTrainTask(_TrainTaskBase):
     tile_capacity: int = 768
     num_samples_x: int = 8
     backend: str = "auto"
-    field: str = "shared"
     triplane_resolution: int = 512    # the shared field's (GeoSplatTrainTask)
 
     def build(self, dataset, generator):
         from ..graphics.mesh import TriangleMesh
         from ..graphics.mesh_io import load_mesh
-        from ..models.geosplat import GaussianField
-        from ..models.geosplat_mc import OCC_ENC
         from ..models.geosplat_prior import GeoSplatterPrior
         from ..train.geosplat_prior_trainer import (
             GeoSplatPriorTrainer, GeoSplatPriorTrainerConfig,
@@ -524,15 +520,11 @@ class GeoSplatPriorTrainTask(_TrainTaskBase):
         if self.backend not in BACKENDS:
             raise ValueError(f"backend {self.backend!r}: the port has the pairs path only "
                              f"({BACKENDS})")
-        if self.field not in ("shared", "hash"):
-            raise ValueError(f"field: {self.field!r} (shared or hash)")
         data = load_mesh(self.mesh_path)
         base = TriangleMesh(vertices=torch.from_numpy(data["vertices"]),
                             indices=torch.from_numpy(data["indices"]).long())
-        field = (GaussianField(occ_enc=OCC_ENC, generator=generator, device=dataset.device)
-                 if self.field == "hash" else None)
         model = GeoSplatterPrior(
-            base, scale=self.scene_scale, num_samples_x=self.num_samples_x, field=field,
+            base, scale=self.scene_scale, num_samples_x=self.num_samples_x,
             triplane_resolution=self.triplane_resolution, generator=generator,
             device=dataset.device,
         )

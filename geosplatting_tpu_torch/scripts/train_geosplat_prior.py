@@ -6,8 +6,8 @@ materials of a user-supplied initial mesh, OBJ or PLY:
         --dataset_path <blender scene> --mesh_path <mesh.ply>
     python -m geosplatting_tpu_torch.scripts.train_geosplat_prior resume --dir <run dir>
 
-Every preset is a subcommand with ``--dotted.flag`` overrides (``--field
-hash`` shades from the hash-grid field, ``--device cpu`` runs on the CPU);
+Every preset is a subcommand with ``--dotted.flag`` overrides (``--device
+cpu`` runs on the CPU);
 a run writes ``outputs/<experiment_name>/<timestamp>/`` with ``task.py``,
 ``log.txt``, ``ckpts/``, ``dump/`` and ``export.npz``.
 """

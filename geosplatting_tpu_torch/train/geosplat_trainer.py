@@ -98,9 +98,11 @@ class GeoSplatTrainer(ModelTrainerState):
             "z": mk(c.cov3d_lr),
             "exposure": mk(light_lr * 0.5),
             "light": mk(light_lr),
-            "planes": mk(c.appearance_lr),  # shared triplane trunk
         }
-        self.optimizers = GroupOptimizers(specs, self.param_groups())
+        groups = self.param_groups()
+        if "planes" in groups:   # the shared triplane trunk (the hash field has none)
+            specs["planes"] = mk(c.appearance_lr)
+        self.optimizers = GroupOptimizers(specs, groups)
 
     def param_groups(self) -> dict[str, list[torch.nn.Parameter]]:
         m = self.model

@@ -54,13 +54,11 @@ class OptimizerSpec:
 
 class GroupOptimizers:
     """Named Adam groups over named lists of parameters. ``step`` applies
-    each group's gradients (read from ``.grad``) with its scheduled lr. A
-    spec whose group ``params`` lacks (the shared field's ``planes`` under
-    the hash field) makes no group."""
+    each group's gradients (read from ``.grad``) with its scheduled lr."""
 
     def __init__(self, specs: Mapping[str, OptimizerSpec],
                  params: Mapping[str, Sequence[torch.nn.Parameter]]):
-        self.specs = {k: s for k, s in specs.items() if k in params}
+        self.specs = dict(specs)
         self.schedules = {k: s.schedule() for k, s in self.specs.items()}
         groups = [
             {"params": list(params[k]), "lr": s.lr, "eps": s.eps, "name": k}

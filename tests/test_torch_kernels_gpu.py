@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import uv_sphere
 from geosplatting_tpu_torch import _kernels
 from geosplatting_tpu_torch.graphics.cameras import Cameras
 from geosplatting_tpu_torch.ops import rasterize_pairs as rp
@@ -525,22 +526,6 @@ def test_gsplat_step_card_vs_cpu(cuda_device):
 # --- the mesh prior and the hash field on the card --------------------------------
 
 
-def uv_sphere_mesh(rows, cols, device):
-    """scripts/prior_scale_demo.py's UV sphere of radius 0.5."""
-    from geosplatting_tpu_torch.graphics.mesh import TriangleMesh
-
-    th = torch.linspace(1e-3, math.pi - 1e-3, rows + 1, dtype=torch.float64)
-    ph = torch.arange(cols, dtype=torch.float64) * (2 * math.pi / cols)
-    tt, pp = torch.meshgrid(th, ph, indexing="ij")
-    v = torch.stack((tt.sin() * pp.cos(), tt.cos(), tt.sin() * pp.sin()), -1).reshape(-1, 3)
-    r, c = torch.arange(rows)[:, None], torch.arange(cols)[None, :]
-    c1 = (c + 1) % cols
-    f = torch.cat((torch.stack((r * cols + c, (r + 1) * cols + c, r * cols + c1), -1).reshape(-1, 3),
-                   torch.stack((r * cols + c1, (r + 1) * cols + c, (r + 1) * cols + c1),
-                               -1).reshape(-1, 3)))
-    return TriangleMesh(vertices=(v * 0.5).float().to(device), indices=f.to(device))
-
-
 def test_k1_k2_k3_at_prior_density(cuda_device):
     """K1-K3 on the prior's kind of input: the MGAdapter Gaussians of a
     150 x 140 UV sphere (252,000 flat Gaussians, opacity 0.99) at 800x800
@@ -550,7 +535,7 @@ def test_k1_k2_k3_at_prior_density(cuda_device):
     from geosplatting_tpu_torch.models.geosplat import MGAdapter
 
     with torch.no_grad():
-        splats, offsets, _ = MGAdapter().make(uv_sphere_mesh(150, 140, cuda_device))
+        splats, offsets, _ = MGAdapter().make(uv_sphere(150, 140, device=cuda_device))
     num = splats.means.shape[0]
     cam = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=2.0, elevation_degrees=20.0,
                              num_samples=1, width=800, height=800, device="cpu")[0]
@@ -607,7 +592,7 @@ def test_prior_step_card_vs_cpu(cuda_device, field):
     )
 
     g = torch.Generator().manual_seed(7)
-    mesh = uv_sphere_mesh(12, 14, "cpu")
+    mesh = uv_sphere(12, 14)
     cams = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=2.0, elevation_degrees=20.0,
                               num_samples=2, width=64, height=64, device="cpu")
     gt = torch.rand((2, 64, 64, 4), generator=g)

@@ -347,7 +347,7 @@ def test_task_resumes_and_exports_like_jax(task_runs):
 
 def test_cli_presets_match_jax(tmp_path, monkeypatch):
     """The CLI's preset table equals the JAX script's, field by field, and
-    --mesh_path / --field reach the task."""
+    --mesh_path reaches the task."""
     from geosplatting_tpu_torch.scripts.train_geosplat_prior import TASKS
 
     spec = importlib.util.spec_from_file_location(
@@ -371,9 +371,8 @@ def test_cli_presets_match_jax(tmp_path, monkeypatch):
     monkeypatch.setattr(GeoSplatPriorTrainTask, "run",
                         lambda self, resume_dir=None, resume_step=None: calls.append(self) or {})
     run_task_group(TASKS, ["object", "--dataset_path", "scene", "--mesh_path", "m.ply",
-                           "--field", "hash", "--device", "cpu"])
-    assert (calls[-1].mesh_path, calls[-1].field, calls[-1].batch_size) == (
-        Path("m.ply"), "hash", 8)
+                           "--device", "cpu"])
+    assert (calls[-1].mesh_path, calls[-1].batch_size) == (Path("m.ply"), 8)
     with pytest.raises(ValueError, match="pairs path"):
         dataclasses.replace(TASKS["custom"], backend="dense").build(None, None)
     if not torch.cuda.is_available():
