@@ -21,10 +21,12 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
 5. the kernels line: each kernel pass held to its tolerance against its
    plain version at the slice's own inputs (and K1 and K3 to their own bits
    on a second run), its launches, its CUDA-event time there, the plain
-   version's time, its least possible time (bound) for the work these
-   inputs need (walked and kept pair-pixels, chunks) and a library
-   yardstick; K3's row also gives PyTorch's inner-dimension scan of the
-   transposed copy as a second yardstick;
+   version's time (CUDA events around the second of the two calls that
+   check it: the plain versions read their tile counts on the host), its
+   least possible time (bound) for the work these inputs need (walked and
+   kept pair-pixels, chunks) and a library yardstick; K3's row also gives
+   PyTorch's inner-dimension scan of the transposed copy as a second
+   yardstick;
 6. product: the stage-1 product path as a user runs it. A Blender-layout
    scene of the analytic sphere (800x800 PNGs, 16 train, 2 val, 2 test
    views) is written to a temporary directory, and GeoSplatTrainTask runs
@@ -111,6 +113,26 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
    Then every kernel pass is held against its plain version at the inputs
    of (a)'s last camera, and its row of the kernels line gains a "prior"
    entry measured there.
+11. gsplat2d: GSplatter's 2dgs mode and the depth render modes. (a)
+   bench.py's 3DGS scene of phase 9 in 2dgs mode (32 pairs a Gaussian, tile
+   capacity 2560), GSplatTrainer with both regularisers at their JAX
+   weights: 1 warm-up and 3 timed steps, uninstrumented (median s/step,
+   peak memory), one instrumented step (the compositing's forward and the
+   backward synchronised, their shares) and one traced step (busy time,
+   idle share, leading device operations); every step's loss, normal loss
+   and distortion finite, no non-finite gradient, pair_fill and tile_fill
+   <= 1; the pairs and fullest tile of each camera. (b) render_depth in
+   both modes on that scene: finite, and where alpha > 0.5 inside the
+   camera's depth range (classic: its Gaussians' centres; 2dgs: its near
+   and far planes); one classic ED render differentiated (the covered
+   pixels' weighted depth), K1-K3 launched, K2's gradient with a non-zero
+   depth row. (c) GSplatTrainTask at the blender-2dgs preset on the product
+   phase's scene: 2 steps with a checkpoint, validation and the export, a
+   resume to 3, the export held against the step-3 checkpoint key by key,
+   written as a splat PLY and read back. (d) One 2DGS step at a small size
+   on the card against the CPU. Then every kernel pass is held against its
+   plain version at (b)'s inputs, and its row of the kernels line gains a
+   "depth" entry measured there.
 The last three lines are the card's name and power limit, the kernels JSON
 line and the result JSON line; the line before them gives each phase's
 seconds. Without a CUDA device it exits non-zero before printing any result.
@@ -136,7 +158,7 @@ def phase(name: str, **fields) -> None:
     print(json.dumps({"phase": name, **fields}), flush=True)
 
 
-def cuda_ms(fn, reps: int, warm_s: float | None = None) -> float:
+def cuda_ms(fn, reps: int) -> float:
     """Device milliseconds per call of fn(): the mean over reps calls queued
     behind a device-side sleep, after one warm-up call. The host enqueues
     all of them while the device sleeps, so the CUDA events bracket device
@@ -144,17 +166,15 @@ def cuda_ms(fn, reps: int, warm_s: float | None = None) -> float:
     single call bracketed alone measures that host work wherever it exceeds
     the kernel's time. The sleep starts at 1.25x the warm-up call's wall
     time for each call (at ~2 GHz) and grows 4x until the queue outlasts
-    the enqueueing. ``warm_s``, the wall seconds of a synchronised call of
-    fn just made, stands in for the warm-up call (the plain versions take
-    seconds of host time a call)."""
+    the enqueueing. A function that synchronises inside cannot be timed
+    so."""
     import torch
 
     torch.cuda.synchronize()
-    if warm_s is None:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
     cycles = max(20_000_000, int(1.25 * reps * warm_s * 2e9))
     while True:
         start = torch.cuda.Event(enable_timing=True)
@@ -339,7 +359,7 @@ def small_scene(device, gen, num=2000, width=128, height=128):
 def check_passes(pairs, seg_start, grid, channels, chunks, grad_out) -> dict:
     """Each pass of K1 and K2 on these inputs against its plain version.
     Raises where one disagrees; returns the errors, the kernels' outputs and
-    each plain version's synchronised wall seconds.
+    each plain version's milliseconds (CUDA events around its second call).
     Tolerances: K1's products 2e-5 * |x| + 1e-7 (at most 256 factors, each
     rounding by up to 2^-24, multiplied in another order); K1's
     image atol 1e-3 and under 1 % of contributor counts flipped (the kernel
@@ -357,13 +377,22 @@ def check_passes(pairs, seg_start, grid, channels, chunks, grad_out) -> dict:
     d = rp.composite_bwd(pairs, seg_start, grid, channels, grad_out, tf, nc, pairs.shape[0],
                          chunks, prod, suffix)
     torch.cuda.synchronize()
-    plain_s = {}
+    plain_ms = {}
 
     def plain(name, fn):
-        t0 = time.perf_counter()
+        # the plain versions read their tile counts on the host: CUDA events
+        # around a call give their time on the device's clock, host work
+        # included (queued behind a sleep, a call would wait for it). The
+        # second of two calls is timed: the first takes the allocator's
+        # new blocks
         out = fn()
-        torch.cuda.synchronize()
-        plain_s[name] = time.perf_counter() - t0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        plain_ms[name] = start.elapsed_time(end)
         return out
 
     prod_p = plain("k1_chunk_products",
@@ -397,7 +426,7 @@ def check_passes(pairs, seg_start, grid, channels, chunks, grad_out) -> dict:
           and checks["contributor_count_flips"] < 0.01
           and checks["k2_suffix_share_over_tol"] == 0 and checks["k2_grad_share_over_tol"] == 0)
     return {"errors": errors, "checks": checks, "ok": ok, "out": (out, tf, nc, prod, suffix),
-            "plain_s": plain_s}
+            "plain_ms": plain_ms}
 
 
 def check_k1_k2(device, gen) -> dict:
@@ -799,19 +828,15 @@ def measure_kernels(captured, launches: dict, steps: int) -> dict:
     passes = {
         "k1_chunk_products": (
             lambda: rp.chunk_products(pairs, seg_start, grid, channels, chunks),
-            lambda: rp.chunk_products_plain(pairs, seg_start, grid, chunks),
             int(seg_start[-1]) * row + list_bytes + per_chunk, counts["tile_pair_pixels"],
             counts["kept_pair_pixels"]),
         "k1_composite_fwd": (
             lambda: rp.composite_fwd(pairs, seg_start, grid, channels, chunks, prod),
-            lambda: rp.composite_fwd_plain(pairs, seg_start, grid, channels),
             walked + list_bytes + per_tile * (channels + 4), counts["walked_pair_pixels"],
             counts["kept_pair_pixels"]),
         "k2_chunk_suffix": (
             lambda: rp.chunk_suffix(pairs, seg_start, grid, channels, chunks, prod, grad_out,
                                     n_contrib),
-            lambda: rp.chunk_suffix_plain(pairs, seg_start, grid, channels, chunks, grad_out,
-                                          n_contrib),
             (counts["suffix_walked_pairs"] * row + counts["suffix_walked_chunks"] * npx * f
              + per_chunk + list_bytes + counts["multi_chunk_tiles"] * npx * 4
              + counts["suffix_walked_tiles"] * (channels + 2) * npx * f),
@@ -819,24 +844,21 @@ def measure_kernels(captured, launches: dict, steps: int) -> dict:
         "k2_composite_bwd": (
             lambda: rp.composite_bwd(pairs, seg_start, grid, channels, grad_out, t_final,
                                      n_contrib, max_pairs, chunks, prod, suffix),
-            lambda: rp.composite_bwd_plain(pairs, seg_start, grid, channels, grad_out, t_final,
-                                           n_contrib, max_pairs),
             walked + counts["walked_chunks"] * npx * f + list_bytes
             + per_tile * (channels + 4) + max_pairs * (rp.HDR + channels) * f,
             counts["walked_pair_pixels"], counts["kept_pair_pixels"]),
     }
-    # the plain versions and torch.cumsum take 0.1-0.7 s of device time a
-    # call (and the plain versions seconds of host time): fewer calls time
-    # them, the plain versions' check above standing in for the warm-up
+    # the plain versions are timed by their call in the check above;
+    # torch.cumsum takes 0.1-0.7 s of device time a call: fewer calls time it
     rows = {}
-    for name, (kernel, plain, nbytes, evaluated, kept) in passes.items():
+    for name, (kernel, nbytes, evaluated, kept) in passes.items():
         ops = evaluated * EVAL_OPS + kept * kept_ops(name, channels)
         bound, by = bound_ms(nbytes, ops)
         rows[name] = {
             "launches": launches[name], "launches_per_step": launches[name] / steps,
             "max_abs_err": res["errors"][name],
             "ms": cuda_ms(kernel, 20),
-            "plain_ms": cuda_ms(plain, 1, warm_s=res["plain_s"][name]),
+            "plain_ms": res["plain_ms"][name],
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "bytes": nbytes, "ops": ops, **counts,
         }
@@ -1258,10 +1280,11 @@ def trace_step(step, spans=("gsplat.", "rasterize.")) -> dict:
             "kernel_launches": len(kernels), "top_kernels_s": dict(top)}
 
 
-def gsplat_scene(device, gen, sh_degree: int):
+def gsplat_scene(device, gen, sh_degree: int, **model_kw):
     """bench.py's 3DGS scene at GSPLAT's widths: random Gaussians at
-    opacity logit 1, the model on black, the orbit cameras and the
-    horizontal-gradient ground truth. Returns (splats, model, cams, gt)."""
+    opacity logit 1, the model on black (with ``model_kw``), the orbit
+    cameras and the horizontal-gradient ground truth. Returns (splats,
+    model, cams, gt)."""
     import torch
 
     from geosplatting_tpu_torch.graphics.cameras import Cameras
@@ -1273,8 +1296,9 @@ def gsplat_scene(device, gen, sh_degree: int):
     splats = Splats.random(c["gaussians"], sh_degree=sh_degree,
                            random_scale=c["random_scale"], generator=gen, device=device)
     splats = splats.replace(opacities=torch.full_like(splats.opacities, c["opacity_logit"]))
-    model = GSplatter(sh_degree=sh_degree, background_color="black",
-                      pairs_per_gaussian=c["pairs_per_gaussian"], device=device)
+    model = GSplatter(**{"sh_degree": sh_degree, "background_color": "black",
+                         "pairs_per_gaussian": c["pairs_per_gaussian"], "device": device,
+                         **model_kw})
     cams = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=c["radius"],
                               elevation_degrees=c["elevation"], num_samples=b, width=res,
                               height=res, device=device)
@@ -1711,6 +1735,297 @@ def prior_task(device, seed, kernels, scene: Path, tmp: Path) -> dict:
     return summary
 
 
+# phase 11: 2DGS on bench.py's 3DGS scene at the gsplat phase's widths, the
+# depth render modes there, and the blender-2dgs task on the product scene.
+# The fullest tile holds ~1,950-2,000 Gaussians at 32 pairs a Gaussian (CPU
+# count of bin_gaussians on this scene), so the tile capacity is the 2DGS
+# task's, which leaves a quarter of headroom
+GSPLAT2D = dict(pairs_per_gaussian=32, tile_capacity=2560, warmup_steps=1, timed_steps=3,
+                task_steps=2, task_resume_to=3)
+SPANS_2D = ("gsplat.", "rasterize.")
+
+
+def gsplat2d_train(device, seed) -> dict:
+    """(a) of phase 11: GSplatTrainer in 2dgs mode with both regularisers
+    at their JAX weights: warm-up and timed steps (uninstrumented: median
+    s/step, peak memory), one instrumented step (the compositing's forward
+    and the backward synchronised: their share of the step) and one traced
+    step (busy time, idle share, leading device operations). Gates on every
+    step: finite loss, normal loss and distortion, no non-finite gradient,
+    pair_fill and tile_fill <= 1 (the largest of the cameras')."""
+    import torch
+
+    from geosplatting_tpu_torch.ops import rasterize_2dgs as r2d
+    from geosplatting_tpu_torch.train.gsplat_trainer import GSplatTrainer, GSplatTrainerConfig
+
+    c, c2 = GSPLAT, GSPLAT2D
+    b = c["cameras"]
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    splats, model, cams, gt = gsplat_scene(device, gen, sh_degree=0, rasterize_mode="2dgs",
+                                           pairs_per_gaussian=c2["pairs_per_gaussian"],
+                                           tile_capacity=c2["tile_capacity"])
+    trainer = GSplatTrainer(GSplatTrainerConfig(batch_size=b, warmup_length=10**9), model,
+                            dataset_size=b)
+    trainer.init_state(splats)
+    reg = (trainer.config.normal_weight, trainer.config.distort_weight)
+    keys = ("loss", "psnr", "normal_loss", "distort_loss", "nonfinite_grads", "pair_fill",
+            "tile_fill")
+
+    def step():
+        m = {k: float(v) for k, v in trainer.train_step(
+            cams, gt, max_sh_degree=None, reg_weights=reg, generator=gen).items()}
+        if not (all(math.isfinite(m[k]) for k in ("loss", "normal_loss", "distort_loss"))
+                and m["nonfinite_grads"] == 0 and m["pair_fill"] <= 1 and m["tile_fill"] <= 1):
+            raise AssertionError(f"2DGS step: {m}")
+        return {k: m[k] for k in keys}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, per_step = [], []
+    for i in range(c2["warmup_steps"] + c2["timed_steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        per_step.append(step())
+        torch.cuda.synchronize()
+        if i >= c2["warmup_steps"]:
+            seconds.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # the instrumented step: the compositing's forward and the backward
+    # (recomputation and gradients of the compositing, the SSIM's and the
+    # projection's) synchronised
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Timed(r2d, "composite_tiles_2dgs") as fwd, Timed(torch.Tensor, "backward") as bwd:
+        per_step.append(step())
+    instrumented = time.perf_counter() - t0
+    traced = trace_step(step, SPANS_2D)
+    with torch.no_grad():
+        infos = [model.render_rgba(trainer.splats(), cams[i])[1] for i in range(b)]
+    pairs = [int(info["total_pairs"]) for info in infos]
+    fullest = [int(info["max_tile_pairs"]) for info in infos]
+    med = sorted(seconds)[len(seconds) // 2]
+    return {
+        "config": {**{k: c[k] for k in ("gaussians", "cameras", "resolution", "radius",
+                                        "elevation", "random_scale", "opacity_logit")},
+                   **{k: c2[k] for k in ("pairs_per_gaussian", "tile_capacity",
+                                         "warmup_steps", "timed_steps")},
+                   "reg_weights": reg},
+        "steps": per_step, "timed_step_seconds": seconds, "median_step_s": med,
+        "peak_memory_gib": peak, "pairs_per_camera": pairs,
+        "pairs_per_gaussian_needed": max(pairs) / c["gaussians"],
+        "fullest_tile_per_camera": fullest,
+        "tile_fill": max(fullest) / c2["tile_capacity"],
+        "instrumented_step_s": instrumented, "composite_forward_s": sum(fwd.seconds),
+        "backward_s": sum(bwd.seconds),
+        "composite_forward_share": sum(fwd.seconds) / instrumented,
+        "backward_share": sum(bwd.seconds) / instrumented, "traced": traced,
+    }
+
+
+def gsplat2d_depth(device, seed, kernels) -> tuple[dict, dict]:
+    """(b) of phase 11: render_depth in both modes on the 2DGS scene, each
+    camera's expected depth finite and, where alpha > 0.5, inside the
+    camera's depth range: classic, between its nearest and farthest
+    Gaussian centre (an expected depth is a weighted mean of theirs); 2dgs,
+    between the camera's near and far planes (a disk seen edge-on is hit
+    far from its centre, and the low-pass keeps such hits; the share
+    outside the centres' range is reported); then one classic ED render
+    differentiated, its K1-K3 launches counted and K2's inputs, with a
+    non-zero depth gradient, recorded. Returns (summary, the kernels'
+    inputs)."""
+    import torch
+
+    from geosplatting_tpu_torch.models.gsplatter import GSplatter
+    from geosplatting_tpu_torch.ops import rasterize_pairs as rp
+    from geosplatting_tpu_torch.ops import segment_rows as sr
+
+    c, c2 = GSPLAT, GSPLAT2D
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    splats, model_2d, cams, _ = gsplat_scene(device, gen, sh_degree=0, rasterize_mode="2dgs",
+                                             pairs_per_gaussian=c2["pairs_per_gaussian"],
+                                             tile_capacity=c2["tile_capacity"])
+    model = GSplatter(sh_degree=0, background_color="black",
+                      pairs_per_gaussian=c["pairs_per_gaussian"], device=device)
+    summary = {"modes": {}}
+    with torch.no_grad():
+        for name, m in (("classic", model), ("2dgs", model_2d)):
+            outside, beyond_centres, covered, lo_hi = 0, 0, 0, []
+            for i in range(len(cams)):
+                cam = cams[i]
+                depth = m.render_depth(splats, cam)
+                z = (splats.means @ cam.view_matrix[:3, :3].T + cam.view_matrix[:3, 3])[:, 2]
+                z = z[(z > cam.near) & (z < cam.far)]
+                ed = depth[..., 0][depth[..., 1] > 0.5]
+                if not bool(torch.isfinite(depth).all()):
+                    raise AssertionError(f"render_depth ({name}) is not finite")
+                off = (ed < z.min() - 1e-4) | (ed > z.max() + 1e-4)
+                beyond_centres += int(off.sum())
+                outside += int(off.sum() if name == "classic"
+                               else ((ed <= cam.near) | (ed >= cam.far)).sum())
+                covered += ed.numel()
+                lo_hi.append([float(ed.min()), float(ed.max()), float(z.min()), float(z.max())])
+            summary["modes"][name] = {
+                "covered_pixels": covered, "outside_range": outside,
+                "share_beyond_centres": beyond_centres / max(covered, 1),
+                "ed_and_centre_range_per_camera": lo_hi}
+            if outside or not covered:
+                raise AssertionError(f"render_depth ({name}): {summary['modes'][name]}")
+    # one differentiated classic ED render (the last camera): K2 sees the
+    # depth row of its gradient. The loss is the weighted mean over the
+    # covered pixels (alpha > 0.5): ED = D / alpha, so nearly empty pixels
+    # would scale the gradient by up to 1e10
+    w = torch.rand((c["resolution"], c["resolution"], 1), generator=gen, device=device)
+    means = splats.means.detach().clone().requires_grad_()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with Recorder(rp, "composite_bwd") as bwd, Recorder(sr, "cumsum_rows") as k3:
+        depth = model.render_depth(splats.replace(means=means), cams[len(cams) - 1])
+        covered = depth[..., 1:] > 0.5
+        ((depth[..., :1] * w * covered).sum() / covered.sum()).backward()
+        torch.cuda.synchronize()
+    launches = {k: kernels.launches[k] for k in kernels.KERNELS}
+    channels = bwd.args[3]
+    grad_out = bwd.args[4]
+    summary.update(launches=launches,
+                   depth_grad_max=float(grad_out[:, channels].abs().max()),
+                   means_grad_finite=bool(torch.isfinite(means.grad).all()),
+                   means_grad_max=float(means.grad.abs().max()))
+    if not (summary["depth_grad_max"] > 0 and summary["means_grad_finite"]
+            and summary["means_grad_max"] > 0
+            and all(launches[k] > 0 for k in kernels.KERNELS)):
+        raise AssertionError(f"the differentiated ED render failed a check: {summary}")
+    return summary, {"bwd": bwd.args, "k3": k3.args}
+
+
+def gsplat2d_task(device, seed, scene: Path, tmp: Path) -> dict:
+    """(c) of phase 11: GSplatTrainTask at the blender-2dgs preset on the
+    product phase's scene: 2 steps with a checkpoint, validation and the
+    export, a resume to 3, the export held against the step-3 checkpoint
+    key by key, and the export written as a splat PLY and read back."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from geosplatting_tpu_torch.convert import splats_from_numpy, splats_to_numpy
+    from geosplatting_tpu_torch.engine.stage_io import load_export
+    from geosplatting_tpu_torch.engine.train_task import GSplatTrainTask
+    from geosplatting_tpu_torch.graphics.splats_io import export_splats_ply, import_splats_ply
+    from geosplatting_tpu_torch.scripts import train_gsplat as cli
+    from geosplatting_tpu_torch.utils.config import load_dataclass
+
+    c = GSPLAT2D
+    preset = cli.TASKS["blender-2dgs"]
+    task = dataclasses.replace(preset, dataset_path=scene, experiment_name="gsplat2d-task",
+                               seed=seed, num_steps=c["task_steps"],
+                               num_steps_per_save=c["task_steps"],
+                               num_steps_per_val=c["task_steps"], num_val_images=2,
+                               device=str(device))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    with Timed(GSplatTrainTask, "step_fn") as steps, Timed(GSplatTrainTask, "val_render") as val:
+        out = task.run()
+        run_dir = Path(out["output_dir"]).resolve()
+        runs.append(out)
+        again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
+                                    num_steps=c["task_resume_to"])
+        runs.append(again.run(resume_dir=run_dir))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log = (run_dir / "log.txt").read_text()
+    exported = load_export(run_dir)
+    ckpt = torch.load(run_dir / "ckpts" / f"{c['task_resume_to']}.pt", map_location="cpu")
+    params = {k: v.numpy() for k, v in ckpt["params"].items()}
+    mismatched = sorted(k for k in params if not np.array_equal(exported.get(k), params[k]))
+    ply = tmp / "gsplat2d.ply"
+    export_splats_ply(splats_from_numpy(exported), ply)
+    back = splats_to_numpy(import_splats_ply(ply, device="cpu"))
+    q = exported["quats"] / np.linalg.norm(exported["quats"], axis=-1, keepdims=True)
+    ply_ok = bool(all(np.array_equal(back[k], exported[k])
+                      for k in ("means", "scales", "opacities", "shs"))
+                  and np.abs(back["colors"] - exported["colors"]).max() <= 1e-6
+                  and np.abs(back["quats"] - q).max() <= 1e-6)
+    keys = ("loss", "psnr", "normal_loss", "distort_loss", "nonfinite_grads", "pair_fill",
+            "tile_fill", "num_gaussians")
+    per_step = [{k: float(m[k]) for k in keys} for m in steps.outputs]
+    summary = {
+        "preset": {k: getattr(preset, k) for k in ("num_init_gaussians", "sh_degree",
+                                                   "batch_size", "rasterize_mode",
+                                                   "pairs_per_gaussian", "tile_capacity")},
+        "steps": per_step, "step_seconds": steps.seconds, "val_render_seconds": val.seconds,
+        "val_psnr": [r["val_psnr"] for r in runs], "peak_memory_gib": peak,
+        "export_shapes": {k: list(v.shape) for k, v in exported.items()},
+        "export_mismatched": mismatched, "ply_bytes": ply.stat().st_size,
+        "ply_round_trip": ply_ok, "resumed": f"resumed from step {c['task_steps']}" in log,
+        "log_tail": log.splitlines()[-3:],
+    }
+    if not (all(math.isfinite(m["loss"]) and math.isfinite(m["normal_loss"])
+                and math.isfinite(m["distort_loss"]) and m["nonfinite_grads"] == 0
+                and m["pair_fill"] <= 1 and m["tile_fill"] <= 1 for m in per_step)
+            and len(per_step) == c["task_resume_to"] and len(val.seconds) == 2
+            and all(math.isfinite(v) for v in summary["val_psnr"])
+            and summary["resumed"] and f"step {c['task_resume_to']}:" in log
+            and not mismatched and sorted(exported) == sorted(params) and ply_ok):
+        raise AssertionError(f"the 2DGS task failed a check: {summary}")
+    return summary
+
+
+def check_2dgs_card_vs_cpu(device, seed) -> dict:
+    """(d) of phase 11: one 2DGS train step with both regularisers (2,000
+    anisotropic Gaussians, 2 cameras at 64x64) on the card and on the CPU
+    from the same state and background: the metrics within 1e-3, every
+    gradient and the screen-space statistic by the card-vs-CPU rule (< 3 %
+    of entries off by more than 5e-3 + 5e-3 |g|, cosine > 0.999: the two
+    devices round differently and a cutoff may flip)."""
+    import numpy as np
+    import torch
+
+    from geosplatting_tpu_torch.graphics.cameras import Cameras
+    from geosplatting_tpu_torch.graphics.splats import FIELDS, Splats
+    from geosplatting_tpu_torch.models.gsplatter import GSplatter
+    from geosplatting_tpu_torch.train.gsplat_trainer import GSplatTrainer, GSplatTrainerConfig
+
+    g = torch.Generator().manual_seed(seed + 3)
+    splats = Splats.random(2000, sh_degree=1, random_scale=0.8, generator=g, device="cpu")
+    splats = splats.replace(shs=torch.randn(splats.shs.shape, generator=g) * 0.1,
+                            scales=splats.scales + torch.randn((2000, 3), generator=g) * 0.4,
+                            colors=torch.rand((2000, 3), generator=g),
+                            opacities=torch.full_like(splats.opacities, 1.0))
+    cams = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=2.5, elevation_degrees=15.0,
+                              num_samples=2, width=64, height=64, device="cpu")
+    gt = torch.rand((2, 64, 64, 4), generator=g)
+    out = []
+    for dev in ("cpu", device):
+        trainer = GSplatTrainer(GSplatTrainerConfig(batch_size=2), GSplatter(
+            sh_degree=1, rasterize_mode="2dgs", tile_capacity=GSPLAT2D["tile_capacity"],
+            device=dev), 2)
+        trainer.init_state(Splats(**{k: getattr(splats, k).to(dev) for k in FIELDS}))
+        m = trainer.train_step(cams.to(dev), gt.to(dev), max_sh_degree=1,
+                               reg_weights=(0.05, 0.01),
+                               background=torch.tensor([0.2, 0.5, 0.7], device=dev))
+        grads = {k: p.grad.detach().cpu().numpy() for k, p in trainer.params.items()
+                 if p.grad is not None}
+        grads["xys_grad_norm"] = trainer.xys_grad_norm.cpu().numpy()
+        out.append(({k: float(v) for k, v in m.items()}, grads))
+    (m_cpu, g_cpu), (m_gpu, g_gpu) = out
+    result = {"metrics_cpu": m_cpu, "metrics_card": m_gpu, "grads": {}}
+    ok = m_gpu["nonfinite_grads"] == 0 and m_gpu["tile_fill"] <= 1
+    for k in ("loss", "psnr", "normal_loss", "distort_loss", "pair_fill", "tile_fill"):
+        ok = ok and abs(m_gpu[k] - m_cpu[k]) <= 1e-3 * abs(m_cpu[k]) + 1e-7
+    for k, want in g_cpu.items():
+        got = g_gpu[k].astype(np.float64)
+        want = want.astype(np.float64)
+        off = float((np.abs(got - want) > 5e-3 + 5e-3 * np.abs(want)).mean())
+        cos = float((got * want).sum() / max(np.linalg.norm(got) * np.linalg.norm(want), 1e-300))
+        result["grads"][k] = {"share_off": off, "cosine": cos}
+        ok = ok and bool(np.isfinite(got).all()) and off < 0.03 and cos > 0.999
+    phase("gsplat2d_card_vs_cpu", **result, ok=ok)
+    if not ok:
+        raise AssertionError("the card's 2DGS step disagrees with the CPU path")
+    return result
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1805,15 +2120,36 @@ def main() -> int:
         ptask = prior_task(device, args.seed, _kernels, Path(tmp) / "scene", Path(tmp))
         phase("prior_task", **ptask)
         seconds["prior"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        measured = measure_kernels(captured, prior["launches"], PRIOR["timed_steps"])
+        del captured
+        phase("kernels_vs_plain_at_prior", **measured["checks"], **measured["counts"],
+              max_abs_err={k: r["max_abs_err"] for k, r in measured["rows"].items()},
+              tol=TOLERANCES)
+        for entry in line["kernels"]:
+            entry["prior"] = measured["rows"][entry["name"]]
+        seconds["kernels_prior"] = time.perf_counter() - t0
+        # 2DGS: bench.py's scene, the depth modes, the blender-2dgs task
+        t0 = time.perf_counter()
+        train2d = gsplat2d_train(device, args.seed)
+        phase("gsplat2d_train", **train2d, card=smi)
+        depth, captured = gsplat2d_depth(device, args.seed, _kernels)
+        phase("gsplat2d_depth", **depth)
+        task2d = gsplat2d_task(device, args.seed, Path(tmp) / "scene", Path(tmp))
+        phase("gsplat2d_task", **task2d)
+        check_2dgs_card_vs_cpu(device, args.seed)
+        seconds["gsplat2d"] = time.perf_counter() - t0
+    # the kernels held to their plain versions at the differentiated ED
+    # render's inputs: K2's gradient has a non-zero depth row there
     t0 = time.perf_counter()
-    measured = measure_kernels(captured, prior["launches"], PRIOR["timed_steps"])
+    measured = measure_kernels(captured, depth["launches"], 1)
     del captured
-    phase("kernels_vs_plain_at_prior", **measured["checks"], **measured["counts"],
+    phase("kernels_vs_plain_at_depth", **measured["checks"], **measured["counts"],
           max_abs_err={k: r["max_abs_err"] for k, r in measured["rows"].items()},
-          tol=TOLERANCES)
+          tol=TOLERANCES, depth_grad_max=depth["depth_grad_max"])
     for entry in line["kernels"]:
-        entry["prior"] = measured["rows"][entry["name"]]
-    seconds["kernels_prior"] = time.perf_counter() - t0
+        entry["depth"] = measured["rows"][entry["name"]]
+    seconds["kernels_depth"] = time.perf_counter() - t0
     phase("phase_seconds", **seconds, total=time.perf_counter() - start)
     print(smi)
     print(json.dumps(line))

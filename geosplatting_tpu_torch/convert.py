@@ -25,7 +25,10 @@ Vanilla 3DGS (``GSplatTrainer.init_state``): the params tree is flat,
 ``means``, ``scales``, ``quats``, ``colors``, ``opacities`` and ``shs``,
 which is also the JAX task's export; each Adam group's state is the
 first and second moments ``mu`` and ``nu`` of its one leaf and the
-update ``count`` (optax's ``ScaleByAdamState``).
+update ``count`` (optax's ``ScaleByAdamState``). The ``2dgs`` mode trains
+the same tree (its disks read the first two of the three scales; the third
+is kept and takes no gradient), so ``splats_to_numpy`` and
+``splats_from_numpy`` carry 2DGS splats as they are.
 """
 from __future__ import annotations
 

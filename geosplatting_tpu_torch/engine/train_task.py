@@ -138,6 +138,7 @@ FILLS = {
     "mesh_tile_fill": ("mesh tile capacity", "farthest triangles of a tile",
                        "mesh_tile_capacity"),
     "mesh_pair_fill": ("mesh pair budget", "farthest triangles' tiles", "pairs_per_triangle"),
+    "tile_fill": ("tile capacity", "farthest gaussians of a tile", "tile_capacity"),
 }
 
 
@@ -556,12 +557,21 @@ class GeoSplatPriorTrainTask(_TrainTaskBase):
 # at 800 x 800 need 29-32 pairs each from Blender-like cameras, so 48
 # leaves a third of headroom
 PAIRS_PER_GAUSSIAN = 48
+# the 2DGS preset's budgets. 2DGS bins each Gaussian by its circular radius
+# (no opacity-aware bounds, no circle prune), so 65,536 random Gaussians in
+# the unit cube at 800 x 800 make 48 pairs each and up to 1,876 in one tile
+# from Blender-like cameras; 64 pairs and 2,560 a tile leave a third of
+# headroom (the JAX model's 8 and 1024 drop pairs and tiles' farthest
+# Gaussians without a word)
+PAIRS_PER_GAUSSIAN_2DGS = 64
+TILE_CAPACITY_2DGS = 2560
 
 
 @dataclasses.dataclass
 class GSplatTrainTask(_TrainTaskBase):
-    """Vanilla 3DGS with the densify / cull schedule (GSplatter,
-    GSplatTrainer), from ``Splats.random`` in the unit cube. A checkpoint
+    """Vanilla 3DGS / 2DGS with the densify / cull schedule (GSplatter,
+    GSplatTrainer; in ``2dgs`` mode with the regularisers' schedule), from
+    ``Splats.random`` in the unit cube. A checkpoint
     holds the Gaussians at their count of that step with their Adam state
     and statistics, so a resume after a densification continues the
     uninterrupted run. The export is the params tree (``means``,
@@ -574,9 +584,11 @@ class GSplatTrainTask(_TrainTaskBase):
     num_steps_per_val: int = 500
     num_init_gaussians: int = 65536
     sh_degree: int = 3
-    rasterize_mode: str = "classic"   # 'classic' | 'antialiased' ('2dgs' raises)
+    rasterize_mode: str = "classic"   # 'classic' | 'antialiased' | '2dgs'
     # the JAX model's 8 overflows at the random init (PAIRS_PER_GAUSSIAN)
     pairs_per_gaussian: int = PAIRS_PER_GAUSSIAN
+    # 2dgs only: Gaussians kept per tile (TILE_CAPACITY_2DGS; JAX: 1024)
+    tile_capacity: int = TILE_CAPACITY_2DGS
 
     def build(self, dataset, generator):
         from ..graphics.splats import Splats
@@ -584,6 +596,7 @@ class GSplatTrainTask(_TrainTaskBase):
         from ..train.gsplat_trainer import GSplatTrainer, GSplatTrainerConfig
 
         model = GSplatter(sh_degree=self.sh_degree, rasterize_mode=self.rasterize_mode,
+                          tile_capacity=self.tile_capacity,
                           pairs_per_gaussian=self.pairs_per_gaussian, device=dataset.device)
         trainer = GSplatTrainer(
             GSplatTrainerConfig(num_steps=self.num_steps, batch_size=self.batch_size),
@@ -596,6 +609,7 @@ class GSplatTrainTask(_TrainTaskBase):
 
     def step_fn(self, trainer, cams, gt, generator, step):
         return trainer.train_step(cams, gt, max_sh_degree=trainer.max_sh_degree_at(step),
+                                  reg_weights=trainer.reg_weights_at(step),
                                   generator=generator)
 
     def after_update(self, trainer, step, last_wh, generator):

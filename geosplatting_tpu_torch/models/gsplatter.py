@@ -1,17 +1,18 @@
-"""Vanilla 3DGS model: render heads over a ``Splats`` set.
+"""Vanilla 3DGS / 2DGS model: render heads over a ``Splats`` set.
 
 Counterpart of ``geosplatting_tpu/models/gsplatter.py`` (``GSplatter``):
-``render_rgba`` / ``render_rgb`` over the pairs rasterizer (K1-K3 on the
-card), the background-colour policy (random while training), the SH degree
-cap and the colours-as-SH packing (``_colors_and_degree``). The screen-space
-gradient that densification reads comes back through ``means2d_offset``.
+``render_rgba`` / ``render_rgb`` / ``render_depth``, the background-colour
+policy (random while training), the SH degree cap and the colours-as-SH
+packing (``_colors_and_degree``). The screen-space gradient that
+densification reads comes back through ``means2d_offset``.
 
-The ``classic`` and ``antialiased`` modes are ported. ``2dgs`` waits for
-``ops/rasterize_2dgs.py`` and ``render_depth`` (the expected-depth mode) for
-the depth render modes (ROADMAP A.8, A.6). The JAX model's
-``tile_capacity``, ``tile_chunk``, ``chunk_size``, ``backend`` and
-``camera_batching`` have no meaning on the pairs path: the pair budget is
-``pairs_per_gaussian`` x N.
+The ``classic`` and ``antialiased`` modes render on the pairs rasterizer
+(K1-K3 on the card), whose pair budget is ``pairs_per_gaussian`` x N;
+``2dgs`` renders through ``ops/rasterize_2dgs.py`` on the dense tile table,
+whose ``tile_capacity`` cuts each tile to its front Gaussians and whose
+``tile_chunk`` (at most 4, as in the JAX model) sizes its chunks on the
+CPU. The JAX model's ``chunk_size``, ``backend`` and ``camera_batching``
+have no meaning here.
 """
 from __future__ import annotations
 
@@ -24,8 +25,9 @@ from ..graphics import gmath
 from ..graphics.cameras import Cameras
 from ..graphics.splats import Splats
 from ..ops.rasterize import rasterize
+from ..ops.rasterize_2dgs import rasterize_2dgs
 
-MODES = ("classic", "antialiased")
+MODES = ("classic", "antialiased", "2dgs")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,17 +36,15 @@ class GSplatter:
     the card unless ``device`` names another device (raises without one)."""
 
     sh_degree: int = 3
-    rasterize_mode: str = "classic"      # 'classic' | 'antialiased'
+    rasterize_mode: str = "classic"      # 'classic' | 'antialiased' | '2dgs'
     block_width: int = 16
     background_color: str = "random"     # 'white' | 'black' | 'random'
+    tile_capacity: int = 1024            # 2dgs: Gaussians kept per tile
     pairs_per_gaussian: int = 8
+    tile_chunk: int = 8                  # 2dgs: tiles per chunk on the CPU (capped at 4)
     device: str | torch.device | None = None
 
     def __post_init__(self):
-        if self.rasterize_mode == "2dgs":
-            raise NotImplementedError(
-                "rasterize_mode='2dgs' needs ops/rasterize_2dgs.py, which is not ported yet "
-                "(ROADMAP A.8)")
         if self.rasterize_mode not in MODES:
             raise ValueError(f"unknown rasterize_mode: {self.rasterize_mode}")
         object.__setattr__(self, "device", _kernels.resolve_device(self.device))
@@ -72,8 +72,23 @@ class GSplatter:
                     max_sh_degree: int | None = None,
                     means2d_offset: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, dict]:
-        """One camera -> ([H, W, 4] premultiplied rgba, info)."""
+        """One camera -> ([H, W, 4] premultiplied rgba, info). In ``2dgs``
+        mode ``info`` also holds the maps the regularisers read:
+        ``normal``, ``pseudo_normal``, ``distort``, ``median_depth``,
+        ``depth`` (expected) and ``alpha_map``."""
         colors, deg = self._colors_and_degree(splats, max_sh_degree)
+        if self.rasterize_mode == "2dgs":
+            render, alpha, normal, pseudo_normal, distort, median, info = rasterize_2dgs(
+                splats.means, gmath.safe_normalize(splats.quats), torch.exp(splats.scales),
+                torch.sigmoid(splats.opacities[:, 0]), colors, camera.view_matrix,
+                camera.intrinsic_matrix, camera.width, camera.height, sh_degree=deg,
+                render_mode="RGB+ED", offset2d=means2d_offset, tile_size=self.block_width,
+                tile_capacity=self.tile_capacity, pairs_per_gaussian=self.pairs_per_gaussian,
+                tile_chunk=min(self.tile_chunk, 4),
+            )
+            info = dict(info, normal=normal, pseudo_normal=pseudo_normal, distort=distort,
+                        median_depth=median, depth=render[..., -1:], alpha_map=alpha)
+            return torch.cat((render[..., :3], alpha), -1), info
         render, alpha, info = rasterize(
             splats.means, gmath.safe_normalize(splats.quats), torch.exp(splats.scales),
             torch.sigmoid(splats.opacities[:, 0]), colors, camera.view_matrix,
@@ -92,6 +107,16 @@ class GSplatter:
         return rgba[..., :3] + (1.0 - rgba[..., 3:4]) * background, info
 
     def render_depth(self, splats: Splats, camera: Cameras) -> torch.Tensor:
-        raise NotImplementedError(
-            "render_depth needs the expected-depth render mode of the dense reference "
-            "rasterizer, which is not ported yet (ROADMAP A.6)")
+        """Expected depth and alpha, [H, W, 2] (gsplat's 'ED' mode); the
+        colours are detached, as only the geometry is rendered."""
+        if self.rasterize_mode == "2dgs":
+            rgba, info = self.render_rgba(splats, camera)
+            return torch.cat((info["depth"], rgba[..., 3:]), -1)
+        render, alpha, _ = rasterize(
+            splats.means, gmath.safe_normalize(splats.quats), torch.exp(splats.scales),
+            torch.sigmoid(splats.opacities[:, 0]), splats.colors.detach(), camera.view_matrix,
+            camera.intrinsic_matrix, camera.width, camera.height,
+            tile_size=self.block_width, pairs_per_gaussian=self.pairs_per_gaussian,
+            rasterize_mode=self.rasterize_mode, render_mode="ED",
+        )
+        return torch.cat((render, alpha), -1)

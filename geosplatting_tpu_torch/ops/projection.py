@@ -24,8 +24,11 @@ class Projected(NamedTuple):
     conics: torch.Tensor     # [N, 3] inverse cov2d (a, b, c)
     opacities: torch.Tensor  # [N] post-compensation opacities
     radii: torch.Tensor      # [N] int32 screen radius (0 = culled)
-    extents: torch.Tensor    # [N, 2] per-axis half-widths of the alpha >= 1/255 region
-    prune_r: torch.Tensor    # [N] circular bound of the same region
+    # the opacity-aware bounds that ``bin_pairs`` reads; None where the
+    # caller has only a circular radius (2DGS: ``bin_gaussians`` then bins
+    # by ``radii``)
+    extents: torch.Tensor | None = None  # [N, 2] half-widths of the alpha >= 1/255 region
+    prune_r: torch.Tensor | None = None  # [N] circular bound of the same region
 
 
 def project(

@@ -1,21 +1,181 @@
-"""Tile-binned differentiable Gaussian rasterization on the pairs path.
+"""Tile-binned differentiable Gaussian rasterization.
 
-Counterpart of ``geosplatting_tpu/ops/rasterize.py`` (``rasterize``,
-``rasterize_projected``, ``_tiles_to_image``, the compositing constants
-and the SH colours of ``sh_degree``). The JAX package's dense reference
-rasterizer is its CPU oracle; here the CPU path is the plain version beside
-each kernel, so there is one rasterizer for both devices.
+Counterpart of ``geosplatting_tpu/ops/rasterize.py``: ``rasterize`` and
+``rasterize_projected`` with the render modes ``RGB``, ``ED``, ``D``,
+``RGB+ED`` and ``RGB+D`` (``D`` is the accumulated depth, ``ED`` = D /
+max(alpha, 1e-10)), ``_tiles_to_image``, the compositing constants and the
+SH colours of ``sh_degree``; and the dense tile table of the JAX package's
+reference rasterizer: ``TileBins``, ``bin_gaussians``, ``_tile_pixel_grid``
+and ``composite_tiles_reference``.
+
+The render path is the pairs path on both devices (the kernels on the card,
+their plain versions on the CPU). The dense tile table serves the 2DGS
+rasterizer (``ops/rasterize_2dgs.py``); ``composite_tiles_reference`` is the
+JAX package's dense CPU oracle, kept as an independent check of the depth
+modes and called by no render path.
 """
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from ..graphics import gmath
 from .projection import Projected, project
 from .rasterize_pairs import (  # noqa: F401  (constants re-exported as in the JAX package)
     MAX_ALPHA, MIN_ALPHA, TRANSMITTANCE_EPS, bin_pairs, composite_pairs, tile_grid,
 )
+
+RENDER_MODES = ("RGB", "ED", "D", "RGB+ED", "RGB+D")
+
+
+class TileBins(NamedTuple):
+    tile_gid: torch.Tensor        # [T, K_cap] int64 gaussian index per slot, -1 = empty
+    total_pairs: torch.Tensor     # [] actual pair count (overflow check)
+    num_tiles_xy: tuple[int, int]
+    max_tile_pairs: torch.Tensor  # [] the fullest tile's pairs before truncation to K_cap
+
+
+def bin_gaussians(
+    proj: Projected,
+    width: int,
+    height: int,
+    *,
+    tile_size: int,
+    max_pairs: int,
+    tile_capacity: int,
+    near: float = 0.01,
+    far: float = 1e10,
+) -> TileBins:
+    """Dense [T, K_cap] tile table of depth-sorted Gaussian ids. Each valid
+    Gaussian covers the tiles of its per-axis ``extents`` rectangle, or of
+    its circular ``radii`` rectangle where ``proj.extents`` is None (2DGS).
+    Pairs are generated in Gaussian order inside the static ``max_pairs``
+    budget, sorted by a packed (tile, log-depth) key and cut to the front
+    ``tile_capacity`` of each tile."""
+    tw = -(-width // tile_size)
+    th = -(-height // tile_size)
+    num_tiles = tw * th
+    dev = proj.means2d.device
+    n = proj.means2d.shape[0]
+
+    means2d = proj.means2d.detach()
+    valid = proj.radii > 0
+    if proj.extents is not None:
+        rx = proj.extents[:, 0].detach()
+        ry = proj.extents[:, 1].detach()
+    else:
+        rx = ry = proj.radii.to(torch.float32)
+    tx0 = torch.floor((means2d[:, 0] - rx) / tile_size).clamp(0, tw).long()
+    ty0 = torch.floor((means2d[:, 1] - ry) / tile_size).clamp(0, th).long()
+    tx1 = torch.ceil((means2d[:, 0] + rx) / tile_size).clamp(0, tw).long()
+    ty1 = torch.ceil((means2d[:, 1] + ry) / tile_size).clamp(0, th).long()
+    bw = (tx1 - tx0).clamp(min=0)
+    bh = (ty1 - ty0).clamp(min=0)
+    ntiles = torch.where(valid, bw * bh, 0)
+
+    offsets = torch.cumsum(ntiles, 0)                 # inclusive
+    total = offsets[-1]
+    starts = offsets - ntiles
+    slot = torch.arange(max_pairs, device=dev)
+    gid = torch.searchsorted(offsets, slot, right=True).clamp(max=n - 1)
+    local = slot - starts[gid]
+    w_g = bw[gid].clamp(min=1)
+    tile_id = (ty0[gid] + local // w_g) * tw + tx0[gid] + local % w_g
+    in_range = slot < torch.clamp(total, max=max_pairs)
+    tile_id = torch.where(in_range, tile_id, num_tiles)   # sentinel bucket
+
+    depth = proj.depths.detach()
+    tile_bits = max(int(num_tiles + 1).bit_length(), 1)
+    depth_bits = 31 - tile_bits
+    if depth_bits >= 16:
+        # one packed key: camera-constant log-depth quantization
+        log_span = float(math.log(max(far / near, 1.0 + 1e-6)))
+        dq = torch.clamp(
+            (torch.log(torch.clamp(depth[gid] / near, min=1e-6)) / log_span
+             * ((1 << depth_bits) - 1)).to(torch.int32),
+            0, (1 << depth_bits) - 1,
+        ).long()
+        packed = tile_id * (1 << depth_bits) + torch.where(in_range, dq, 0)
+        sorted_key, perm = torch.sort(packed, stable=True)
+        sorted_tile = sorted_key >> depth_bits
+    else:
+        # (tile, float depth bits) lexicographically: minor key first, stable
+        depth_key = torch.where(in_range, depth.view(torch.int32)[gid].long(),
+                                torch.iinfo(torch.int32).max)
+        by_depth = torch.argsort(depth_key, stable=True)
+        perm = by_depth[torch.argsort(tile_id[by_depth], stable=True)]
+        sorted_tile = tile_id[perm]
+    sorted_gid = gid[perm]
+
+    tile_range = torch.arange(num_tiles, device=dev)
+    seg_start = torch.searchsorted(sorted_tile, tile_range)
+    counts = torch.searchsorted(sorted_tile, tile_range, right=True) - seg_start
+    k = torch.arange(tile_capacity, device=dev)
+    idx = (seg_start[:, None] + k).clamp(0, max_pairs - 1)
+    tile_gid = torch.where(k < counts[:, None], sorted_gid[idx], -1)
+    return TileBins(tile_gid=tile_gid, total_pairs=total, num_tiles_xy=(tw, th),
+                    max_tile_pairs=counts.max())
+
+
+def _tile_pixel_grid(tile_size: int, device=None) -> torch.Tensor:
+    """[P, 2] pixel centres of a tile, row-major from its origin."""
+    r = torch.arange(tile_size, dtype=torch.float32, device=device) + 0.5
+    py, px = torch.meshgrid(r, r, indexing="ij")
+    return torch.stack((px.reshape(-1), py.reshape(-1)), -1)
+
+
+def tile_origins(tw: int, th: int, tile_size: int, device=None) -> torch.Tensor:
+    """[T, 2] float pixel origin of each tile, row-major."""
+    ty, tx = torch.meshgrid(torch.arange(th, device=device), torch.arange(tw, device=device),
+                            indexing="ij")
+    return torch.stack((tx.reshape(-1) * tile_size, ty.reshape(-1) * tile_size),
+                       -1).to(torch.float32)
+
+
+def composite_tiles_reference(
+    tile_gid: torch.Tensor,     # [T, K]
+    tile_origin: torch.Tensor,  # [T, 2] float pixel origin of each tile
+    means2d: torch.Tensor,      # [N, 2]
+    conics: torch.Tensor,       # [N, 3]
+    opacities: torch.Tensor,    # [N]
+    colors: torch.Tensor,       # [N, C]
+    depths: torch.Tensor,       # [N]
+    *,
+    tile_size: int,
+    tile_chunk: int = 8,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Front-to-back composite of each tile's [K, P] (Gaussian, pixel)
+    alphas at once, in checkpointed chunks of ``tile_chunk`` tiles. Returns
+    (color [T, P, C], alpha [T, P], depth_accum [T, P]), P = tile_size**2."""
+    pix_local = _tile_pixel_grid(tile_size, tile_gid.device)
+
+    def chunk_fn(gid, origin, means2d, conics, opacities, colors, depths):
+        safe = gid.clamp(min=0)
+        live = gid >= 0
+        mu, con, op = means2d[safe], conics[safe], opacities[safe]
+        pix = origin[:, None, :] + pix_local[None]                  # [Ct, P, 2]
+        dx = mu[:, :, None, 0] - pix[:, None, :, 0]                 # [Ct, K, P]
+        dy = mu[:, :, None, 1] - pix[:, None, :, 1]
+        sigma = (0.5 * (con[:, :, None, 0] * dx * dx + con[:, :, None, 2] * dy * dy)
+                 + con[:, :, None, 1] * dx * dy)
+        alpha = torch.clamp(op[:, :, None] * torch.exp(-sigma), max=MAX_ALPHA)
+        alpha = torch.where((sigma >= 0) & (alpha >= MIN_ALPHA) & live[:, :, None], alpha, 0.0)
+        log_t = torch.cumsum(torch.log1p(-alpha), 1)                # inclusive
+        t_excl = torch.exp(log_t - torch.log1p(-alpha))             # exclusive
+        weight = torch.where(t_excl > TRANSMITTANCE_EPS, alpha * t_excl, 0.0)
+        out_c = torch.einsum("tkp,tkc->tpc", weight, colors[safe])
+        return out_c, weight.sum(1), torch.einsum("tkp,tk->tp", weight, depths[safe])
+
+    outs = [
+        checkpoint(chunk_fn, tile_gid[c0:c0 + tile_chunk], tile_origin[c0:c0 + tile_chunk],
+                   means2d, conics, opacities, colors, depths, use_reentrant=False)
+        for c0 in range(0, tile_gid.shape[0], tile_chunk)
+    ]
+    return tuple(torch.cat(o) for o in zip(*outs))
 
 
 def _tiles_to_image(tiles: torch.Tensor, grid, height: int, width: int) -> torch.Tensor:
@@ -36,10 +196,14 @@ def rasterize_projected(
     far: float = 1e10,
     tile_size=16,
     pairs_per_gaussian: int = 8,
+    render_mode: str = "RGB",
     max_pairs_override: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """Binning + compositing of an already-projected Gaussian set. Returns
-    (render [H, W, C], alpha [H, W, 1], info)."""
+    (render, alpha [H, W, 1], info); the render is the colours [H, W, C]
+    (``RGB``), the depth [H, W, 1] (``ED``, ``D``) or both [H, W, C + 1]."""
+    if render_mode not in RENDER_MODES:
+        raise ValueError(f"unknown render_mode: {render_mode}")
     n = proj.means2d.shape[0]
     # every binning/pack/kernel buffer scales with this static budget
     max_pairs = max(int(pairs_per_gaussian) * n, 1 << 12)
@@ -51,11 +215,17 @@ def rasterize_projected(
         bins = bin_pairs(proj, width, height, tile_size=(grid.tsx, grid.tsy),
                          max_pairs=max_pairs, near=near, far=far)
     with record_function("rasterize.composite"):
-        tiles_c, tiles_a, _ = composite_pairs(
+        tiles_c, tiles_a, tiles_d = composite_pairs(
             bins, grid, proj.means2d, proj.conics, proj.opacities, colors, proj.depths
         )
     render = _tiles_to_image(tiles_c, grid, height, width)
     img_a = _tiles_to_image(tiles_a[..., None], grid, height, width)
+    if render_mode != "RGB":
+        # K1's depth column; its gradient goes back through K2's depth row
+        depth = _tiles_to_image(tiles_d[..., None], grid, height, width)
+        if render_mode in ("ED", "RGB+ED"):
+            depth = depth / torch.clamp(img_a, min=1e-10)
+        render = depth if render_mode in ("ED", "D") else torch.cat((render, depth), -1)
     info = {
         "means2d": proj.means2d,
         "radii": proj.radii,
@@ -83,11 +253,13 @@ def rasterize(
     tile_size=16,
     pairs_per_gaussian: int = 8,
     rasterize_mode: str = "classic",
+    render_mode: str = "RGB",
     means2d_offset: torch.Tensor | None = None,
     max_pairs_override: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, dict]:
-    """Render one camera. Returns (render [H, W, C], alpha [H, W, 1],
-    info). ``means2d_offset`` is a zeros-valued [N, 2] hook whose gradient
+    """Render one camera. Returns (render, alpha [H, W, 1], info); the
+    render is [H, W, C], [H, W, 1] or [H, W, C + 1] by ``render_mode``.
+    ``means2d_offset`` is a zeros-valued [N, 2] hook whose gradient
     is the screen-space position gradient densification reads. With
     ``sh_degree`` the colours are SH coefficients, evaluated towards the
     camera as max(SH + 0.5, 0) before compositing (C = 3)."""
@@ -103,5 +275,6 @@ def rasterize(
         colors = torch.clamp(gmath.eval_sh(sh_degree, colors, viewdir) + 0.5, min=0.0)
     return rasterize_projected(
         proj, colors, width, height, near=near, far=far, tile_size=tile_size,
-        pairs_per_gaussian=pairs_per_gaussian, max_pairs_override=max_pairs_override,
+        pairs_per_gaussian=pairs_per_gaussian, render_mode=render_mode,
+        max_pairs_override=max_pairs_override,
     )

@@ -113,6 +113,9 @@ def bin_pairs(
     n = proj.means2d.shape[0]
     dev = proj.means2d.device
 
+    if proj.extents is None or proj.prune_r is None:
+        raise ValueError("bin_pairs bins by the opacity-aware bounds: give the projection's "
+                         "extents and prune_r (ops/projection.project computes them)")
     means2d = proj.means2d.detach()
     depths = proj.depths.detach()
     valid = proj.radii > 0
@@ -221,32 +224,30 @@ _PLAIN_GROUP_ELEMS = 1 << 24  # bounds each [tiles, pairs, pixels] temporary
 
 
 def _tile_groups(seg_start: torch.Tensor, npx: int):
-    """Yield (t0, t1, idx [G, K], live [G, K]) over groups of tiles, each
-    with its tiles' sorted pair indices padded to the group's longest tile."""
+    """Yield (tiles [G], idx [G, K], live [G, K]) over groups of the tiles
+    that hold pairs, taken in order of falling pair count: each group is
+    padded to its first (fullest) tile and holds as many tiles as the
+    temporaries' bound allows. One host sync reads the counts."""
     counts = seg_start[1:] - seg_start[:-1]
-    num_tiles = counts.shape[0]
-    kmax_all = int(counts.max()) if num_tiles else 0
-    if kmax_all == 0:
-        return
-    group = max(1, _PLAIN_GROUP_ELEMS // (kmax_all * npx))
-    for t0 in range(0, num_tiles, group):
-        t1 = min(t0 + group, num_tiles)
-        kmax = int(counts[t0:t1].max())
-        if kmax == 0:
-            continue
+    order = torch.argsort(counts, descending=True, stable=True)
+    sorted_counts = counts[order].tolist()
+    i = 0
+    while i < len(sorted_counts) and sorted_counts[i] > 0:
+        kmax = sorted_counts[i]
+        tiles = order[i:i + max(1, _PLAIN_GROUP_ELEMS // (kmax * npx))]
+        i += tiles.shape[0]
         k = torch.arange(kmax, device=seg_start.device)
-        live = k < counts[t0:t1, None]
+        live = k < counts[tiles, None]
         # padding past a tile's pairs points at some pair in a tile: never
         # past the array's end
-        idx = torch.clamp(seg_start[t0:t1, None] + k, max=seg_start[-1] - 1)
-        yield t0, t1, idx, live
+        idx = torch.clamp(seg_start[tiles, None] + k, max=seg_start[-1] - 1)
+        yield tiles, idx, live
 
 
-def _pixel_centers(grid: TileGrid, t0: int, t1: int, device):
-    tiles = torch.arange(t0, t1, device=device)[:, None]
-    flat = torch.arange(grid.pixels, device=device)[None, :]
-    px = ((tiles % grid.tw) * grid.tsx + flat % grid.tsx).to(torch.float32) + 0.5
-    py = ((tiles // grid.tw) * grid.tsy + flat // grid.tsx).to(torch.float32) + 0.5
+def _pixel_centers(grid: TileGrid, tiles: torch.Tensor):
+    flat = torch.arange(grid.pixels, device=tiles.device)[None, :]
+    px = ((tiles[:, None] % grid.tw) * grid.tsx + flat % grid.tsx).to(torch.float32) + 0.5
+    py = ((tiles[:, None] // grid.tw) * grid.tsy + flat // grid.tsx).to(torch.float32) + 0.5
     return px[:, None, :], py[:, None, :]      # [G, 1, P]
 
 
@@ -275,9 +276,9 @@ def composite_fwd_plain(pairs, seg_start, grid: TileGrid, channels: int):
     out = torch.zeros((num_tiles, channels + 2, npx), device=dev)
     t_final = torch.ones((num_tiles, npx), device=dev)
     n_contrib = torch.zeros((num_tiles, npx), dtype=torch.int32, device=dev)
-    for t0, t1, idx, live in _tile_groups(seg_start, npx):
+    for tiles, idx, live in _tile_groups(seg_start, npx):
         p = pairs[idx]
-        px, py = _pixel_centers(grid, t0, t1, dev)
+        px, py = _pixel_centers(grid, tiles)
         _, _, _, alpha_raw, keep = _alphas(p, live, px, py)
         alpha = torch.where(keep, alpha_raw, 0.0)
         trans = torch.cumprod(1.0 - alpha, dim=1)                  # inclusive
@@ -285,11 +286,11 @@ def composite_fwd_plain(pairs, seg_start, grid: TileGrid, channels: int):
         # the gate precedes the contribution: T before the pair > 1e-4
         gate = (t_excl > TRANSMITTANCE_EPS) & live[..., None]
         w = torch.where(gate, alpha * t_excl, 0.0)
-        out[t0:t1] = torch.einsum("gkc,gkp->gcp", _colmat(p, channels), w)
+        out[tiles] = torch.einsum("gkc,gkp->gcp", _colmat(p, channels), w)
         cnt = gate.sum(1)
         last = trans.gather(1, (cnt - 1).clamp(min=0)[:, None, :])[:, 0]
-        t_final[t0:t1] = torch.where(cnt > 0, last, 1.0)
-        n_contrib[t0:t1] = cnt.to(torch.int32)
+        t_final[tiles] = torch.where(cnt > 0, last, 1.0)
+        n_contrib[tiles] = cnt.to(torch.int32)
     return out, t_final, n_contrib
 
 
@@ -300,20 +301,20 @@ def composite_bwd_plain(pairs, seg_start, grid: TileGrid, channels: int,
     width = HDR + channels
     dev = pairs.device
     d_pairs = torch.zeros((max_pairs, width), device=dev)
-    for t0, t1, idx, live in _tile_groups(seg_start, grid.pixels):
+    for tiles, idx, live in _tile_groups(seg_start, grid.pixels):
         p = pairs[idx]
-        px, py = _pixel_centers(grid, t0, t1, dev)
+        px, py = _pixel_centers(grid, tiles)
         dx, dy, sigma, alpha_raw, keep = _alphas(p, live, px, py)
         alpha = torch.where(keep, alpha_raw, 0.0)
         one_minus = 1.0 - alpha
         # rank gate: pair k is live for a pixel iff k < its contributor count
         k = torch.arange(p.shape[1], device=dev)[None, :, None]
-        lv = k < n_contrib[t0:t1, None, :]
+        lv = k < n_contrib[tiles, None, :]
         # T before pair k = T after the last contributor / prod_{j>=k} (1 - a_j)
         suf_prod = torch.flip(torch.cumprod(torch.flip(torch.where(lv, one_minus, 1.0), [1]), 1), [1])
-        t_excl = t_final[t0:t1, None, :] / suf_prod
+        t_excl = t_final[tiles, None, :] / suf_prod
         w = torch.where(lv, alpha * t_excl, 0.0)
-        g = grad_out[t0:t1]                                         # [G, C+2, P]
+        g = grad_out[tiles]                                         # [G, C+2, P]
         s = torch.einsum("gkc,gcp->gkp", _colmat(p, channels), g)
         ws = w * s
         suffix_after = torch.flip(torch.cumsum(torch.flip(ws, [1]), 1), [1]) - ws
@@ -347,12 +348,12 @@ def _fold_chunks(x: torch.Tensor, kc: int, fill: float, reduce) -> torch.Tensor:
     return reduce(x.reshape(g, nck, kc, p), 2)
 
 
-def _chunk_slots(chunks: Chunks, seg_start, t0: int, t1: int, nck: int):
+def _chunk_slots(chunks: Chunks, seg_start, tiles, nck: int):
     """[G, nck] slot of tile t's j-th chunk, and whether the tile has it."""
-    counts = seg_start[t0 + 1:t1 + 1] - seg_start[t0:t1]
+    counts = seg_start[tiles + 1] - seg_start[tiles]
     j = torch.arange(nck, device=counts.device)
     have = j * chunks.kc < counts[:, None]
-    return chunks.tile_chunk_start[t0:t1, None].long() + j, have
+    return chunks.tile_chunk_start[tiles, None].long() + j, have
 
 
 def chunk_products_plain(pairs, seg_start, grid: TileGrid, chunks: Chunks):
@@ -362,11 +363,11 @@ def chunk_products_plain(pairs, seg_start, grid: TileGrid, chunks: Chunks):
     dev = pairs.device
     prod = torch.zeros((chunks.chunk_tile.shape[0], grid.pixels), device=dev)
     prod[chunks.tile_chunk_start[:-1].long()] = 1.0
-    for t0, t1, idx, live in _tile_groups(seg_start, grid.pixels):
-        px, py = _pixel_centers(grid, t0, t1, dev)
+    for tiles, idx, live in _tile_groups(seg_start, grid.pixels):
+        px, py = _pixel_centers(grid, tiles)
         _, _, _, alpha_raw, keep = _alphas(pairs[idx], live, px, py)
         cp = _fold_chunks(torch.where(keep, 1.0 - alpha_raw, 1.0), chunks.kc, 1.0, torch.prod)
-        slot, have = _chunk_slots(chunks, seg_start, t0, t1, cp.shape[1])
+        slot, have = _chunk_slots(chunks, seg_start, tiles, cp.shape[1])
         prod[slot[have]] = cp[have]
     return prod
 
@@ -379,19 +380,19 @@ def chunk_suffix_plain(pairs, seg_start, grid: TileGrid, channels: int, chunks: 
     count."""
     dev = pairs.device
     suffix = torch.zeros((chunks.chunk_tile.shape[0], grid.pixels), device=dev)
-    for t0, t1, idx, live in _tile_groups(seg_start, grid.pixels):
+    for tiles, idx, live in _tile_groups(seg_start, grid.pixels):
         p = pairs[idx]
-        px, py = _pixel_centers(grid, t0, t1, dev)
+        px, py = _pixel_centers(grid, tiles)
         _, _, _, alpha_raw, keep = _alphas(p, live, px, py)
         alpha = torch.where(keep, alpha_raw, 0.0)
         k = torch.arange(p.shape[1], device=dev)[None, :, None]
-        lv = k < n_contrib[t0:t1, None, :]
+        lv = k < n_contrib[tiles, None, :]
         trans = torch.cumprod(torch.where(lv, 1.0 - alpha, 1.0), 1)
         t_excl = torch.cat((torch.ones_like(trans[:, :1]), trans[:, :-1]), 1)
-        s = torch.einsum("gkc,gcp->gkp", _colmat(p, channels), grad_out[t0:t1])
+        s = torch.einsum("gkc,gcp->gkp", _colmat(p, channels), grad_out[tiles])
         cs = _fold_chunks(torch.where(lv, alpha * t_excl * s, 0.0), chunks.kc, 0.0, torch.sum)
-        slot, have = _chunk_slots(chunks, seg_start, t0, t1, cs.shape[1])
-        have &= slot > chunks.tile_chunk_start[t0:t1, None].long()
+        slot, have = _chunk_slots(chunks, seg_start, tiles, cs.shape[1])
+        have &= slot > chunks.tile_chunk_start[tiles, None].long()
         suffix[slot[have]] = cs[have]
     return suffix
 

@@ -1,15 +1,17 @@
-"""Vanilla 3DGS training recipe: per-group Adam, the SH-degree schedule and
-the densify / cull / opacity-reset schedule with its optimizer surgery.
+"""Vanilla 3DGS / 2DGS training recipe: per-group Adam, the SH-degree
+schedule, the 2DGS regularisers' schedule and the densify / cull /
+opacity-reset schedule with its optimizer surgery.
 
 Counterpart of ``geosplatting_tpu/train/gsplat_trainer.py``
 (``GSplatTrainerConfig`` with the JAX defaults, ``GSplatTrainer``:
-``init_state``, ``train_step``, ``max_sh_degree_at``, ``after_update``).
-The trainer holds the Gaussians as one ``nn.Parameter`` per field, their
-Adam state and the densification statistics ``xys_grad_norm`` and
-``vis_counts``; ``after_update`` replaces the parameters when the Gaussian
-count changes and re-indexes the Adam moments through the ``param_map``
-(``GroupOptimizers.mutate_params``). The 2DGS regularisers
-(``reg_weights_at``) wait for the ``2dgs`` mode (ROADMAP A.8).
+``init_state``, ``train_step``, ``max_sh_degree_at``, ``reg_weights_at``,
+``after_update``). The trainer holds the Gaussians as one ``nn.Parameter``
+per field, their Adam state and the densification statistics
+``xys_grad_norm`` and ``vis_counts``; ``after_update`` replaces the
+parameters when the Gaussian count changes and re-indexes the Adam moments
+through the ``param_map`` (``GroupOptimizers.mutate_params``). In ``2dgs``
+mode the loss adds the normal-consistency and distortion terms at the
+weights ``reg_weights_at`` gives for the step.
 
 Randomness is explicit: the training background and the split's normal
 draws come from the caller's ``torch.Generator`` or are passed in.
@@ -24,7 +26,7 @@ from torch.profiler import record_function
 from ..graphics.cameras import Cameras
 from ..graphics.splats import FIELDS, Splats, cull, densify_and_cull
 from ..models.gsplatter import GSplatter
-from ..ops.ssim import ssim_l1_loss
+from .losses import ssim_l1_loss
 from .optim import GroupOptimizers, OptimizerSpec
 
 
@@ -47,6 +49,11 @@ class GSplatTrainerConfig:
     sh_degree_interval: int = 1000
     stop_split_at: int = 15000
     ssim_lambda: float = 0.2
+    # the 2DGS regularisers, on from their start step in '2dgs' mode only
+    normal_weight: float = 5e-2
+    normal_weight_start: int = 7000
+    distort_weight: float = 1e-2
+    distort_weight_start: int = 3000
 
 
 class GSplatTrainer:
@@ -108,12 +115,18 @@ class GSplatTrainer:
     # ---- the step --------------------------------------------------------------
     def train_step(self, cameras: Cameras, gt_rgba: torch.Tensor, *,
                    max_sh_degree: int | None,
+                   reg_weights: tuple[float, float] = (0.0, 0.0),
                    background: torch.Tensor | None = None,
                    generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
         """One update from a batch of cameras and their [B, H, W, 4] rgba
-        images: SSIM-L1 against the images composited on the background, the
-        densification statistics of every camera, Adam. Returns the metrics
-        as 0-d tensors."""
+        images: SSIM-L1 against the images composited on the background
+        (in ``2dgs`` mode plus ``reg_weights`` = (normal, distortion)
+        weights times the mean over the cameras of 1 - sum(normal x
+        pseudo normal x alpha) and of the distortion), the densification
+        statistics of every camera, Adam. Returns the metrics as 0-d
+        tensors."""
+        is_2dgs = self.model.rasterize_mode == "2dgs"
+        normal_w, distort_w = reg_weights
         if background is None:
             background = self.model.get_background_color(True, generator)
         gt_rgb = torch.clamp(gt_rgba[..., :3] + (1 - gt_rgba[..., 3:4]) * background, 0, 1)
@@ -121,7 +134,7 @@ class GSplatTrainer:
         n = splats.num_gaussians
         for p in self.params.values():
             p.grad = None
-        offsets, rgbs, radii, fills = [], [], [], []
+        offsets, rgbs, radii, fills, tile_fills, n_losses, d_losses = [], [], [], [], [], [], []
         with record_function("gsplat.forward"):
             for i in range(len(cameras)):
                 off = torch.zeros((n, 2), device=splats.means.device, requires_grad=True)
@@ -132,8 +145,19 @@ class GSplatTrainer:
                 rgbs.append(rgb)
                 radii.append(info["radii"])
                 fills.append(info["total_pairs"] / max(info["max_pairs"], 1))
+                if is_2dgs:
+                    # normal consistency and distortion (gsplat_trainer.py:135-139)
+                    n_losses.append((1.0 - (info["normal"] * (info["pseudo_normal"]
+                                                              * info["alpha_map"])).sum(-1)
+                                     ).mean())
+                    d_losses.append(info["distort"].mean())
+                    tile_fills.append(info["max_tile_pairs"] / info["tile_capacity"])
             rgbs = torch.stack(rgbs)
             loss = ssim_l1_loss(rgbs, gt_rgb, ssim_lambda=self.config.ssim_lambda)
+            if is_2dgs:
+                normal_loss = torch.stack(n_losses).mean()
+                distort_loss = torch.stack(d_losses).mean()
+                loss = loss + normal_w * normal_loss + distort_w * distort_loss
         with record_function("gsplat.backward"):
             loss.backward()
         with torch.no_grad(), record_function("gsplat.update"):
@@ -149,7 +173,7 @@ class GSplatTrainer:
                             for k in self.specs)
             self.optimizers.step()
             mse = torch.mean((rgbs - gt_rgb) ** 2)
-        return {
+        metrics = {
             "loss": loss.detach(),
             "psnr": -10.0 * torch.log10(torch.clamp(mse, min=1e-12)),
             "nonfinite_grads": torch.tensor(nonfinite),
@@ -157,10 +181,22 @@ class GSplatTrainer:
             "pair_fill": torch.stack(fills).max(),
             "num_gaussians": torch.tensor(n),
         }
+        if is_2dgs:
+            metrics.update(
+                normal_loss=normal_loss.detach(), distort_loss=distort_loss.detach(),
+                # > 1 means the tile capacity cut a tile's farthest Gaussians
+                tile_fill=torch.stack(tile_fills).max())
+        return metrics
 
     # ---- host-side schedule ----------------------------------------------------
     def max_sh_degree_at(self, step: int) -> int:
         return min(step // self.config.sh_degree_interval, self.model.sh_degree)
+
+    def reg_weights_at(self, step: int) -> tuple[float, float]:
+        """(normal, distortion) weights of the 2DGS regularisers at a step."""
+        c = self.config
+        return (c.normal_weight if step >= c.normal_weight_start else 0.0,
+                c.distort_weight if step >= c.distort_weight_start else 0.0)
 
     @torch.no_grad()
     def _apply_map(self, new: Splats, param_map: torch.Tensor) -> None:

@@ -143,10 +143,15 @@ def test_render_rgba_matches_jax(mode):
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="rasterize_2dgs"):
-        GSplatter(rasterize_mode="2dgs", device="cpu")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        GSplatter(device="cpu").render_depth(None, None)
+    """Every mode of the JAX model builds (2dgs too), render_depth gives
+    [H, W, 2] in each, and an unknown mode still raises."""
+    st = splats_from_numpy(scene())
+    cam = cameras_from_jax(jcams()[0])
+    for mode in ("classic", "antialiased", "2dgs"):
+        depth = GSplatter(rasterize_mode=mode, device="cpu").render_depth(st, cam)
+        assert depth.shape == (H, W, 2) and bool(torch.isfinite(depth).all()), mode
+    with pytest.raises(ValueError, match="rasterize_mode"):
+        GSplatter(rasterize_mode="3dgs", device="cpu")
 
 
 def adam_moments(p: dict, seed: int, mu_scale: float = 1e-3) -> dict:

@@ -17,7 +17,8 @@ import torch
 
 from chip_smoke import write_sphere_scene
 from geosplatting_tpu_torch.engine.train_task import (
-    PAIRS_PER_GAUSSIAN, GeoSplatTrainTask, GSplatTrainTask,
+    PAIRS_PER_GAUSSIAN, PAIRS_PER_GAUSSIAN_2DGS, TILE_CAPACITY_2DGS, GeoSplatTrainTask,
+    GSplatTrainTask,
 )
 from geosplatting_tpu_torch.engine.stage_io import load_export
 from geosplatting_tpu_torch.scripts import train_gsplat
@@ -103,14 +104,36 @@ def test_cli_presets_match_jax():
             continue
         for f in shared:
             assert getattr(preset, f) == getattr(jcli.TASKS[name], f), (name, f)
-        assert preset.pairs_per_gaussian == PAIRS_PER_GAUSSIAN
+        is_2dgs = preset.rasterize_mode == "2dgs"
+        assert preset.pairs_per_gaussian == (PAIRS_PER_GAUSSIAN_2DGS if is_2dgs
+                                             else PAIRS_PER_GAUSSIAN)
+        assert preset.tile_capacity == TILE_CAPACITY_2DGS
 
 
-def test_2dgs_preset_raises(scene):
+train_step = gsplat_trainer.GSplatTrainer.train_step
+
+
+def test_2dgs_preset_raises(scene, tmp_path, monkeypatch):
+    """The blender-2dgs preset runs: one CPU step with both regularisers on
+    from step 0, a finite loss, fills within budget, the export."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(gsplat_trainer, "GSplatTrainerConfig", functools.partial(
+        gsplat_trainer.GSplatTrainerConfig, normal_weight_start=0, distort_weight_start=0))
     preset = dataclasses.replace(train_gsplat.TASKS["blender-2dgs"], dataset_path=scene,
-                                 device="cpu", scale_factor=SF, num_init_gaussians=100)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        preset.run()
+                                 device="cpu", scale_factor=SF, num_init_gaussians=100,
+                                 num_steps=1, num_val_images=1)
+    seen = []
+    monkeypatch.setattr(gsplat_trainer.GSplatTrainer, "train_step", lambda self, *a, **kw: (
+        seen.append(kw["reg_weights"]) or train_step(self, *a, **kw)))
+    out = preset.run()
+    assert seen == [(5e-2, 1e-2)]
+    assert preset.tile_capacity == TILE_CAPACITY_2DGS and preset.rasterize_mode == "2dgs"
+    assert np.isfinite(out["loss"]) and np.isfinite(out["val_psnr"])
+    assert np.isfinite(out["normal_loss"]) and out["normal_loss"] > 0
+    assert np.isfinite(out["distort_loss"]) and out["nonfinite_grads"] == 0
+    assert 0 < out["pair_fill"] <= 1 and 0 < out["tile_fill"] <= 1
+    exported = load_export(Path(out["output_dir"]))
+    assert sorted(exported) == sorted(FIELDS) and exported["means"].shape == (100, 3)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -129,6 +152,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
     ("face_fill", "render-face budget EXCEEDED"),
     ("mesh_tile_fill", "mesh tile capacity EXCEEDED"),
     ("mesh_pair_fill", "mesh pair budget EXCEEDED"),
+    ("tile_fill", "tile capacity EXCEEDED"),
 ])
 def test_loop_warns_on_every_fill(scene, tmp_path, monkeypatch, capsys, fill, words):
     """A fill past 1 in a step's metrics is logged and printed, whichever

@@ -623,3 +623,53 @@ def test_prior_step_card_vs_cpu(cuda_device, field):
     for k, want in g_cpu.items():
         if np.abs(want).max() > 0:
             close_card_cpu(g_gpu[k], want)
+
+
+# --- 2DGS and the depth render modes on the card -----------------------------------
+
+
+def test_2dgs_step_card_vs_cpu(cuda_device):
+    """One 2DGS train step with both regularisers on the card and on the
+    CPU from the same state (chip_smoke.check_2dgs_card_vs_cpu: the metrics
+    within 1e-3, every gradient by the close_card_cpu rule)."""
+    from chip_smoke import check_2dgs_card_vs_cpu
+
+    check_2dgs_card_vs_cpu(cuda_device, 0)
+
+
+def test_depth_render_kernels_match_plain(cuda_device, monkeypatch):
+    """A differentiated ED render on the card: K1, K2 and K3 launch once
+    each, K2's gradient carries a non-zero depth row, each K1 / K2 pass
+    agrees with its plain version at those inputs, and the gradients agree
+    with the CPU path's."""
+    means, quats, scales, opacities, colors, vm, K = scene("cpu", num=300)
+    w = torch.rand((HEIGHT, WIDTH, 1), generator=torch.Generator().manual_seed(4))
+    recorded = []
+    composite_bwd = rp.composite_bwd
+    monkeypatch.setattr(rp, "composite_bwd",
+                        lambda *a: recorded.append(a) or composite_bwd(*a))
+    grads = []
+    for dev in ("cpu", cuda_device):
+        leaves = [x.to(dev).clone().requires_grad_() for x in (means, scales, opacities)]
+        _kernels.reset_launches()
+        r, a, _ = rasterize(leaves[0], quats.to(dev), leaves[1], leaves[2], colors.to(dev),
+                            vm.to(dev), K.to(dev), WIDTH, HEIGHT, render_mode="ED")
+        (r * w.to(dev) * (a > 0.5)).sum().backward()
+        grads.append([n(x.grad) for x in leaves])
+    torch.cuda.synchronize()
+    assert all(_kernels.launches[k] == 1 for k in _kernels.KERNELS)
+    pairs, seg_start, grid, channels, g = recorded[-1][:5]
+    assert g.is_cuda and float(g[:, channels].abs().max()) > 0
+    chunks = rp.chunk_list(seg_start, pairs.shape[0])
+    prod = rp.chunk_products(pairs, seg_start, grid, channels, chunks)
+    out, tf, nc = rp.composite_fwd(pairs, seg_start, grid, channels, chunks, prod)
+    np.testing.assert_allclose(n(out), n(rp.composite_fwd_plain(pairs, seg_start, grid,
+                                                                channels)[0]), atol=1e-3)
+    suffix = rp.chunk_suffix(pairs, seg_start, grid, channels, chunks, prod, g, nc)
+    d = rp.composite_bwd(pairs, seg_start, grid, channels, g, tf, nc, pairs.shape[0], chunks,
+                         prod, suffix)
+    d_p = rp.composite_bwd_plain(pairs, seg_start, grid, channels, g, tf, nc, pairs.shape[0])
+    assert float(d_p[:, 6].abs().max()) > 0          # the depth column's gradient
+    np.testing.assert_allclose(n(d), n(d_p), atol=2e-3 * float(d_p.abs().max()), rtol=2e-3)
+    for gc, gg in zip(*grads):
+        close_card_cpu(gg, gc)
