@@ -133,6 +133,34 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
    on the card against the CPU. Then every kernel pass is held against its
    plain version at (b)'s inputs, and its row of the kernels line gains a
    "depth" entry measured there.
+12. captures: the capture layouts, each scene written to a temporary
+   directory at its real layout's image size. (a) A COLMAP scene
+   (sparse/0/*.bin, one PINHOLE camera at 1297x840, mip-NeRF 360 garden's
+   images_4 size: 24 orbit views of the analytic sphere, 10k points):
+   GeoSplatPriorTrainTask at the unbounded preset (batch 4, scene scale
+   2.0) through the CLI's task, its prior phase 10 (a)'s 300 x 280 UV
+   sphere as PLY (1,008,000 Gaussians): 2 steps with checkpoints,
+   validation and the export, a resume to 3, the export held against the
+   step-3 checkpoint; median s/step, peak memory, pairs and the fullest
+   tile of each camera. (b) A Stanford-ORB scene (blender_LDR/sphere, 16 +
+   2 views of 2048x2048 PNGs with masks, the ground-truth mesh): 2
+   GeoSplatTrainTask steps at the product phase's widths at the parser's
+   1024x1024 and a validation. (c) A masked-IDR (DTU) scene (1600x1200,
+   cameras_large.npz, the principal point off the centre) read at 0.4: the
+   same, and each validation render's silhouette centroid within 1 px of
+   the sphere's centre projected with the camera's own fx, fy, cx, cy.
+   Gates on every step of (a)-(c): loss finite, no non-finite gradient,
+   pair_fill <= 1, K1, K2 and K3 launched once per camera. (d)
+   MeshPBRDataparser at 800 on a UV sphere with vertex colours under an
+   HDR sky written as .hdr (8 / 2 / 2 views): seconds a view, the mesh
+   raster's fills <= 1 on every view, every image finite with some alpha,
+   one view on the card against the CPU. (e) dpsr_solve and psr_to_mesh at
+   128^3 from 100k oriented points of a sphere, tsdf_fusion at 128^3 of
+   (d)'s depth renders, each mesh's chamfer distance to its sphere within a
+   stated bound, dpsr_solve card vs CPU at 64^3. Then every kernel pass is
+   held against its plain version at (a)'s last camera (edge tiles 1 px
+   wide and 8 px tall), and its row of the kernels line gains a "captures"
+   entry measured there.
 The last three lines are the card's name and power limit, the kernels JSON
 line and the result JSON line; the line before them gives each phase's
 seconds. Without a CUDA device it exits non-zero before printing any result.
@@ -1655,8 +1683,6 @@ def prior_task(device, seed, kernels, scene: Path, tmp: Path) -> dict:
     import numpy as np
     import torch
 
-    from geosplatting_tpu_torch.convert import params_to_numpy
-    from geosplatting_tpu_torch.engine.stage_io import load_export
     from geosplatting_tpu_torch.engine.train_task import GeoSplatPriorTrainTask
     from geosplatting_tpu_torch.graphics.mesh_io import load_mesh, save_mesh
     from geosplatting_tpu_torch.scripts import train_geosplat_prior as cli
@@ -1688,8 +1714,42 @@ def prior_task(device, seed, kernels, scene: Path, tmp: Path) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = {k: kernels.launches[k] for k in kernels.KERNELS}
     log = (run_dir / "log.txt").read_text()
+    export = prior_export_check(run_dir, base, c["task_resume_to"])
+    per_step = [{k: float(m[k]) for k in ("loss", "reg", "nonfinite_grads", "pair_fill",
+                                           "num_gaussians")} for m in steps.outputs]
+    summary = {
+        "preset": {k: getattr(preset, k) for k in ("num_steps", "batch_size", "scene_scale",
+                                                   "tile_capacity", "num_samples_x",
+                                                   "backend")},
+        "mesh": {"faces": len(base["indices"]), "vertices": len(base["vertices"]),
+                 "gaussians": 6 * len(base["indices"])},
+        "steps": per_step, "step_seconds": steps.seconds, "val_render_seconds": val.seconds,
+        "val_psnr": [r["val_psnr"] for r in runs], "peak_memory_gib": peak,
+        **export, "launches": launches, "resumed": f"resumed from step {c['task_steps']}" in log,
+        "log_tail": log.splitlines()[-3:],
+    }
+    if not (all(math.isfinite(m["loss"]) and math.isfinite(m["reg"])
+                and m["nonfinite_grads"] == 0 and m["pair_fill"] <= 1 for m in per_step)
+            and len(per_step) == c["task_resume_to"] and len(val.seconds) == 2
+            and all(math.isfinite(v) for v in summary["val_psnr"])
+            and summary["resumed"] and f"step {c['task_resume_to']}:" in log
+            and export["export_ok"] and all(launches[k] > 0 for k in kernels.KERNELS)):
+        raise AssertionError(f"the prior task failed a check: {summary}")
+    return summary
+
+
+def prior_export_check(run_dir: Path, base: dict, step: int) -> dict:
+    """A prior run's export against its step-``step`` checkpoint key by key
+    (the prior mesh ``base`` plus the offsets), every per-Gaussian row
+    finite, ``sdf`` and ``mc_face_mask`` None."""
+    import numpy as np
+    import torch
+
+    from geosplatting_tpu_torch.convert import params_to_numpy
+    from geosplatting_tpu_torch.engine.stage_io import load_export
+
     exported = load_export(run_dir)
-    ckpt = torch.load(run_dir / "ckpts" / f"{c['task_resume_to']}.pt", map_location="cpu")
+    ckpt = torch.load(run_dir / "ckpts" / f"{step}.pt", map_location="cpu")
     params = params_to_numpy(ckpt["model"])
     want = {"latlng": params["latlng"], "exposure": params["exposure"],
             "ks_enc/planes": params["field"]["planes"],
@@ -1709,30 +1769,9 @@ def prior_task(device, seed, kernels, scene: Path, tmp: Path) -> dict:
                     "mc_positions")
     rows_ok = all(exported[k].shape[0] == n_gauss and np.isfinite(exported[k]).all()
                   for k in per_gaussian)
-    per_step = [{k: float(m[k]) for k in ("loss", "reg", "nonfinite_grads", "pair_fill",
-                                           "num_gaussians")} for m in steps.outputs]
-    summary = {
-        "preset": {k: getattr(preset, k) for k in ("num_steps", "batch_size", "scene_scale",
-                                                   "tile_capacity", "num_samples_x",
-                                                   "backend")},
-        "mesh": {"faces": len(base["indices"]), "vertices": len(base["vertices"]),
-                 "gaussians": n_gauss},
-        "steps": per_step, "step_seconds": steps.seconds, "val_render_seconds": val.seconds,
-        "val_psnr": [r["val_psnr"] for r in runs], "peak_memory_gib": peak,
-        "export_mismatched": mismatched, "export_rows_ok": rows_ok,
-        "export_sdf_none": exported["sdf"] is None and exported["mc_face_mask"] is None,
-        "launches": launches, "resumed": f"resumed from step {c['task_steps']}" in log,
-        "log_tail": log.splitlines()[-3:],
-    }
-    if not (all(math.isfinite(m["loss"]) and math.isfinite(m["reg"])
-                and m["nonfinite_grads"] == 0 and m["pair_fill"] <= 1 for m in per_step)
-            and len(per_step) == c["task_resume_to"] and len(val.seconds) == 2
-            and all(math.isfinite(v) for v in summary["val_psnr"])
-            and summary["resumed"] and f"step {c['task_resume_to']}:" in log
-            and not mismatched and rows_ok and summary["export_sdf_none"]
-            and all(launches[k] > 0 for k in kernels.KERNELS)):
-        raise AssertionError(f"the prior task failed a check: {summary}")
-    return summary
+    sdf_none = exported["sdf"] is None and exported["mc_face_mask"] is None
+    return {"export_mismatched": mismatched, "export_rows_ok": rows_ok,
+            "export_sdf_none": sdf_none, "export_ok": not mismatched and rows_ok and sdf_none}
 
 
 # phase 11: 2DGS on bench.py's 3DGS scene at the gsplat phase's widths, the
@@ -2025,6 +2064,577 @@ def check_2dgs_card_vs_cpu(device, seed) -> dict:
     return result
 
 
+# phase 12: the capture layouts, each written here at its real layout's
+# image size: mip-NeRF 360's garden at images_4 (COLMAP, 1297 x 840),
+# Stanford-ORB's blender_LDR (2048 x 2048, read at half size), DTU's masked
+# IDR (1600 x 1200, read at 0.4) with an off-centre principal point, and the
+# MeshPBR layout at 800. Stanford-ORB's pairs budget is the product phase's
+# 1.4M scaled by its pixels, (1024 / 800)^2.
+CAPTURES = dict(
+    colmap_wh=(1297, 840), colmap_views=24, colmap_points=10_000, colmap_focal=1100.0,
+    colmap_radius=2.2, colmap_elevation=20.0, prior_steps=2, prior_resume_to=3,
+    orb_views={"train": 16, "test": 2}, orb_pairs_budget=2_400_000,
+    dtu_wh=(1600, 1200), dtu_views=10, dtu_k=(2892.0, 2892.0, 880.0, 560.0),
+    stage1=dict(num_steps=2, batch_size=8, resolution=SLICE["grid"], light_resolution=512,
+                scene_scale=0.8, sdf_sphere_init=PRODUCT["sdf_sphere_init"]),
+    centroid_px=1.0,
+    pbr_rows=200, pbr_cols=192, pbr_views=(8, 2, 2), pbr_resolution=800,
+    card_vs_cpu_px_share=0.01, geometry_points=100_000, geometry_resolution=128,
+    check_resolution=64, dpsr_chamfer=0.1, tsdf_chamfer=0.025,
+)
+
+
+class Launches(Timed):
+    """``Timed``, and each call's kernel launches in ``launches`` (the
+    counts are reset as each call starts)."""
+
+    def __init__(self, owner, name, kernels):
+        super().__init__(owner, name)
+        self.kernels, self.launches = kernels, []
+
+    def timed(self, fn):
+        inner = super().timed(fn)
+
+        def wrapped(*args, **kw):
+            self.kernels.reset_launches()
+            out = inner(*args, **kw)
+            self.launches.append({k: self.kernels.launches[k] for k in self.kernels.KERNELS})
+            return out
+
+        return wrapped
+
+    def totals(self) -> dict:
+        return {k: sum(c[k] for c in self.launches) for k in self.kernels.KERNELS}
+
+
+def _rot_to_qvec(r):
+    """A rotation matrix's unit quaternion (w, x, y, z), w >= 0."""
+    import numpy as np
+
+    w = math.sqrt(max(0.0, 1.0 + r[0, 0] + r[1, 1] + r[2, 2])) / 2
+    x = math.copysign(math.sqrt(max(0.0, 1.0 + r[0, 0] - r[1, 1] - r[2, 2])) / 2, r[2, 1] - r[1, 2])
+    y = math.copysign(math.sqrt(max(0.0, 1.0 - r[0, 0] + r[1, 1] - r[2, 2])) / 2, r[0, 2] - r[2, 0])
+    z = math.copysign(math.sqrt(max(0.0, 1.0 - r[0, 0] - r[1, 1] + r[2, 2])) / 2, r[1, 0] - r[0, 1])
+    q = np.array([w, x, y, z])
+    return q / np.linalg.norm(q)
+
+
+def write_colmap_scene(root: Path, device, seed: int) -> None:
+    """A COLMAP scene of the analytic sphere (sphere_gt) under root:
+    sparse/0/{cameras,images,points3D}.bin with one PINHOLE camera at
+    1297 x 840 (the centred principal point and one focal, what the parser
+    keeps), CAPTURES' views on an orbit as images/frame_<i>.png (RGB, the
+    sphere on white), and points on the sphere."""
+    import dataclasses
+    import struct
+
+    import numpy as np
+    import torch
+
+    from geosplatting_tpu_torch.data.io import dump_float32_image
+    from geosplatting_tpu_torch.graphics.cameras import Cameras
+
+    c = CAPTURES
+    w, h = c["colmap_wh"]
+    n = c["colmap_views"]
+    cams = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=c["colmap_radius"],
+                              elevation_degrees=c["colmap_elevation"], num_samples=n,
+                              width=w, height=h, device=device)
+    f = torch.full((n,), c["colmap_focal"], device=device)
+    cams = dataclasses.replace(cams, fx=f, fy=f, cx=torch.full_like(f, w / 2.0),
+                               cy=torch.full_like(f, h / 2.0))
+    sparse = root / "sparse" / "0"
+    sparse.mkdir(parents=True)
+    with open(sparse / "cameras.bin", "wb") as fh:
+        fh.write(struct.pack("<Q", 1))
+        fh.write(struct.pack("<iiQQ", 1, 1, w, h))
+        fh.write(struct.pack("<4d", c["colmap_focal"], c["colmap_focal"], w / 2.0, h / 2.0))
+    c2w = cams.c2w.double().cpu().numpy()
+    with open(sparse / "images.bin", "wb") as fh:
+        fh.write(struct.pack("<Q", n))
+        for i in range(n):
+            r_cv = c2w[i, :, :3] * np.array([1.0, -1.0, -1.0])   # to COLMAP's camera
+            r = r_cv.T                                           # world to camera
+            fh.write(struct.pack("<I", i + 1))
+            fh.write(struct.pack("<4d", *_rot_to_qvec(r)))
+            fh.write(struct.pack("<3d", *(-r @ c2w[i, :, 3])))
+            fh.write(struct.pack("<I", 1))
+            fh.write(f"frame_{i:03d}.png".encode() + b"\x00")
+            fh.write(struct.pack("<Q", 0))
+    g = torch.Generator().manual_seed(seed + 12)
+    d = torch.randn((c["colmap_points"], 3), generator=g, dtype=torch.float64)
+    xyz = (0.5 * d / d.norm(dim=-1, keepdim=True)).numpy()
+    rgb = (np.clip(xyz + 0.5, 0, 1) * 255).astype(np.uint8)
+    with open(sparse / "points3D.bin", "wb") as fh:
+        fh.write(struct.pack("<Q", len(xyz)))
+        for i in range(len(xyz)):
+            fh.write(struct.pack("<Q3d3BdQ", i, *xyz[i], *rgb[i], 0.5, 0))
+    for i in range(n):
+        gt = sphere_gt(cams[i:i + 1])[0].cpu().numpy()
+        # a capture has no alpha: the sphere on white, the background the
+        # task's validation composites its renders on
+        dump_float32_image(root / "images" / f"frame_{i:03d}.png",
+                           gt[..., :3] + 1.0 - gt[..., 3:])
+
+
+def write_orb_scene(root: Path, device) -> Path:
+    """A Stanford-ORB scene of the analytic sphere: blender_LDR/sphere with
+    2048 x 2048 RGB frames and their masks (rendered at the parser's size
+    and upsampled by pixel replication), transforms as the product scene's
+    (views on a circle, translations 3/2 of the parser's), and
+    ground_truth/sphere/mesh_blender/mesh.obj. Returns the scene."""
+    import numpy as np
+
+    from geosplatting_tpu_torch.data.dataparsers.real_captures import StanfordORBDataparser
+    from geosplatting_tpu_torch.data.dataset import cameras_of
+    from geosplatting_tpu_torch.data.io import dump_float32_image
+    from geosplatting_tpu_torch.graphics.mesh_io import save_mesh
+
+    scene = root / "blender_LDR" / "sphere"
+    for split, num in CAPTURES["orb_views"].items():
+        (scene / split).mkdir(parents=True)
+        (scene / f"{split}_mask").mkdir()
+        frames = []
+        for i in range(num):
+            th = 2 * np.pi * (i + (0.3 if split != "train" else 0)) / num
+            eye = 3.0 * np.array([np.cos(th) * 0.94, np.sin(th) * 0.94, 0.35])
+            fwd = -eye / np.linalg.norm(eye)
+            right = np.cross(fwd, [0.0, 0.0, 1.0])
+            right /= np.linalg.norm(right)
+            m = np.eye(4)
+            m[:3, 0], m[:3, 1], m[:3, 2], m[:3, 3] = right, np.cross(right, fwd), -fwd, eye
+            frames.append({"file_path": f"./{split}/r_{i}", "transform_matrix": m.tolist()})
+        meta = json.dumps({"camera_angle_x": 0.8, "frames": frames})
+        (scene / f"transforms_{split}.json").write_text(meta)
+        if split == "test":
+            (scene / "transforms_novel.json").write_text(meta)
+    gt_dir = root / "ground_truth" / "sphere" / "mesh_blender"
+    gt_dir.mkdir(parents=True)
+    sphere = uv_sphere(60, 64, 0.5 * 1.5)
+    save_mesh(gt_dir / "mesh.obj", sphere.vertices.numpy(), sphere.indices.numpy())
+    parser = StanfordORBDataparser()
+    rep = round(1 / parser.scale_factor)
+    for split in CAPTURES["orb_views"]:
+        cams = cameras_of(parser.parse(scene, split), None, device)
+        for i in range(len(cams)):
+            gt = sphere_gt(cams[i:i + 1])[0]
+            big = gt.repeat_interleave(rep, 0).repeat_interleave(rep, 1).cpu().numpy()
+            dump_float32_image(scene / split / f"r_{i}.png", big[..., :3])
+            dump_float32_image(scene / f"{split}_mask" / f"r_{i}.png", big[..., 3:])
+    return scene
+
+
+def write_dtu_scene(root: Path, device) -> None:
+    """A masked-IDR (DTU) scene of the analytic sphere under root: views on
+    a partial dome of radius 3 looking at the origin (the parser's fitted
+    sphere), cameras_large.npz of the projections K [R | t] with CAPTURES'
+    off-centre K, 1600 x 1200 RGB frames image/<i:06d>.png and masks
+    mask/<i:03d>.png."""
+    import numpy as np
+    import torch
+
+    from geosplatting_tpu_torch.data.io import dump_float32_image
+    from geosplatting_tpu_torch.graphics.cameras import Cameras
+
+    c = CAPTURES
+    w, h = c["dtu_wh"]
+    fx, fy, cx, cy = c["dtu_k"]
+    k = np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
+    (root / "image").mkdir(parents=True)
+    (root / "mask").mkdir()
+    n = c["dtu_views"]
+    mats, c2ws = {}, []
+    for i in range(n):
+        az = math.radians(-60.0 + 120.0 * i / (n - 1))
+        el = math.radians(30.0 + 10.0 * (i % 2))
+        eye = 3.0 * np.array([math.cos(el) * math.cos(az), math.cos(el) * math.sin(az),
+                              math.sin(el)])
+        fwd = -eye / np.linalg.norm(eye)
+        right = np.cross(fwd, [0.0, 0.0, 1.0])
+        right /= np.linalg.norm(right)
+        down = np.cross(fwd, right)
+        r = np.stack((right, down, fwd))        # world to the OpenCV camera
+        p = np.eye(4)
+        p[:3, :3] = k @ r
+        p[:3, 3] = k @ (-r @ eye)
+        mats[f"world_mat_{i}"] = p
+        mats[f"scale_mat_{i}"] = np.eye(4)
+        c2ws.append(np.stack((right, -down, -fwd, eye), -1))
+    np.savez(root / "cameras_large.npz", **mats)
+
+    def full(v):
+        return torch.full((n,), v, device=device)
+
+    cams = Cameras(c2w=torch.as_tensor(np.stack(c2ws), dtype=torch.float32, device=device),
+                   fx=full(fx), fy=full(fy), cx=full(cx), cy=full(cy), width=w, height=h)
+    for i in range(n):
+        gt = sphere_gt(cams[i:i + 1])[0].cpu().numpy()
+        dump_float32_image(root / "image" / f"{i:06d}.png", gt[..., :3])
+        dump_float32_image(root / "mask" / f"{i:03d}.png", gt[..., 3:])
+
+
+def captures_prior(device, seed, kernels, tmp: Path) -> tuple[dict, dict]:
+    """(a) of phase 12: the prior's unbounded preset (batch 4, scene scale
+    2.0) through the CLI's task on the COLMAP scene, its prior the 300 x 280
+    UV sphere of phase 10 (a) as PLY: 2 steps with checkpoints, validation
+    and the export, a resume to 3, the export held against the step-3
+    checkpoint. Gates on every step; returns (summary, the last camera's
+    kernel inputs)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from geosplatting_tpu_torch.data.dataset import recognize_dataparser
+    from geosplatting_tpu_torch.engine.train_task import GeoSplatPriorTrainTask
+    from geosplatting_tpu_torch.graphics.mesh_io import load_mesh, save_mesh
+    from geosplatting_tpu_torch.models.geosplat_prior import GeoSplatterPrior
+    from geosplatting_tpu_torch.ops import rasterize_pairs as rp
+    from geosplatting_tpu_torch.ops import segment_rows as sr
+    from geosplatting_tpu_torch.scripts import train_geosplat_prior as cli
+    from geosplatting_tpu_torch.utils.config import load_dataclass
+
+    c = CAPTURES
+    t0 = time.perf_counter()
+    scene = tmp / "garden"
+    write_colmap_scene(scene, device, seed)
+    mesh = uv_sphere(PRIOR["rows"], PRIOR["cols"], PRIOR["radius"])
+    mesh_path = tmp / "prior_garden.ply"
+    save_mesh(mesh_path, mesh.vertices.numpy(), mesh.indices.numpy().astype(np.int32))
+    base = load_mesh(mesh_path)
+    scene_s = time.perf_counter() - t0
+    layout = type(recognize_dataparser(scene)).__name__
+    preset = cli.TASKS["unbounded"]
+    task = dataclasses.replace(preset, dataset_path=scene, mesh_path=mesh_path,
+                               experiment_name="prior-unbounded", seed=seed,
+                               num_steps=c["prior_steps"], num_steps_per_save=1,
+                               num_steps_per_val=c["prior_steps"], num_val_images=2,
+                               device=str(device))
+    fullest = []
+
+    def fullest_tile(args):
+        seg_start = args[1]
+        fullest.append(int((seg_start[1:] - seg_start[:-1]).max()))
+        return True
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    with Launches(GeoSplatPriorTrainTask, "step_fn", kernels) as steps, \
+            Timed(GeoSplatPriorTrainTask, "val_render") as val, \
+            Timed(GeoSplatterPrior, "render") as renders, \
+            Recorder(rp, "composite_bwd", fullest_tile) as bwd, \
+            Recorder(sr, "cumsum_rows") as k3:
+        out = task.run()
+        run_dir = Path(out["output_dir"]).resolve()
+        runs.append(out)
+        again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
+                                    num_steps=c["prior_resume_to"])
+        runs.append(again.run(resume_dir=run_dir))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log = (run_dir / "log.txt").read_text()
+    export = prior_export_check(run_dir, base, c["prior_resume_to"])
+    b = preset.batch_size
+    per_step = [{k: float(m[k]) for k in ("loss", "reg", "nonfinite_grads", "pair_fill",
+                                           "num_gaussians")} for m in steps.outputs]
+    pairs = [int(o[2]["total_pairs"]) for o in renders.outputs if o[0].shape[0] == 1]
+    n_gauss = 6 * len(base["indices"])
+    summary = {
+        "layout": layout, "scene_seconds": scene_s,
+        "preset": {k: getattr(preset, k) for k in ("batch_size", "scene_scale",
+                                                   "num_samples_x", "num_steps")},
+        "image_wh": list(c["colmap_wh"]), "gaussians": n_gauss,
+        "steps": per_step, "step_seconds": steps.seconds,
+        "median_step_s": sorted(steps.seconds)[len(steps.seconds) // 2],
+        "val_render_seconds": val.seconds, "val_psnr": [r["val_psnr"] for r in runs],
+        "peak_memory_gib": peak, "pairs_per_camera": pairs,
+        "pairs_per_gaussian": max(pairs) / n_gauss, "fullest_tile_per_camera": fullest,
+        **export, "launches_per_step": steps.launches, "launches": steps.totals(),
+        "resumed": f"resumed from step {c['prior_steps']}" in log,
+    }
+    if not (layout == "ColmapDataparser"
+            and all(math.isfinite(m["loss"]) and math.isfinite(m["reg"])
+                    and m["nonfinite_grads"] == 0 and m["pair_fill"] <= 1 for m in per_step)
+            and all(all(n == b for n in counts.values()) for counts in steps.launches)
+            and len(per_step) == c["prior_resume_to"] and len(pairs) == b * len(per_step)
+            and all(math.isfinite(v) for v in summary["val_psnr"]) and summary["resumed"]
+            and export["export_ok"] and bwd.args is not None and k3.args is not None):
+        raise AssertionError(f"the COLMAP prior run failed a check: {summary}")
+    return summary, {"bwd": bwd.args, "k3": k3.args}
+
+
+def captures_stage1(device, seed, kernels, scene: Path, name: str, pairs_budget: int
+                    ) -> tuple[dict, list]:
+    """(b) and (c) of phase 12: GeoSplatTrainTask at the product phase's
+    widths on a capture scene, 2 steps and a validation. Gates on every
+    step; returns (summary, the validation's renders)."""
+    import torch
+
+    from geosplatting_tpu_torch.data.dataset import recognize_dataparser
+    from geosplatting_tpu_torch.engine.train_task import GeoSplatTrainTask
+
+    c = CAPTURES["stage1"]
+    layout = type(recognize_dataparser(scene)).__name__
+    task = GeoSplatTrainTask(
+        dataset_path=scene, experiment_name=f"captures-{name}", seed=seed,
+        num_steps_per_save=c["num_steps"], num_steps_per_val=c["num_steps"], num_val_images=2,
+        pairs_budget=pairs_budget, device=str(device), **c)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with Launches(GeoSplatTrainTask, "step_fn", kernels) as steps, \
+            Timed(GeoSplatTrainTask, "val_render") as val:
+        out = task.run()
+    run_s = time.perf_counter() - t0
+    per_step = [{k: float(m[k]) for k in ("loss", "reg", "splat_psnr", "nonfinite_grads",
+                                           "pair_fill", "face_fill")} for m in steps.outputs]
+    summary = {"layout": layout, "pairs_budget": pairs_budget, "steps": per_step,
+               "step_seconds": steps.seconds,
+               "median_step_s": sorted(steps.seconds)[len(steps.seconds) // 2],
+               "run_seconds": run_s, "val_render_seconds": val.seconds,
+               "val_psnr": out.get("val_psnr"), "image_hw": list(val.outputs[-1].shape[1:3]),
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches_per_step": steps.launches, "launches": steps.totals()}
+    b = c["batch_size"]
+    if not (all(math.isfinite(m["loss"]) and math.isfinite(m["reg"])
+                and m["nonfinite_grads"] == 0 and m["pair_fill"] <= 1 and m["face_fill"] <= 1
+                for m in per_step)
+            and all(all(n[k] == b for k in kernels.KERNELS[:4])
+                    and all(n[k] >= b for k in kernels.KERNELS[4:]) for n in steps.launches)
+            and len(per_step) == c["num_steps"] and math.isfinite(summary["val_psnr"])):
+        raise AssertionError(f"the {name} run failed a check: {summary}")
+    return summary, val.outputs
+
+
+def silhouette_check(device, scene: Path, renders) -> dict:
+    """(c)'s check that the per-camera intrinsics reached the projection:
+    the alpha-weighted centroid of each validation render (and of its
+    ground-truth mask) against the origin, the sphere's centre, projected
+    with the camera's own fx, fy, cx, cy."""
+    import numpy as np
+    import torch
+
+    from geosplatting_tpu_torch.data.dataset import Dataset
+
+    cams, images, _ = Dataset(scene, device=device).get_split("val")
+    idx = np.linspace(0, len(cams) - 1, len(renders)).astype(np.int64)
+    out = []
+    for i, pred in zip(idx, renders):
+        cam = cams[int(i)]
+        p = cam.view_matrix[:3, 3]            # the origin in the camera's frame
+        centre = [float(cam.fx * p[0] / p[2] + cam.cx), float(cam.fy * p[1] / p[2] + cam.cy)]
+        row = {"principal_point": [float(cam.cx), float(cam.cy)], "projected_centre": centre,
+               "image_centre": [cam.width / 2.0, cam.height / 2.0]}
+        for name, alpha in (("render", pred[..., 3]),
+                            ("gt_mask", torch.as_tensor(images[int(i)][..., 3], device=device))):
+            ys = torch.arange(alpha.shape[0], device=device, dtype=torch.float64) + 0.5
+            xs = torch.arange(alpha.shape[1], device=device, dtype=torch.float64) + 0.5
+            a = alpha.double()
+            cxy = [float((a.sum(0) * xs).sum() / a.sum()), float((a.sum(1) * ys).sum() / a.sum())]
+            row[f"{name}_centroid"] = cxy
+            row[f"{name}_offset_px"] = math.hypot(cxy[0] - centre[0], cxy[1] - centre[1])
+        out.append(row)
+    off_centre = [math.hypot(r["principal_point"][0] - r["image_centre"][0],
+                             r["principal_point"][1] - r["image_centre"][1]) for r in out]
+    ok = (all(r["render_offset_px"] <= CAPTURES["centroid_px"] for r in out)
+          and min(off_centre) > 5 * CAPTURES["centroid_px"])
+    result = {"views": out, "principal_point_off_centre_px": off_centre,
+              "tol_px": CAPTURES["centroid_px"], "ok": ok}
+    if not ok:
+        raise AssertionError(f"the silhouettes miss the projected centres: {result}")
+    return result
+
+
+def write_spot(root: Path) -> Path:
+    """The MeshPBR layout's spot/spot.obj: a CAPTURES-sized UV sphere,
+    faces wound outward, with vertex colours."""
+    import numpy as np
+
+    from geosplatting_tpu_torch.graphics.mesh_io import save_mesh
+
+    m = uv_sphere(CAPTURES["pbr_rows"], CAPTURES["pbr_cols"], 1.0)
+    v, f = m.vertices.numpy(), m.indices.numpy().astype(np.int32)
+    normals, _ = m.face_normals_and_areas()
+    if float((normals * m.face_vertices().mean(-2)).sum()) < 0:
+        f = f[:, ::-1].copy()
+    colors = np.clip(0.5 + 0.4 * v, 0.0, 1.0).astype(np.float32)
+    (root / "spot").mkdir(parents=True)
+    save_mesh(root / "spot" / "spot.obj", v, f, colors=colors)
+    return root / "spot"
+
+
+def captures_pbr(device, tmp: Path) -> dict:
+    """(d) of phase 12: MeshPBRDataparser at 800 on write_spot's mesh under
+    an HDR environment (a lat-long sky gradient with a sun, written as .hdr
+    by data/io.py), CAPTURES' view counts: seconds a view, the mesh
+    raster's fills on every view, every image finite with some alpha, and
+    the first val view on the card against the CPU (the share of pixels
+    off by more than 1e-3 at most CAPTURES' card_vs_cpu_px_share: a winner
+    flips at a shared edge's depth tie where the devices round apart)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from geosplatting_tpu_torch.data.dataparsers.synthetic_meshes import (
+        TILE_CAPACITY, MeshPBRDataparser,
+    )
+    from geosplatting_tpu_torch.data.dataset import Dataset, recognize_dataparser
+    from geosplatting_tpu_torch.data.io import dump_float32_image
+    from geosplatting_tpu_torch.ops import mesh_raster
+
+    c = CAPTURES
+    path = write_spot(tmp / "meshes")
+    th = (np.arange(128) + 0.5) / 128 * np.pi
+    ph = (np.arange(256) + 0.5) / 256 * 2 * np.pi
+    tt, pp = np.meshgrid(th, ph, indexing="ij")
+    sky = 0.4 + 0.8 * np.clip(np.cos(tt), 0, None)[..., None] * np.array([0.6, 0.8, 1.0])
+    sun = 40.0 * np.exp(-((tt - 0.6) ** 2 + (pp - 2.0) ** 2) / 0.01)[..., None]
+    env_path = tmp / "sky.hdr"
+    dump_float32_image(env_path, (sky + sun).astype(np.float32))
+    n_train, n_val, n_test = c["pbr_views"]
+    parser = MeshPBRDataparser(resolution=c["pbr_resolution"], num_train_views=n_train,
+                               num_val_views=n_val, num_test_views=n_test,
+                               envmap_path=str(env_path), device=device)
+    ds = Dataset(path, dataparser=parser, device=device)
+    layout = type(recognize_dataparser(path)).__name__
+    seconds, views, images = {}, {}, {}
+    with Timed(mesh_raster, "rasterize_mesh") as rast:
+        for split in ("train", "val", "test"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cams, imgs, meta = ds.get_split(split)
+            torch.cuda.synchronize()
+            seconds[split] = time.perf_counter() - t0
+            views[split] = len(cams)
+            images[split] = imgs
+    fills = [(o[1].tile_fill, o[1].pair_fill) for o in rast.outputs]
+    t0 = time.perf_counter()
+    cpu = dataclasses.replace(parser, device="cpu", num_val_views=1).parse(path, "val")
+    cpu_s = time.perf_counter() - t0
+    got, want = images["val"][0], cpu.images[0]
+    off = np.abs(got - want).max(-1) > 1e-3
+    summary = {
+        "layout": layout, "faces": int(meta["mesh"].num_faces), "views": views,
+        "parse_seconds": seconds,
+        "seconds_per_view": sum(seconds.values()) / sum(views.values()),
+        "tile_fill": [f[0] for f in fills], "pair_fill": [f[1] for f in fills],
+        "tile_capacity": TILE_CAPACITY,
+        "alpha_mean": {k: float(v[..., 3].mean()) for k, v in images.items()},
+        "card_vs_cpu": {"share_off_1e-3": float(off.mean()),
+                        "max_abs_err": float(np.abs(got - want).max()),
+                        "mean_abs_err": float(np.abs(got - want).mean()), "cpu_seconds": cpu_s,
+                        "tol_share": c["card_vs_cpu_px_share"]},
+    }
+    ok = (layout == "MeshPBRDataparser" and len(fills) == sum(views.values())
+          and all(f[0] <= 1 and f[1] <= 1 for f in fills)
+          and all(np.isfinite(v).all() and (v[..., 3].reshape(len(v), -1).max(-1) > 0).all()
+                  for v in images.values())
+          and summary["card_vs_cpu"]["share_off_1e-3"] <= c["card_vs_cpu_px_share"])
+    if not ok:
+        raise AssertionError(f"the MeshPBR layout failed a check: {summary}")
+    summary["dataset"] = ds
+    return summary
+
+
+def captures_geometry(device, seed, ds) -> dict:
+    """(e) of phase 12: dpsr_solve and psr_to_mesh at 128^3 from 100k
+    oriented points of the sphere of radius 0.5; tsdf_fusion at 128^3 of
+    the depth of (d)'s train views (the unit sphere); the chamfer distance
+    of each mesh to its sphere within CAPTURES' bounds; dpsr_solve at 64^3
+    on the card against the CPU (1e-4)."""
+    import torch
+
+    from geosplatting_tpu_torch.data.dataparsers.synthetic_meshes import TILE_CAPACITY
+    from geosplatting_tpu_torch.graphics import dpsr, gmath, mesh_ops, shaders
+    from geosplatting_tpu_torch.ops.chamfer import chamfer_distance
+
+    c = CAPTURES
+    g = torch.Generator(device=device).manual_seed(seed + 13)
+    d = gmath.safe_normalize(torch.randn((c["geometry_points"], 3), generator=g, device=device))
+    pts = 0.5 * d * 0.5 + 0.5              # [-1, 1]^3 mapped to the unit cube
+    res = c["geometry_resolution"]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def surface(mesh):
+        return mesh.vertices[mesh.face_mask.repeat_interleave(3)]
+
+    chi, dpsr_s = timed(lambda: dpsr.dpsr_solve(pts, d, resolution=res))
+    psr, psr_s = timed(lambda: dpsr.psr_to_mesh(pts, d, resolution=res))
+    ref = gmath.safe_normalize(torch.randn((50_000, 3), generator=g, device=device))
+    psr_cd = float(chamfer_distance(surface(psr), 0.5 * ref))
+    cams, _, meta = ds.get_split("train")
+    depths, depth_s = timed(lambda: torch.stack([
+        shaders.render_depth(meta["mesh"], cams[i], tile_capacity=TILE_CAPACITY)
+        for i in range(len(cams))]))
+    tsdf, tsdf_s = timed(lambda: mesh_ops.tsdf_fusion(depths, cams, resolution=res, scale=1.2))
+    tsdf_cd = float(chamfer_distance(surface(tsdf), ref))
+    small = c["check_resolution"]
+    chi_card = dpsr.dpsr_solve(pts[:20_000], d[:20_000], resolution=small)
+    chi_cpu = dpsr.dpsr_solve(pts[:20_000].cpu(), d[:20_000].cpu(), resolution=small)
+    card_err = float((chi_card.cpu() - chi_cpu).abs().max())
+    summary = {
+        "points": c["geometry_points"], "resolution": res,
+        "dpsr_seconds": dpsr_s, "psr_to_mesh_seconds": psr_s,
+        "psr_faces": int(psr.face_mask.sum()), "psr_chamfer": psr_cd,
+        "psr_mean_radius": float(surface(psr).norm(dim=-1).mean()),
+        "depth_views": len(cams), "depth_seconds": depth_s, "tsdf_seconds": tsdf_s,
+        "tsdf_faces": int(tsdf.face_mask.sum()), "tsdf_chamfer": tsdf_cd,
+        "chi_finite": bool(torch.isfinite(chi).all()),
+        "dpsr_card_vs_cpu": {"resolution": small, "max_abs_err": card_err, "tol": 1e-4},
+        "bounds": {"psr_chamfer": c["dpsr_chamfer"], "tsdf_chamfer": c["tsdf_chamfer"]},
+    }
+    if not (summary["chi_finite"] and psr_cd <= c["dpsr_chamfer"]
+            and tsdf_cd <= c["tsdf_chamfer"] and card_err <= 1e-4
+            and summary["psr_faces"] > 1000 and summary["tsdf_faces"] > 1000):
+        raise AssertionError(f"the geometry tools failed a check: {summary}")
+    return summary
+
+
+def captures(device, seed, kernels, tmp: Path, card: str) -> tuple[dict, dict]:
+    """Phase 12: (a) the prior on the COLMAP scene, (b) stage 1 on
+    Stanford-ORB, (c) stage 1 on the masked-IDR scene with its silhouette
+    check, (d) the MeshPBR layout, (e) the geometry tools. Returns (each
+    part's summary and seconds, (a)'s last camera's kernel inputs)."""
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    out["prior"], captured = captures_prior(device, seed, kernels, tmp)
+    phase("captures_prior", **out["prior"], card=card)
+    seconds["prior"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    orb = write_orb_scene(tmp / "orb", device)
+    write_s = time.perf_counter() - t0
+    out["orb"], _ = captures_stage1(device, seed, kernels, orb, "orb",
+                                    CAPTURES["orb_pairs_budget"])
+    out["orb"]["scene_seconds"] = write_s
+    phase("captures_orb", **out["orb"])
+    seconds["orb"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_dtu_scene(tmp / "dtu", device)
+    out["dtu"], renders = captures_stage1(device, seed, kernels, tmp / "dtu", "dtu",
+                                          SLICE["pairs_budget"])
+    out["dtu"]["silhouettes"] = silhouette_check(device, tmp / "dtu", renders[-1])
+    phase("captures_dtu", **out["dtu"])
+    seconds["dtu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pbr = captures_pbr(device, tmp)
+    ds = pbr.pop("dataset")
+    out["pbr"] = pbr
+    phase("captures_meshpbr", **pbr)
+    seconds["pbr"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["geometry"] = captures_geometry(device, seed, ds)
+    phase("captures_geometry", **out["geometry"])
+    seconds["geometry"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return out, captured
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2139,6 +2749,11 @@ def main() -> int:
         phase("gsplat2d_task", **task2d)
         check_2dgs_card_vs_cpu(device, args.seed)
         seconds["gsplat2d"] = time.perf_counter() - t0
+        # the capture layouts: COLMAP, Stanford-ORB, DTU, MeshPBR, geometry
+        t0 = time.perf_counter()
+        caps, captured_caps = captures(device, args.seed, _kernels, Path(tmp), smi)
+        seconds["captures"] = time.perf_counter() - t0
+        seconds.update({f"captures_{k}": v for k, v in caps["seconds"].items()})
     # the kernels held to their plain versions at the differentiated ED
     # render's inputs: K2's gradient has a non-zero depth row there
     t0 = time.perf_counter()
@@ -2150,6 +2765,18 @@ def main() -> int:
     for entry in line["kernels"]:
         entry["depth"] = measured["rows"][entry["name"]]
     seconds["kernels_depth"] = time.perf_counter() - t0
+    # and at the inputs of the COLMAP prior run's last camera (1297 x 840:
+    # edge tiles 1 px wide and 8 px tall)
+    t0 = time.perf_counter()
+    measured = measure_kernels(captured_caps, caps["prior"]["launches"],
+                               CAPTURES["prior_resume_to"])
+    del captured_caps
+    phase("kernels_vs_plain_at_captures", **measured["checks"], **measured["counts"],
+          max_abs_err={k: r["max_abs_err"] for k, r in measured["rows"].items()},
+          tol=TOLERANCES)
+    for entry in line["kernels"]:
+        entry["captures"] = measured["rows"][entry["name"]]
+    seconds["kernels_captures"] = time.perf_counter() - t0
     phase("phase_seconds", **seconds, total=time.perf_counter() - start)
     print(smi)
     print(json.dumps(line))

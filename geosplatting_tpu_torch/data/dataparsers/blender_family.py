@@ -43,27 +43,48 @@ class ParsedSplit:
     mask_paths: list | None = None
     alpha_color: tuple | None = None
     meta: Any = None
+    # per-camera intrinsics [N] (real captures, rendered layouts); where set
+    # they replace the one focal and the centred principal point
+    fx: np.ndarray | None = None
+    fy: np.ndarray | None = None
+    cx: np.ndarray | None = None
+    cy: np.ndarray | None = None
+    # images a parser makes itself (DepthBlender's depth and alpha, the
+    # rendered views of the mesh layouts)
+    images: np.ndarray | None = None
+    # a parser's own resize, on top of the dataset's scale_factor (IDR and
+    # Stanford-ORB store full-size files with intrinsics of the resized ones)
+    image_scale: float | None = None
     # linear HDR frames (.exr / .hdr) are clipped to [0, 1] and sRGB-encoded
     # at load, so every split holds the sRGB values the trainers expect
     hdr_to_srgb: bool = False
-    # images a parser decodes itself (DepthBlender's depth and alpha)
-    images: np.ndarray | None = None
+
+    def _total_scale(self, scale_factor: float | None) -> float | None:
+        if self.image_scale is None and scale_factor is None:
+            return None
+        return (self.image_scale or 1.0) * (scale_factor or 1.0)
 
     def load_images(self, scale_factor: float | None = None) -> np.ndarray:
-        """[N, H, W, 4] rgba float32 (LDR values as stored, i.e. sRGB); a
-        parser's own ``images`` as they are, resized."""
+        """[N, H, W, 4] rgba float32 (LDR values as stored, i.e. sRGB),
+        resized by ``image_scale`` x ``scale_factor``; a parser's own
+        ``images`` resized the same way, given an alpha of 1 where they have
+        three channels."""
+        total = self._total_scale(scale_factor)
         if self.images is not None:
-            if scale_factor is None:
-                return self.images
-            return np.stack([resize_image(im, scale_factor) for im in self.images])
+            img = self.images
+            if total is not None:
+                img = np.stack([resize_image(im, total) for im in img])
+            if img.shape[-1] == 3:
+                img = np.concatenate((img, np.ones_like(img[..., :1])), axis=-1)
+            return img
         out = []
         for i, p in enumerate(self.image_paths):
             img = load_masked_image(p, self.mask_paths[i] if self.mask_paths else None)
             if self.hdr_to_srgb and Path(p).suffix.lower() in (".exr", ".hdr"):
                 img = np.concatenate(
                     (_srgb_encode(np.clip(img[..., :3], 0.0, 1.0)), img[..., 3:]), axis=-1)
-            if scale_factor is not None:
-                img = resize_image(img, scale_factor)
+            if total is not None:
+                img = resize_image(img, total)
             if self.alpha_color is not None and img.shape[-1] == 4:
                 a = img[..., 3:]
                 rgb = img[..., :3] * a + np.asarray(self.alpha_color) * (1 - a)

@@ -2,7 +2,8 @@
 batch iterator of the train loop.
 
 Counterpart of ``geosplatting_tpu/data/dataset.py``. A split's cameras live
-on the dataset's device; its images are parsed once into one numpy stack
+on the dataset's device (the rendered layouts render their views there
+too); its images are parsed once into one numpy stack
 and copied to the device once, as one tensor, so each batch is a gather
 there. ``iter_batches`` draws its order from
 ``np.random.default_rng(seed).permutation`` as the JAX package does, so
@@ -23,62 +24,65 @@ from .dataparsers.blender_family import (
     BlenderDataparser, ParsedSplit, ShinyBlenderDataparser, Syn4RelightDataparser,
     TensoIRDataparser,
 )
+from .dataparsers.colmap import ColmapDataparser, DPKUDataparser
+from .dataparsers.real_captures import (
+    IDRDataparser, LLFFDataparser, MaskedIDRDataparser, MaskedLLFFDataparser,
+    RFMaskedRealDataparser, StanfordORBDataparser,
+)
+from .dataparsers.synthetic_meshes import (
+    MeshDRDataparser, MeshPBRDataparser, MeshViewSynthesisDataparser, ShapeNetDataparser,
+)
 
-# StanfordORB comes before Blender in the JAX package's recognition order
-# and is not ported yet: it is recognised so that it is named, never parsed
-# as another layout.
-
-
-def _is_stanford_orb(path: Path) -> bool:
-    needed = ("train", "train_mask", "test", "test_mask", "transforms_train.json",
-              "transforms_test.json", "transforms_novel.json")
-    return (all((path / p).exists() for p in needed) and path.parent.name == "blender_LDR"
-            and (path.parent.parent / "ground_truth" / path.name).exists())
-
-
-# (name, recognizer, parser class or None while not ported), in the JAX
-# package's recognition order
+# the JAX package's recognition order, most specific layout first
 DATAPARSERS = (
-    ("Syn4Relight", Syn4RelightDataparser.recognize, Syn4RelightDataparser),
-    ("TensoIR", TensoIRDataparser.recognize, TensoIRDataparser),
-    ("StanfordORB", _is_stanford_orb, None),
-    ("Blender", BlenderDataparser.recognize, BlenderDataparser),
-    ("ShinyBlender", ShinyBlenderDataparser.recognize, ShinyBlenderDataparser),
+    Syn4RelightDataparser,
+    TensoIRDataparser,
+    StanfordORBDataparser,
+    BlenderDataparser,
+    ShinyBlenderDataparser,
+    MaskedIDRDataparser,
+    IDRDataparser,
+    MaskedLLFFDataparser,
+    LLFFDataparser,
+    RFMaskedRealDataparser,
+    DPKUDataparser,
+    ColmapDataparser,
+    MeshPBRDataparser,
+    MeshViewSynthesisDataparser,
+    MeshDRDataparser,
+    ShapeNetDataparser,
 )
 
 
 def recognize_dataparser(path: Path):
-    """The parser of the first layout (in the JAX package's order) that
-    ``path`` has; raises NotImplementedError naming a layout the port does
-    not read yet."""
+    """The parser of the first layout, in the JAX package's order, that
+    ``path`` has; ``ValueError`` where none has it."""
     path = Path(path)
-    for name, recognize, cls in DATAPARSERS:
-        if recognize(path):
-            if cls is None:
-                raise NotImplementedError(
-                    f"{path} is a {name} dataset; its dataparser is not ported yet")
+    for cls in DATAPARSERS:
+        if cls.recognize(path):
             return cls()
-    raise ValueError(
-        f"no dataparser recognizes {path} (the port reads the Blender, Syn4Relight, "
-        "TensoIR and Shiny Blender layouts; IDR, LLFF, COLMAP and the synthetic-mesh "
-        "layouts are not ported yet)")
+    raise ValueError(f"no dataparser recognizes {path}")
 
 
 def cameras_of(parsed: ParsedSplit, scale_factor: float | None, device) -> Cameras:
-    """A parsed split's cameras, intrinsics scaled by ``scale_factor``
-    (computed in float64, stored float32, as the JAX package does)."""
+    """A parsed split's cameras: its per-camera intrinsics where it has them,
+    else one focal and the image centre, scaled by ``scale_factor``
+    (computed in numpy, stored float32, as the JAX package does)."""
     sf = scale_factor or 1.0
     n = parsed.c2w.shape[0]
 
     def f32(x):
         return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)
 
+    def per_camera(value, default):
+        return value if value is not None else np.full((n,), default)
+
     return Cameras(
         c2w=f32(parsed.c2w),
-        fx=f32(np.full((n,), parsed.focal) * sf),
-        fy=f32(np.full((n,), parsed.focal) * sf),
-        cx=f32(np.full((n,), parsed.width / 2.0) * sf),
-        cy=f32(np.full((n,), parsed.height / 2.0) * sf),
+        fx=f32(per_camera(parsed.fx, parsed.focal) * sf),
+        fy=f32(per_camera(parsed.fy, parsed.focal) * sf),
+        cx=f32(per_camera(parsed.cx, parsed.width / 2.0) * sf),
+        cy=f32(per_camera(parsed.cy, parsed.height / 2.0) * sf),
         width=int(parsed.width * sf), height=int(parsed.height * sf),
         near=parsed.near, far=parsed.far,
     )
@@ -96,6 +100,9 @@ class Dataset:
         self.device = _kernels.resolve_device(self.device)
         if self.dataparser is None:
             self.dataparser = recognize_dataparser(self.path)
+        # the rendered layouts draw their views on the dataset's device
+        if getattr(self.dataparser, "device", False) is None:
+            self.dataparser = dataclasses.replace(self.dataparser, device=self.device)
         self._cache: dict[str, tuple[Cameras, np.ndarray, Any]] = {}
         self._dev_cache: dict[str, torch.Tensor] = {}
 

@@ -118,6 +118,53 @@ class Cameras:
         )
         return cls.from_lookat(eye, center.expand(eye.shape), **kwargs)
 
+    @classmethod
+    def from_sphere(
+        cls,
+        *,
+        center,
+        radius: float,
+        num_samples: int,
+        generator: torch.Generator | None = None,
+        directions: torch.Tensor | None = None,
+        device: str | torch.device | None = None,
+        **kwargs,
+    ) -> "Cameras":
+        """Cameras at uniform random directions ``radius`` from ``center``,
+        looking at it: ``gmath.sample_sphere`` from ``generator``, or the
+        unit ``directions`` [num_samples, 3] given. On the card unless
+        ``device`` names another device."""
+        device = _kernels.resolve_device(device)
+        if directions is None:
+            directions = gmath.sample_sphere((num_samples,), generator=generator, device=device)
+        return cls._looking_at(center, radius, directions.to(device), **kwargs)
+
+    @classmethod
+    def from_hemisphere(
+        cls,
+        *,
+        center,
+        radius: float,
+        num_samples: int,
+        generator: torch.Generator | None = None,
+        directions: torch.Tensor | None = None,
+        device: str | torch.device | None = None,
+        **kwargs,
+    ) -> "Cameras":
+        """``from_sphere`` with every direction folded to z >= 0."""
+        device = _kernels.resolve_device(device)
+        if directions is None:
+            directions = gmath.sample_sphere((num_samples,), generator=generator, device=device)
+        d = directions.to(device)
+        d = torch.cat((d[:, :2], d[:, 2:].abs()), -1)
+        return cls._looking_at(center, radius, d, **kwargs)
+
+    @classmethod
+    def _looking_at(cls, center, radius: float, directions: torch.Tensor, **kwargs):
+        center = torch.as_tensor(center, dtype=torch.float32, device=directions.device)
+        eye = center + radius * directions
+        return cls.from_lookat(eye, center.expand(eye.shape), **kwargs)
+
     # ---- matrices -----------------------------------------------------------
     @property
     def intrinsic_matrix(self) -> torch.Tensor:

@@ -1,10 +1,13 @@
-"""Quaternion, rotation and spherical-harmonics math.
+"""Quaternion, rotation, spherical-harmonics and sampling math.
 
 Counterpart of ``geosplatting_tpu/graphics/gmath.py`` (what the three
-stages, their exact-quality validation and vanilla 3DGS call).
-Quaternions are wxyz throughout.
+stages, their exact-quality validation, vanilla 3DGS, the shaders and the
+rendered layouts call). Quaternions are wxyz throughout. The samplers draw
+from a ``torch.Generator`` where the JAX package splits a key.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -166,3 +169,29 @@ def random_quaternion(shape: tuple[int, ...], *, generator: torch.Generator | No
     if normal is None:
         normal = torch.randn(tuple(shape) + (4,), generator=generator, device=device)
     return safe_normalize(normal)
+
+
+def sample_sphere(shape: tuple[int, ...], *, generator: torch.Generator | None = None,
+                  device=None) -> torch.Tensor:
+    """Uniform unit directions [*shape, 3]: normalised standard normals."""
+    return safe_normalize(torch.randn(tuple(shape) + (3,), generator=generator, device=device))
+
+
+def sample_hemisphere_cosine(shape: tuple[int, ...], *, generator: torch.Generator | None = None,
+                             device=None) -> torch.Tensor:
+    """Cosine-weighted directions about +z [*shape, 3] from two uniforms."""
+    u1 = torch.rand(tuple(shape), generator=generator, device=device)
+    u2 = torch.rand(tuple(shape), generator=generator, device=device)
+    r = torch.sqrt(u1)
+    phi = 2.0 * math.pi * u2
+    return torch.stack((r * torch.cos(phi), r * torch.sin(phi),
+                        torch.sqrt(torch.clamp(1.0 - u1, min=0.0))), -1)
+
+
+def dir_to_latlng_uv(d: torch.Tensor) -> torch.Tensor:
+    """Unit direction -> equirectangular uv in [0, 1]^2 (u: azimuth with -z
+    at u = 0.5; v: polar angle from +y)."""
+    d = safe_normalize(d)
+    theta = torch.arccos(torch.clamp(d[..., 1], -1.0, 1.0))
+    u = torch.atan2(d[..., 0], -d[..., 2]) / (2.0 * math.pi) + 0.5
+    return torch.stack((u, theta / math.pi), -1)

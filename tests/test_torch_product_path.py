@@ -67,15 +67,14 @@ def test_dataset_matches_jax(scene):
 
 def test_unported_layouts_are_named(tmp_path):
     # StanfordORB (blender_LDR/<scene> beside ground_truth/<scene>) comes
-    # before Blender in the recognition order and is not ported
+    # before Blender in the recognition order: its own parser reads it
     orb = tmp_path / "blender_LDR" / "scene"
     for d in ("train", "train_mask", "test", "test_mask"):
         (orb / d).mkdir(parents=True)
     for split in ("train", "test", "novel"):
         (orb / f"transforms_{split}.json").write_text('{"frames": [{"file_path": "x"}]}')
     (tmp_path / "ground_truth" / "scene").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="StanfordORB"):
-        recognize_dataparser(orb)
+    assert type(recognize_dataparser(orb)).__name__ == "StanfordORBDataparser"
     with pytest.raises(ValueError, match="no dataparser"):
         Dataset(tmp_path, device="cpu")
 

@@ -165,14 +165,11 @@ def test_cli_presets():
 
 
 def test_other_layouts_are_named(tmp_path):
-    """A preset on a scene of a layout the port does not read yet
-    (StanfordORB) raises naming its layout."""
+    """A preset on a directory of no layout the port reads raises naming
+    the path (StanfordORB, which once raised here, is read now)."""
     scene = tmp_path / "blender_LDR" / "scene"
     for d in ("train", "train_mask", "test", "test_mask"):
         (scene / d).mkdir(parents=True)
-    for split in ("train", "test", "novel"):
-        (scene / f"transforms_{split}.json").write_text('{"frames": [{"file_path": "x"}]}')
-    (tmp_path / "ground_truth" / "scene").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="StanfordORB"):
+    with pytest.raises(ValueError, match="no dataparser recognizes"):
         run_task_group(cli3.TASKS, ["tsir-lego", "--dataset_path", str(scene), "--load", "x",
                                     "--device", "cpu"])
