@@ -161,6 +161,26 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
    held against its plain version at (a)'s last camera (edge tiles 1 px
    wide and 8 px tall), and its row of the kernels line gains a "captures"
    entry measured there.
+13. quality: (a) bench/quality_chain.run_quality_chain at the JAX package's
+   tiny shape (tests/test_quality.py:45-50: 32x32, grid 10, 10 train and 2
+   test views of the analytic two-sphere PBR scene, batch 2, 40 / 12 / 8
+   steps, 6 x 6 ground-truth and 2 x 2 training sample steps, light 32, the
+   material triplane at its 512 texels): every trainer step's loss and PSNR
+   finite, no non-finite gradient, every fill it reports <= 1 (pair_fill,
+   face_fill, stage 3's mesh_tile_fill and mesh_pair_fill), K1, K2 and K3
+   launched once per camera and rasterization on every step of every stage
+   (stage 3 rasterizes a camera twice: its G-buffer and the kd map of its
+   edge-aware regulariser; the normal map's weight is 0); NVS, relight and
+   albedo PSNR, roughness MSE and stage-1 train PSNR past the JAX package's
+   floors (tests/test_quality.py:52-58); it prints the result with each
+   stage's seconds a step and peak memory. (b) The product phase's
+   GeoSplatTrainTask for 2 steps with turntable="+z" and vis_export_every
+   1: a non-empty 800x800 frame in dump/vis/ at every step of the schedule,
+   a non-empty HTML viewer with Gaussians in vis_html/ at every step.
+   Then every kernel pass is held against its plain version at (a)'s
+   inputs of stage 2's last camera (C = 3) and of stage 3's last G-buffer
+   camera (C = 14), and its row of the kernels line gains "quality_stage2"
+   and "quality" entries measured there.
 The last three lines are the card's name and power limit, the kernels JSON
 line and the result JSON line; the line before them gives each phase's
 seconds. Without a CUDA device it exits non-zero before printing any result.
@@ -2636,6 +2656,149 @@ def captures(device, seed, kernels, tmp: Path, card: str) -> tuple[dict, dict]:
     return out, captured
 
 
+# phase 13: the quality benchmark at the JAX package's tiny shape
+# (tests/test_quality.py:45-50) and its floors (:52-58)
+QUALITY = dict(img_res=32, grid_res=10, n_train=10, n_test=2, batch=2, s1_steps=40,
+               s2_steps=12, s3_steps=8, gt_spp_x=6, train_spp_x=2, light_resolution=32)
+QUALITY_FLOORS = {"nvs_psnr": (">", 14.0), "relight_psnr": (">", 12.0),
+                  "albedo_psnr": (">", 15.0), "roughness_mse": ("<", 0.5),
+                  "s1_train_psnr": (">", 14.0)}
+TURNTABLE = dict(steps=2, vis_export_every=1)
+
+
+def quality_chain(device, seed, kernels) -> tuple[dict, dict]:
+    """(a) of phase 13: run_quality_chain at the tiny shape on the card, each
+    trainer step's launches, fills and gradients gated; the JAX floors.
+    Returns (summary, the kernel inputs of stage 2's last camera and of
+    stage 3's last G-buffer camera (C = 14))."""
+    from geosplatting_tpu_torch.bench.quality_chain import run_quality_chain
+    from geosplatting_tpu_torch.ops import rasterize_pairs as rp
+    from geosplatting_tpu_torch.ops import segment_rows as sr
+    from geosplatting_tpu_torch.train.geosplat_defer_trainer import (
+        GeoSplatDeferTrainer, GeoSplatDeferTrainerConfig,
+    )
+    from geosplatting_tpu_torch.train.geosplat_mc_trainer import GeoSplatMCTrainer
+    from geosplatting_tpu_torch.train.geosplat_trainer import GeoSplatTrainer
+
+    # the stage that runs: on_stage names each stage as it ends (the
+    # evaluation's renders after stage 3 take no backward)
+    order = ["s1", "s2", "s3", "eval"]
+    running = [order[0]]
+
+    def in_stage(name, keep=lambda a: True):
+        return lambda a: running[0] == name and keep(a)
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with Launches(GeoSplatTrainer, "train_step", kernels) as s1, \
+            Launches(GeoSplatMCTrainer, "train_step", kernels) as s2, \
+            Launches(GeoSplatDeferTrainer, "train_step", kernels) as s3, \
+            Recorder(rp, "composite_bwd", in_stage("s2")) as bwd2, \
+            Recorder(sr, "cumsum_rows", in_stage("s2")) as k3_2, \
+            Recorder(rp, "composite_bwd", in_stage("s3", lambda a: a[3] == 14)) as bwd3, \
+            Recorder(sr, "cumsum_rows",
+                     in_stage("s3", lambda a: a[0].shape[1] == 7 + 14)) as k3_3:
+        r = run_quality_chain(
+            **QUALITY, seed=seed, device=device,
+            on_stage=lambda name, _: running.__setitem__(0, order[order.index(name) + 1]))
+    seconds = time.perf_counter() - t0
+    captured = {"s2": {"bwd": bwd2.args, "k3": k3_2.args},
+                "s3": {"bwd": bwd3.args, "k3": k3_3.args}}
+    # rasterizations a camera: stage 3 adds the maps of its edge-aware
+    # regularisers (kd; normal where its weight is not 0) to the G-buffer
+    c3 = GeoSplatDeferTrainerConfig()
+    renders = {"s1": 1, "s2": 1, "s3": 1 + (c3.kd_reg > 0) + (c3.normal_reg > 0)}
+    stages = {}
+    for name, steps in (("s1", s1), ("s2", s2), ("s3", s3)):
+        b = QUALITY["batch"] * renders[name]
+        per_step = [{k: float(v) for k, v in m.items()
+                     if k in ("loss", "splat_psnr", "nonfinite_grads") or k.endswith("_fill")}
+                    for m in steps.outputs]
+        stages[name] = {
+            "steps": len(per_step), "median_step_s": sorted(steps.seconds)[len(steps.seconds) // 2],
+            "max_fill": {k: max(m[k] for m in per_step) for k in per_step[0] if k.endswith("_fill")},
+            "finite": all(math.isfinite(m["loss"]) and math.isfinite(m["splat_psnr"])
+                          for m in per_step),
+            "nonfinite_grads": sum(m["nonfinite_grads"] for m in per_step),
+            "once_per_camera": all(all(n[k] == b for k in kernels.KERNELS[:4])
+                                   and all(n[k] >= b for k in kernels.KERNELS[4:])
+                                   for n in steps.launches),
+            "launches": steps.totals(), "launches_per_step": b,
+        }
+    floors = {k: bool(r[k] > v if op == ">" else r[k] < v)
+              for k, (op, v) in QUALITY_FLOORS.items()}
+    return {"config": QUALITY, "result": r, "stages": stages, "floors": floors,
+            "seconds": seconds}, captured
+
+
+def turntable_task(device, seed, kernels, scene: Path) -> dict:
+    """(b) of phase 13: the product phase's GeoSplatTrainTask with
+    turntable="+z" and vis_export_every: its frames and HTML snapshots."""
+    import base64
+
+    import numpy as np
+    from PIL import Image
+
+    from geosplatting_tpu_torch.engine.train_task import GeoSplatTrainTask
+    from geosplatting_tpu_torch.visualization.turntable import OptimizationVisualizer
+
+    c = TURNTABLE
+    task = GeoSplatTrainTask(
+        dataset_path=scene, experiment_name="turntable", seed=seed, num_steps=c["steps"],
+        batch_size=SLICE["cameras"], num_steps_per_save=c["steps"],
+        num_steps_per_val=c["steps"], num_val_images=2, resolution=SLICE["grid"],
+        light_resolution=512, scene_scale=0.8, pairs_budget=SLICE["pairs_budget"],
+        device=str(device), sdf_sphere_init=PRODUCT["sdf_sphere_init"], turntable="+z",
+        vis_export_every=c["vis_export_every"],
+    )
+    t0 = time.perf_counter()
+    with Timed(GeoSplatTrainTask, "vis_splats") as snap:
+        run_dir = Path(task.run()["output_dir"]).resolve()
+    seconds = time.perf_counter() - t0
+    frames = sorted((run_dir / "dump" / "vis").glob("*.png"))
+    htmls = sorted((run_dir / "vis_html").glob("*.html"))
+    schedule = OptimizationVisualizer(up="+z", device=str(device))
+    schedule.setup(c["steps"])
+    shapes = [list(np.asarray(Image.open(p)).shape) for p in frames]
+    splats = [len(base64.b64decode(re.search(r'const B64 = "([^"]*)"', p.read_text()).group(1)))
+              // 32 for p in htmls]
+    out = {"frames": [p.name for p in frames], "frame_shapes": shapes,
+           "frame_bytes": [p.stat().st_size for p in frames],
+           "schedule": sorted(schedule._sequence), "html": [p.name for p in htmls],
+           "html_bytes": [p.stat().st_size for p in htmls], "html_splats": splats,
+           "snapshot_seconds": snap.seconds, "seconds": seconds}
+    want_html = [f"{s:06d}.html" for s in range(1, c["steps"] + 1)
+                 if s % c["vis_export_every"] == 0]
+    if not ([int(p.stem) for p in frames] == out["schedule"] and frames
+            and all(sh[:2] == [800, 800] and sh[2] in (3, 4) for sh in shapes)
+            and all(b > 0 for b in out["frame_bytes"]) and out["html"] == want_html
+            and all(n > 0 for n in splats)):
+        raise AssertionError(f"the turntable task failed a check: {out}")
+    return out
+
+
+def quality(device, seed, kernels, scene: Path, card: str) -> tuple[dict, dict]:
+    """Phase 13: (a) the quality chain and its floors, (b) the turntable
+    task. Returns (summary, the chain's kernel inputs from
+    ``quality_chain``); raises on any failed check."""
+    out = {}
+    out["chain"], captured = quality_chain(device, seed, kernels)
+    r, stages = out["chain"]["result"], out["chain"]["stages"]
+    phase("quality", **out["chain"], card=card)
+    out["turntable"] = turntable_task(device, seed, kernels, scene)
+    phase("quality_turntable", **out["turntable"])
+    if not (all(out["chain"]["floors"].values())
+            and all(st["finite"] and st["nonfinite_grads"] == 0 and st["once_per_camera"]
+                    and st["max_fill"] and max(st["max_fill"].values()) <= 1.0
+                    and all(n > 0 for n in st["launches"].values())
+                    for st in stages.values())
+            and {"pair_fill", "face_fill"} <= set(stages["s1"]["max_fill"])
+            and {"pair_fill", "mesh_tile_fill", "mesh_pair_fill"} <= set(stages["s3"]["max_fill"])
+            and all(math.isfinite(r[k]) for k in QUALITY_FLOORS)):
+        raise AssertionError(f"the quality phase failed a check: {out['chain']}")
+    return out, captured
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2754,6 +2917,10 @@ def main() -> int:
         caps, captured_caps = captures(device, args.seed, _kernels, Path(tmp), smi)
         seconds["captures"] = time.perf_counter() - t0
         seconds.update({f"captures_{k}": v for k, v in caps["seconds"].items()})
+        # the quality benchmark's chain and the turntable / HTML tooling
+        t0 = time.perf_counter()
+        qual, captured_quality = quality(device, args.seed, _kernels, Path(tmp) / "scene", smi)
+        seconds["quality"] = time.perf_counter() - t0
     # the kernels held to their plain versions at the differentiated ED
     # render's inputs: K2's gradient has a non-zero depth row there
     t0 = time.perf_counter()
@@ -2777,6 +2944,20 @@ def main() -> int:
     for entry in line["kernels"]:
         entry["captures"] = measured["rows"][entry["name"]]
     seconds["kernels_captures"] = time.perf_counter() - t0
+    # and at the quality chain's: stage 2's last camera (C = 3) and stage 3's
+    # last G-buffer camera (C = 14), 32 x 32 images of 2 x 2 tiles
+    t0 = time.perf_counter()
+    stages = qual["chain"]["stages"]
+    for name, stage in (("quality_stage2", "s2"), ("quality", "s3")):
+        measured = measure_kernels(captured_quality[stage], stages[stage]["launches"],
+                                   stages[stage]["steps"])
+        phase(f"kernels_vs_plain_at_{name}", **measured["checks"], **measured["counts"],
+              max_abs_err={k: r["max_abs_err"] for k, r in measured["rows"].items()},
+              tol=TOLERANCES)
+        for entry in line["kernels"]:
+            entry[name] = measured["rows"][entry["name"]]
+    del captured_quality
+    seconds["kernels_quality"] = time.perf_counter() - t0
     phase("phase_seconds", **seconds, total=time.perf_counter() - start)
     print(smi)
     print(json.dumps(line))

@@ -9,10 +9,12 @@ are imported inside each function. The JAX package's ``imageio`` fallback
 is not ported: an HDR file ``cv2`` cannot decode raises. OpenCV builds
 decode OpenEXR only with ``OPENCV_IO_ENABLE_OPENEXR=1`` in the environment
 before ``cv2`` is imported, and some builds carry no EXR codec at all; the
-error names both. Video is not ported.
+error names both. ``open_video_renderer`` writes frames as a GIF (Pillow),
+a video through ``imageio`` where it imports, or else a PNG sequence.
 """
 from __future__ import annotations
 
+import contextlib
 from pathlib import Path
 
 import numpy as np
@@ -118,3 +120,51 @@ def resize_image(img: np.ndarray, scale_factor: float) -> np.ndarray:
     if out.ndim == 2:
         out = out[..., None]
     return out
+
+
+@contextlib.contextmanager
+def open_video_renderer(path: Path | str, fps: int = 24):
+    """Context manager yielding ``put(frame)`` for [H, W, 3+] float frames in
+    [0, 1] (numpy, or tensors moved to the host); the frames are written
+    when the block ends. By suffix: ``.gif`` through Pillow; ``.mp4``,
+    ``.webm``, ``.mkv``, ``.avi`` through ``imageio`` where it imports and
+    encodes, else (with a warning) a PNG sequence in the directory of the
+    path without its suffix; any other path is that directory,
+    ``frame_%05d.png``."""
+    path = Path(path)
+    frames: list[np.ndarray] = []
+
+    def put(frame) -> None:
+        if hasattr(frame, "detach"):
+            frame = frame.detach().cpu().numpy()
+        frame = np.asarray(frame)
+        frames.append((np.clip(frame[..., :3], 0, 1) * 255).astype(np.uint8))
+
+    yield put
+
+    if not frames:
+        return
+    from PIL import Image
+
+    suffix = path.suffix.lower()
+    if suffix == ".gif":
+        ims = [Image.fromarray(f) for f in frames]
+        path.parent.mkdir(parents=True, exist_ok=True)
+        ims[0].save(path, save_all=True, append_images=ims[1:], duration=int(1000 / fps),
+                    loop=0)
+        return
+    if suffix in (".mp4", ".webm", ".mkv", ".avi"):
+        try:
+            import imageio.v3 as iio
+
+            path.parent.mkdir(parents=True, exist_ok=True)
+            iio.imwrite(path, np.stack(frames), fps=fps)
+            return
+        except Exception:   # no imageio or no encoder: the PNG sequence below
+            import warnings
+
+            path = path.with_suffix("")
+            warnings.warn(f"no video encoder available; writing PNG sequence to {path}/")
+    path.mkdir(parents=True, exist_ok=True)
+    for i, f in enumerate(frames):
+        Image.fromarray(f).save(path / f"frame_{i:05d}.png")

@@ -19,22 +19,29 @@ Randomness: one ``torch.Generator`` on the task's device, seeded from
 count, their Adam state and the densification statistics), the step and
 the generator's state, so a resumed run draws what the uninterrupted run would have drawn.
 
-Options of the JAX tasks without a meaning in the port yet are left out:
-``backend``, ``tile_capacity`` and ``data_parallel`` (multi-GPU; with it
-the stage-3 ``train_step_dp``), and
-``dashboard``, ``turntable`` and ``vis_export_every`` (tooling); the prior
-task keeps ``backend`` (the pairs path) and ``tile_capacity`` (unused) so
-its presets are the JAX ones. Options the JAX tasks lack:
-``GeoSplatTrainTask.sdf_sphere_init`` (default off), ``triplane_resolution``
-(the JAX model's 512, also the prior task's) and the prior task's ``field``.
+The tooling of the JAX loop: ``dashboard`` (a live ``rich`` dashboard,
+``ui/console.py``; an ImportError naming ``rich`` where it is missing),
+``turntable`` ('+z' or '+y': a frame of the ``OptimizationVisualizer``
+orbit through the task's ``val_render`` into ``dump/vis/<step>.png`` where
+its schedule says) and ``vis_export_every`` (every N steps the task's
+``vis_splats`` as a standalone HTML viewer in ``vis_html/<step>.html``;
+stages 1 and 3 and 3DGS have them, as in the JAX package). Options of the
+JAX tasks without a meaning in the port yet are left out: ``backend``,
+``tile_capacity`` and ``data_parallel`` (multi-GPU; with it the stage-3
+``train_step_dp``); the prior task keeps ``backend`` (the pairs path) and
+``tile_capacity`` (unused) so its presets are the JAX ones. Options the
+JAX tasks lack: ``GeoSplatTrainTask.sdf_sphere_init`` (default off) and
+``triplane_resolution`` (the JAX model's 512, also the prior task's).
 A stage-2 or stage-3 task takes the hash field when the export it loads
 carries a hash-grid roughness predictor. The stage-3 task builds its
 model with a mesh tile capacity of 1024 where the JAX model keeps 256
-(``MESH_TILE_CAPACITY``), and the 3DGS task budgets 48 screen pairs a
+(``MESH_TILE_CAPACITY``), which the model raises to the frozen mesh's face
+count so that no triangle is dropped, and the 3DGS task budgets 48 screen pairs a
 Gaussian where the JAX model's default is 8 (``PAIRS_PER_GAUSSIAN``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from pathlib import Path
@@ -161,6 +168,9 @@ class _TrainTaskBase:
     num_val_images: int = 2
     scale_factor: float | None = None
     device: str | None = None       # the card unless "cpu"
+    dashboard: bool = False         # a live rich dashboard (ui/console.py)
+    turntable: str = "disable"      # '+z' | '+y': turntable frames in dump/vis/
+    vis_export_every: int = 0       # N > 0: an HTML splat viewer every N steps
 
     # ---- subclass hooks ----------------------------------------------------
     def build(self, dataset: Dataset, generator: torch.Generator):
@@ -181,6 +191,12 @@ class _TrainTaskBase:
     def export(self, model) -> dict | None:
         return None
 
+    def vis_splats(self, model):
+        """-> ``Splats`` (or a dict of means, scales, quats, opacities,
+        colors) for the HTML viewer snapshot, or None where the family has
+        no cheap splat view."""
+        return None
+
     # ---- the loop ----------------------------------------------------------
     def run(self, resume_dir: Path | None = None, resume_step: int | None = None) -> dict:
         device = _kernels.resolve_device(self.device)
@@ -199,38 +215,58 @@ class _TrainTaskBase:
             start_step = load_checkpoint(exp.ckpt_dir, trainer, generator, resume_step)
             exp.log(f"resumed from step {start_step}")
 
+        vis = None
+        if self.turntable != "disable":
+            from ..visualization.turntable import OptimizationVisualizer
+
+            val_cams, _, _ = dataset.get_split(self._val_split(dataset))
+            vis = OptimizationVisualizer(up=self.turntable,
+                                         resolution=(val_cams.width, val_cams.height),
+                                         device=str(device))
+            vis.setup(self.num_steps)
+
         it = dataset.iter_batches("train", self.batch_size, seed=self.seed)
         for _ in range(start_step):  # keep the data order deterministic
             next(it)
 
         metrics: dict = {}
         val_metrics: dict = {}
-        t_start = time.time()
-        for step in range(start_step, self.num_steps):
-            cams, gt, _ = next(it)
-            metrics = self.step_fn(trainer, cams, gt, generator, step)
-            self.after_update(trainer, step, (cams.width, cams.height), generator)
-            last = step + 1 == self.num_steps
-            if (step + 1) % self.num_steps_per_val == 0 or last:
-                val_metrics = self._validate(model, dataset, exp, step + 1)
-                its = (step + 1 - start_step) / (time.time() - t_start)
-                line = " ".join(f"{k}={float(v):.4g}" for k, v in metrics.items())
-                exp.log(f"step {step + 1}: {line} "
-                        + " ".join(f"{k}={v:.4g}" for k, v in val_metrics.items())
-                        + f" it/s={its:.2f}")
-                # a fill >= 1 means its budget is dropping work; > 0.95
-                # means its headroom is gone
-                for name, (budget, dropped, knob) in FILLS.items():
-                    fill = float(metrics.get(name, 0.0))
-                    if fill > 0.95:
-                        msg = (f"WARNING step {step + 1}: {name}={fill:.3f}"
-                               + (f" — {budget} EXCEEDED, {dropped} are being dropped"
-                                  if fill >= 1.0 else f" — {budget} nearly full")
-                               + f"; raise {knob} (model config)")
-                        exp.log(msg)
-                        print(msg, flush=True)
-            if (step + 1) % self.num_steps_per_save == 0 or last:
-                save_checkpoint(exp.ckpt_dir, step + 1, trainer, generator)
+        with contextlib.ExitStack() as stack:
+            dash = None
+            if self.dashboard:
+                from ..ui.console import console
+
+                dash = stack.enter_context(
+                    console.screen(self.experiment_name, num_steps=self.num_steps))
+            t_start = time.time()
+            for step in range(start_step, self.num_steps):
+                cams, gt, _ = next(it)
+                metrics = self.step_fn(trainer, cams, gt, generator, step)
+                self.after_update(trainer, step, (cams.width, cams.height), generator)
+                if dash is not None:
+                    dash(step + 1, {**metrics, **val_metrics})
+                self._visualize(model, vis, exp, step + 1)
+                last = step + 1 == self.num_steps
+                if (step + 1) % self.num_steps_per_val == 0 or last:
+                    val_metrics = self._validate(model, dataset, exp, step + 1)
+                    its = (step + 1 - start_step) / (time.time() - t_start)
+                    line = " ".join(f"{k}={float(v):.4g}" for k, v in metrics.items())
+                    exp.log(f"step {step + 1}: {line} "
+                            + " ".join(f"{k}={v:.4g}" for k, v in val_metrics.items())
+                            + f" it/s={its:.2f}")
+                    # a fill >= 1 means its budget is dropping work; > 0.95
+                    # means its headroom is gone
+                    for name, (budget, dropped, knob) in FILLS.items():
+                        fill = float(metrics.get(name, 0.0))
+                        if fill > 0.95:
+                            msg = (f"WARNING step {step + 1}: {name}={fill:.3f}"
+                                   + (f" — {budget} EXCEEDED, {dropped} are being dropped"
+                                      if fill >= 1.0 else f" — {budget} nearly full")
+                                   + f"; raise {knob} (model config)")
+                            exp.log(msg)
+                            print(msg, flush=True)
+                if (step + 1) % self.num_steps_per_save == 0 or last:
+                    save_checkpoint(exp.ckpt_dir, step + 1, trainer, generator)
 
         export = self.export(model)
         if export is not None:
@@ -240,6 +276,21 @@ class _TrainTaskBase:
         out.update(val_metrics)
         out["output_dir"] = str(exp.base_dir)
         return out
+
+    @torch.no_grad()
+    def _visualize(self, model, vis, exp: Experiment, step: int) -> None:
+        """The turntable frame and the HTML snapshot of ``step``, where due."""
+        cam = vis.get_camera(step) if vis is not None else None
+        if cam is not None:
+            frame = self.val_render(model, cam)
+            exp.dump_image(f"vis/{step:06d}.png", frame[0].cpu().numpy())
+        if self.vis_export_every > 0 and step % self.vis_export_every == 0:
+            splats = self.vis_splats(model)
+            if splats is not None:
+                from ..visualization.viewer_html import vis_3dgs
+
+                out = vis_3dgs(splats, exp.base_dir / "vis_html" / f"{step:06d}.html")
+                exp.log(f"vis_html snapshot: {out}")
 
     # ---- validation: val-split metrics and image dumps ---------------------
     def _val_split(self, dataset: Dataset) -> str:
@@ -330,6 +381,19 @@ class GeoSplatTrainTask(_TrainTaskBase):
         rgb = gimages.rgb2srgb(rgba[..., :3].clamp(0, 1)) * rgba[..., 3:]
         return torch.cat((rgb, rgba[..., 3:]), -1)
 
+    @torch.no_grad()
+    def vis_splats(self, model):
+        # the face sampling's Gaussians without jitter, coloured by |kd|
+        from ..models.geosplat import get_gaussians_from_face
+
+        mesh, _, _ = model.get_geometry()
+        splats, attrs, _, valid = get_gaussians_from_face(
+            model.field, mesh, scale=model.scale, initial_guess=model.initial_guess_bias,
+            max_faces=model.max_render_faces)
+        return {"means": splats.means[valid], "scales": splats.scales[valid],
+                "quats": splats.quats[valid], "opacities": splats.opacities[valid],
+                "colors": attrs.kd[valid].abs().clamp(0, 1)}
+
     def export(self, model):
         from ..models.geosplat_mc import export_stage1
 
@@ -410,10 +474,10 @@ class GeoSplatMCTrainTask(_TrainTaskBase):
 
 # --- stage 3 ---------------------------------------------------------------------
 
-# triangles kept per 16x16 tile by the stage-3 mesh raster: the JAX model's
-# 256 drops triangles at grid 96 (the frozen s4r-twosphere mesh put up to 459
-# into a silhouette tile on the card); the raster resolves only as deep as
-# the fullest tile, so the larger budget costs nothing where it is unused
+# triangles kept per 16x16 tile by the stage-3 mesh raster, at least (the
+# model raises it to the frozen mesh's face count): the JAX model's 256
+# drops triangles at grid 96 (the frozen s4r-twosphere mesh put up to 459
+# into a silhouette tile on the card)
 MESH_TILE_CAPACITY = 1024
 
 
@@ -475,6 +539,11 @@ class GeoSplatDeferTrainTask(_TrainTaskBase):
         rgba, _, _ = model.render(cams, generator=generator)
         rgb = gimages.rgb2srgb(rgba[..., :3].clamp(0, 1)) * rgba[..., 3:]
         return torch.cat((rgb, rgba[..., 3:]), -1)
+
+    def vis_splats(self, model):
+        # the stage-3 Gaussians are parameters: nothing to compute
+        return {"means": model.means, "scales": model.scales, "quats": model.quats,
+                "opacities": model.opacities, "colors": model.kd.clamp(0, 1)}
 
     def export(self, model):
         from ..convert import params_to_numpy
@@ -618,6 +687,9 @@ class GSplatTrainTask(_TrainTaskBase):
     def val_render(self, model, cams):
         splats = self._trainer.splats()
         return torch.stack([model.render_rgba(splats, cams[i])[0] for i in range(len(cams))])
+
+    def vis_splats(self, model):
+        return self._trainer.splats()
 
     def export(self, model):
         from ..convert import splats_to_numpy

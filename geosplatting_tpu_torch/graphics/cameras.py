@@ -45,6 +45,16 @@ class Cameras:
             cx=self.cx[idx], cy=self.cy[idx],
         )
 
+    @classmethod
+    def cat(cls, items: list["Cameras"]) -> "Cameras":
+        """Batches of cameras concatenated; image size and clip planes are
+        the first item's."""
+        def join(name):
+            return torch.cat([getattr(c, name) for c in items])
+
+        return dataclasses.replace(items[0], c2w=join("c2w"), fx=join("fx"), fy=join("fy"),
+                                   cx=join("cx"), cy=join("cy"))
+
     def to(self, device) -> "Cameras":
         return dataclasses.replace(
             self, c2w=self.c2w.to(device), fx=self.fx.to(device),

@@ -629,6 +629,7 @@ class GeoSplatter(nn.Module):
         pairs_per_gaussian: int = 3,
         pairs_budget: int | None = None,
         tile_shape: str = "16",
+        env_quality: str = "fast",
         triplane_resolution: int = 512,
         triplane_components: int = 32,
         field_hidden: int = 64,
@@ -640,6 +641,7 @@ class GeoSplatter(nn.Module):
         device = _kernels.resolve_device(device)
         self.resolution = resolution
         self.light_resolution = light_resolution
+        self.env_quality = env_quality
         self.scale = scale
         self.min_roughness = min_roughness
         self.max_metallic = max_metallic
@@ -711,13 +713,15 @@ class GeoSplatter(nn.Module):
         sampling: str = "face",
         jitter_noise: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
-        quality: str = "fast",
+        quality: str | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor, dict]:
         """Returns (rgba [B, H, W, 4] tone-mapped linear, regularization,
         aux). ``jitter_noise`` is the face-sampling jitter as a standard-
         normal [F, 3] draw; without it one is drawn from ``generator``.
         ``quality="exact"`` (validation, export) takes the sampled prefilter
-        and the exact split-sum lookups; training keeps "fast"."""
+        and the exact split-sum lookups; ``None`` takes ``env_quality``
+        ("fast" by default, what training uses)."""
+        quality = quality or self.env_quality
         w = {"sdf": 0.0, "light": 0.0, "kd_grad": 0.0, "ks_grad": 0.0}
         if reg_weights:
             w.update(reg_weights)

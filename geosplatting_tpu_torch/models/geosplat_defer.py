@@ -23,7 +23,10 @@ the triplane trunk and head (``KsBundle``) or, for an export of the hash
 field, a ``HashEncoding`` (``ks_hash``, the JAX model's ``KS_ENC`` for a
 task). Left out of the JAX model: ``batched_binning``, ``tile_capacity``,
 ``tile_chunk``, ``chunk_size`` and ``backend`` (the port has one
-rasterizer, the pairs path).
+rasterizer, the pairs path). The frozen mesh's raster keeps every
+triangle: its tile capacity is at least the mesh's face count, where the
+JAX model keeps ``mesh_tile_capacity`` a tile and drops the rest without a
+word (small images put thousands of triangles in one 16 x 16 tile).
 """
 from __future__ import annotations
 
@@ -137,6 +140,13 @@ class GeoSplatterDefer(nn.Module):
     @property
     def num_gaussians(self) -> int:
         return self.means.shape[0]
+
+    @property
+    def mesh_raster_capacity(self) -> int:
+        """Triangles kept a tile: no tile holds more than every face, and
+        the raster resolves only as deep as the fullest tile, so the face
+        count as a floor drops nothing and costs nothing where unused."""
+        return max(self.mesh_tile_capacity, self.mesh.indices.shape[0])
 
     # ---- the stage-2 hand-off ------------------------------------------------
     @torch.no_grad()
@@ -281,7 +291,7 @@ class GeoSplatterDefer(nn.Module):
             frag_occ = render[..., 8:14]
             with record_function("defer.mesh_raster"), torch.no_grad():
                 rast, mesh_info = rasterize_mesh(self.mesh, cam,
-                                                 tile_capacity=self.mesh_tile_capacity)
+                                                 tile_capacity=self.mesh_raster_capacity)
                 frag_pos = interpolate(self.mesh.vertices, self.mesh, rast)
 
             hw = cam.height * cam.width
