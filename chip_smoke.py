@@ -181,6 +181,36 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
    inputs of stage 2's last camera (C = 3) and of stage 3's last G-buffer
    camera (C = 14), and its row of the kernels line gains "quality_stage2"
    and "quality" entries measured there.
+14. batched: the camera-batched rasterizer (every camera projected, then
+   binned in one pass: one sort of all B x max_pairs keys) against the
+   per-camera path, with the JAX package's own tolerances between its two
+   paths; each comparison runs under PyTorch's deterministic algorithms
+   (``deterministic``: the default index_add_ sums with float atomics, and
+   two runs of one path differ by as much as the tolerances). (a) The slice (phase 4's widths) built twice from the seed, once
+   with batched_binning: one forward and backward from the same state,
+   jitter draw and background at step 200 on each path, their per-camera
+   pair lists (sorted_gid, seg_start, total_pairs) equal exactly, RGBA
+   within 1e-5 / 1e-5, loss and flattened gradients within 2e-4 / 2e-3;
+   then 4 timed batched steps (median s/step beside phase 4's, peak memory,
+   K1-K3 launched once per camera per step, the same gates as phase 4) and
+   the device memory the binning alone takes, batched and for one camera.
+   (b) Phase 9 (a)'s 3DGS workload with camera_batching="vmap" against
+   "map": the images, one step's xys_grad_norm and vis_counts, then 4 + 10
+   timed vmap steps. (c) One render and backward of 2 cameras at 800x800
+   per camera and batched: stage 2 at phase 7's widths from the product
+   run's stage-1 export (RGBA 5e-4 / 1e-3, gradients 1e-3 / 5e-3) and stage
+   3 at the chain's widths from its stage-2 run (gradients 1e-2 / 5e-3),
+   pair lists equal; stage 2's per-camera path once more with the default
+   algorithms against its deterministic run (the spread those tolerances
+   would otherwise meet, reported, not gated), and once with
+   tone_type="aces", finite and in [0, 1]. (d) Every kernel pass held against its plain version at (a)'s
+   last camera, and its row of the kernels line gains a "batched" entry.
+   (e) On the card against the CPU from the same inputs: antialias at
+   800x800 on (c)'s stage-3 frozen mesh (the value within 2e-4, about
+   three ulps of an 800-px coordinate, the vertex gradient within 1e-3 of
+   its largest entry) and env_shade with
+   bsdf="diffuse" and "white" (the card-vs-CPU rule of
+   tests/test_torch_kernels_gpu.py, no specular).
 The last three lines are the card's name and power limit, the kernels JSON
 line and the result JSON line; the line before them gives each phase's
 seconds. Without a CUDA device it exits non-zero before printing any result.
@@ -188,8 +218,10 @@ seconds. Without a CUDA device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1265,6 +1297,7 @@ def chain(device, seed, kernels, tmp: Path) -> tuple[dict, dict]:
             "shadow_steps": 24, "mesh_tile_capacity": MESH_TILE_CAPACITY,
             "image": [800, 800]},
         "scene_seconds": scene_s, "stages_1_2_seconds": stages12_s,
+        "stage2_run_dir": str(Path(out2["output_dir"]).resolve()),
         "stage2_val_psnr": out2["val_psnr"], "stage3_steps": per_step,
         "stage3_step_seconds": steps.seconds, "stage3_val_render_seconds": val.seconds,
         "stage3_val_psnr": [r["val_psnr"] for r in runs], "peak_memory_gib": peak_gib,
@@ -2799,11 +2832,479 @@ def quality(device, seed, kernels, scene: Path, card: str) -> tuple[dict, dict]:
     return out, captured
 
 
+# phase 14: the camera-batched rasterizer (GeoSplatter / GeoSplatterMC /
+# GeoSplatterDefer batched_binning, GSplatter camera_batching="vmap") against
+# the per-camera path, with the tolerances the JAX package holds its own two
+# paths to (tests/test_geosplat_stage1.py:129-145, tests/test_batched_binning.py)
+BATCHED = dict(compare_step=200, timed_steps=(200, 201, 202, 203), stage23_cameras=2,
+               stage23_image=800,
+               tol={"stage1": {"rgba": (1e-5, 1e-5), "grad": (2e-4, 2e-3)},
+                    "gsplat": {"rgba": (1e-5, 1e-5), "grad": (2e-4, 2e-3)},
+                    "stage2": {"rgba": (5e-4, 1e-3), "grad": (1e-3, 5e-3)},
+                    "stage3": {"rgba": (5e-4, 1e-3), "grad": (1e-2, 5e-3)}},
+               antialias_atol=2e-4, antialias_grad_rel=1e-3, shade_points=4096)
+
+
+@contextlib.contextmanager
+def deterministic(record: list):
+    """PyTorch's deterministic algorithms for the with-block (index_add_
+    without float atomics, cuBLAS on the fixed workspace main() sets), so
+    that two runs of one path give the same bits and one path can be held
+    to another: with the default algorithms two runs of stage 2's per-camera
+    path differ by as much as the tolerances (phase 14 (c) reports by how
+    much). Ops without a deterministic version warn; their messages go to
+    ``record``."""
+    import warnings
+
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+        record.extend(sorted({str(w.message)[:160] for w in caught
+                              if "deterministic" in str(w.message)}))
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def close_to(got, want, atol: float, rtol: float) -> dict:
+    """The largest |got - want|, the entries past atol + rtol |want|, and
+    whether got is finite with none past it."""
+    import torch
+
+    err = (got.double() - want.double()).abs()
+    bad = int((err > atol + rtol * want.double().abs()).sum())
+    return {"max_abs_err": float(err.max()), "past_tol": bad,
+            "ok": bad == 0 and bool(torch.isfinite(got).all())}
+
+
+class PairLists:
+    """Collects the PairBins of every composite (forward) the rasterizer
+    runs inside the with-block."""
+
+    def __enter__(self):
+        from geosplatting_tpu_torch.ops import rasterize as rz
+
+        self.rz, self.fn, self.bins = rz, rz.composite_pairs, []
+
+        def spy(bins, *args):
+            self.bins.append(bins)
+            return self.fn(bins, *args)
+
+        rz.composite_pairs = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.rz.composite_pairs = self.fn
+
+
+def same_pair_lists(a: list, b: list) -> bool:
+    import torch
+
+    return len(a) == len(b) > 0 and all(
+        torch.equal(x.sorted_gid, y.sorted_gid) and torch.equal(x.seg_start, y.seg_start)
+        and torch.equal(x.total_pairs, y.total_pairs) for x, y in zip(a, b))
+
+
+def flat_grads(module):
+    import torch
+
+    return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                      for p in module.parameters()])
+
+
+def binning_bytes(rz, step) -> dict:
+    """The device memory the binning alone takes above what it is given:
+    the arguments of the last ``bin_pairs_batched`` call of ``step()``,
+    binned again as one batch and as its first camera alone."""
+    import torch
+
+    fn, calls = rz.bin_pairs_batched, []
+
+    def keep(*args, **kw):
+        calls[:] = [(args, kw)]
+        return fn(*args, **kw)
+
+    rz.bin_pairs_batched = keep
+    try:
+        step()
+    finally:
+        rz.bin_pairs_batched = fn
+    (proj_b, *rest), kw = calls[0]
+    proj_b = type(proj_b)(*(x.detach() for x in proj_b))
+    out = {}
+    one_camera = type(proj_b)(*(x[:1] for x in proj_b))
+    for name, proj in (("batch", proj_b), ("one_camera", one_camera)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            bins = fn(proj, *rest, **kw)
+        torch.cuda.synchronize()
+        out[name] = torch.cuda.max_memory_allocated() - base
+        del bins
+    out["cameras"] = int(proj_b.means2d.shape[0])
+    out["max_pairs"] = int(kw["max_pairs"])
+    return out
+
+
+def batched_slice(device, seed, kernels) -> tuple[dict, dict]:
+    """(a) of phase 14: the slice with batched_binning against the map path
+    from the same state, jitter draw and background, then 4 timed steps.
+    Returns (summary, the last camera's kernel inputs)."""
+    import torch
+
+    from geosplatting_tpu_torch.models.geosplat import GeoSplatter
+    from geosplatting_tpu_torch.ops import rasterize as rz
+    from geosplatting_tpu_torch.ops import rasterize_pairs as rp
+    from geosplatting_tpu_torch.ops import segment_rows as sr
+
+    batch = SLICE["cameras"]
+    tol = BATCHED["tol"]["stage1"]
+    runs, timing, nondeterministic = {}, {}, []
+    for batched in (False, True):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        trainer, cams, gt = make_slice(device, gen, **SLICE, batched_binning=batched)
+        model = trainer.model
+        with torch.no_grad():
+            mesh, _, _ = model.get_geometry()
+        draw = torch.Generator(device=device).manual_seed(seed + 1)
+        noise = torch.randn((model.num_field_points(mesh), 3), generator=draw, device=device)
+        background = torch.rand(gt[..., :3].shape, generator=draw, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with deterministic(nondeterministic), PairLists() as lists, \
+                Timed(GeoSplatter, "render") as render:
+            (loss, _, reg), aux = trainer.compute_grads(
+                cams, gt, float(BATCHED["compare_step"]), sampling="face",
+                background=background, jitter_noise=noise)
+        runs[batched] = {"bins": lists.bins, "rgba": render.outputs[0][0].detach(),
+                         "loss": loss + reg, "grads": flat_grads(model),
+                         "seconds": time.perf_counter() - t0}
+        if not batched:
+            del trainer, model
+            continue
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        totals, seconds = {k: 0 for k in kernels.KERNELS}, []
+        recorders = [Recorder(rp, "composite_bwd"), Recorder(sr, "cumsum_rows")]
+        steps = BATCHED["timed_steps"]
+        for i, step in enumerate(steps):
+            if i == len(steps) - 1:
+                for r in recorders:
+                    r.__enter__()
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            m = trainer.train_step(cams, gt, float(step), sampling="face", generator=gen)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            counts = {k: kernels.launches[k] for k in kernels.KERNELS}
+            metrics = {k: float(v) for k, v in m.items()}
+            if not (math.isfinite(metrics["loss"]) and metrics["nonfinite_grads"] == 0
+                    and metrics["pair_fill"] <= 1.0):
+                raise AssertionError(f"batched slice step {step}: {metrics}")
+            if not (all(counts[k] == batch for k in kernels.KERNELS[:4])
+                    and counts["k3_cumsum_rows"] >= batch):
+                raise AssertionError(f"batched slice step {step}: launches {counts}")
+            for k in totals:
+                totals[k] += counts[k]
+        for r in recorders:
+            r.__exit__()
+        timing = {"step_seconds": seconds, "median_step_s": sorted(seconds)[len(seconds) // 2],
+                  "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                  "launches": totals, "last_metrics": metrics,
+                  "binning_peak_bytes": binning_bytes(rz, lambda: trainer.compute_grads(
+                      cams, gt, float(steps[-1]), sampling="face", generator=gen))}
+        captured = {"bwd": recorders[0].args, "k3": recorders[1].args}
+    m0, m1 = runs[False], runs[True]
+    checks = {
+        "pair_lists_equal": same_pair_lists(m0["bins"], m1["bins"]),
+        "cameras_binned": [len(m0["bins"]), len(m1["bins"])],
+        "total_pairs": [int(b.total_pairs) for b in m1["bins"]],
+        "rgba": close_to(m1["rgba"], m0["rgba"], *tol["rgba"]),
+        "loss": close_to(m1["loss"], m0["loss"], *tol["grad"]),
+        "grads": close_to(m1["grads"], m0["grads"], *tol["grad"]),
+        "compare_seconds": {"map": m0["seconds"], "batched": m1["seconds"]},
+        "nondeterministic_ops": nondeterministic,
+    }
+    summary = {"checks": checks, **timing, "steps": len(BATCHED["timed_steps"]),
+               "cameras": batch, "binning_slots": batch * m1["bins"][0].sorted_gid.shape[0]}
+    if not (checks["pair_lists_equal"] and len(m1["bins"]) == batch and checks["rgba"]["ok"]
+            and checks["loss"]["ok"] and checks["grads"]["ok"]):
+        raise AssertionError(f"batched binning disagrees with the map path: {checks}")
+    return summary, captured
+
+
+def batched_gsplat(device, seed, kernels) -> dict:
+    """(b) of phase 14: bench.py's 3DGS workload with camera_batching="vmap"
+    against "map" (the images, one step's xys_grad_norm and vis_counts),
+    then 4 warm-up and 10 timed vmap steps."""
+    import torch
+
+    from geosplatting_tpu_torch.train.gsplat_trainer import GSplatTrainer, GSplatTrainerConfig
+
+    c = GSPLAT
+    b = c["cameras"]
+    tol = BATCHED["tol"]["gsplat"]
+    out, nondeterministic = {}, []
+    for batching in ("map", "vmap"):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        splats, model, cams, gt = gsplat_scene(device, gen, sh_degree=0,
+                                               camera_batching=batching)
+        trainer = GSplatTrainer(GSplatTrainerConfig(batch_size=b, warmup_length=10**9), model,
+                                dataset_size=b)
+        trainer.init_state(splats)
+        with deterministic(nondeterministic):
+            with torch.no_grad():
+                if batching == "vmap":
+                    rgba = model.render_rgba_batched(trainer.splats(), cams)[0]
+                else:
+                    rgba = torch.stack([model.render_rgba(trainer.splats(), cams[i])[0]
+                                        for i in range(b)])
+            m = trainer.train_step(cams, gt, max_sh_degree=None, generator=gen)
+        out[batching] = {"rgba": rgba, "xys_grad_norm": trainer.xys_grad_norm.clone(),
+                         "vis_counts": trainer.vis_counts.clone(), "loss": m["loss"]}
+    seconds, totals = [], {k: 0 for k in kernels.KERNELS}
+    for i in range(c["warmup_steps"] + c["timed_steps"]):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        m = trainer.train_step(cams, gt, max_sh_degree=None, generator=gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: kernels.launches[k] for k in kernels.KERNELS}
+        if not (math.isfinite(float(m["loss"])) and float(m["nonfinite_grads"]) == 0
+                and float(m["pair_fill"]) <= 1.0 and all(counts[k] == b for k in counts)):
+            raise AssertionError(f"vmap 3DGS step {i}: {m} {counts}")
+        if i >= c["warmup_steps"]:
+            seconds.append(dt)
+            for k in totals:
+                totals[k] += counts[k]
+    a, v = out["map"], out["vmap"]
+    checks = {"rgba": close_to(v["rgba"], a["rgba"], *tol["rgba"]),
+              "xys_grad_norm": close_to(v["xys_grad_norm"], a["xys_grad_norm"], *tol["grad"]),
+              "vis_counts_equal": bool(torch.equal(v["vis_counts"], a["vis_counts"])),
+              "visible": float(v["vis_counts"].sum()),
+              "loss": close_to(v["loss"], a["loss"], *tol["grad"]),
+              "nondeterministic_ops": nondeterministic}
+    summary = {"checks": checks, "timed_step_seconds": seconds,
+               "median_step_s": sorted(seconds)[len(seconds) // 2], "launches": totals}
+    if not (checks["rgba"]["ok"] and checks["xys_grad_norm"]["ok"] and checks["loss"]["ok"]
+            and checks["vis_counts_equal"] and checks["visible"] > 0):
+        raise AssertionError(f"camera_batching='vmap' disagrees with 'map': {checks}")
+    return summary
+
+
+def map_vs_batched(model, render, tol, spread: bool = False) -> dict:
+    """One render and backward of sum(rgba) + reg with ``model``'s binning
+    per camera, then batched, from the same weights and draws, under
+    deterministic algorithms. With ``spread`` the per-camera path runs once
+    more with the default algorithms, against its deterministic run: the
+    run-to-run spread the comparison would otherwise see."""
+    import torch
+
+    runs, nondeterministic = {}, []
+    for batched, exact in ((False, True), (True, True)) + (((False, False),) if spread else ()):
+        model.batched_binning = batched
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (deterministic(nondeterministic) if exact else contextlib.nullcontext()), \
+                PairLists() as lists:
+            rgba, reg, aux = render()
+            (rgba.sum() + reg).backward()
+        torch.cuda.synchronize()
+        runs[batched, exact] = {"rgba": rgba.detach(), "grads": flat_grads(model),
+                                "bins": lists.bins, "total_pairs": int(aux["total_pairs"]),
+                                "seconds": time.perf_counter() - t0}
+    model.zero_grad(set_to_none=True)
+    m0, m1 = runs[False, True], runs[True, True]
+    out = {"pair_lists_equal": same_pair_lists(m0["bins"], m1["bins"]),
+           "total_pairs": [m0["total_pairs"], m1["total_pairs"]],
+           "rgba": close_to(m1["rgba"], m0["rgba"], *tol["rgba"]),
+           "grads": close_to(m1["grads"], m0["grads"], *tol["grad"]),
+           "seconds": {"map": m0["seconds"], "batched": m1["seconds"]},
+           "nondeterministic_ops": nondeterministic}
+    if spread:
+        d = runs[False, False]
+        out["default_algorithms_map_vs_map"] = {
+            "rgba": close_to(d["rgba"], m0["rgba"], *tol["rgba"]),
+            "grads": close_to(d["grads"], m0["grads"], *tol["grad"]),
+            "grad_max": float(m0["grads"].abs().max()), "entries": m0["grads"].numel()}
+    return out
+
+
+def batched_stages(device, seed, product_run: Path, stage2_run: Path) -> tuple[dict, object]:
+    """(c) of phase 14: one render and backward of 2 cameras at 800x800 per
+    camera and batched, stage 2 at the stage2 phase's widths (from the
+    product run's stage-1 export) and stage 3 at the chain's (from its
+    stage-2 run); stage 2 once more with tone_type="aces". Returns (summary,
+    the stage-3 model)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from geosplatting_tpu_torch.engine.stage_io import find_export, load_export
+    from geosplatting_tpu_torch.graphics.cameras import Cameras
+    from geosplatting_tpu_torch.models.geosplat_mc import GeoSplatterMC
+    from geosplatting_tpu_torch.scripts import train_geosplat_defer as cli3
+
+    cams = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=2.0, elevation_degrees=15.0,
+                              num_samples=BATCHED["stage23_cameras"],
+                              width=BATCHED["stage23_image"], height=BATCHED["stage23_image"],
+                              device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    export = load_export(find_export(product_run))
+    planes = np.shape(export["ks_enc"]["planes"])
+    m2 = GeoSplatterMC(resolution=STAGE2["grid"], scale=STAGE2["scene_scale"],
+                       num_samples_x=STAGE2["num_samples_x"], shadow_steps=STAGE2["shadow_steps"],
+                       pairs_budget=STAGE2["pairs_budget"],
+                       max_render_faces=STAGE2["max_render_faces"],
+                       triplane_resolution=planes[1], triplane_components=planes[-1],
+                       generator=gen, device=device)
+    m2.init_from_stage1(export)
+    noise = torch.randn(m2.field.jitter_shape(m2.num_field_points()), generator=gen,
+                        device=device)
+    draws = [m2.draw_shade(gen) for _ in range(len(cams))]
+    s2 = map_vs_batched(m2, lambda: m2.render(cams, jitter_noise=noise, draws=draws),
+                        BATCHED["tol"]["stage2"], spread=True)
+    with torch.no_grad():
+        aces, _, _ = m2.render(cams, tone_type="aces", jitter_noise=noise, draws=draws)
+    s2["aces"] = {"finite": bool(torch.isfinite(aces).all()), "min": float(aces.min()),
+                  "max": float(aces.max())}
+    del m2, draws, aces
+
+    task3 = dataclasses.replace(cli3.TASKS["s4r-twosphere"], load=stage2_run)
+    export3 = load_export(find_export(stage2_run))
+    m3 = task3.make_model(export3, device)
+    m3.init_from_stage2(export3)
+    draws3 = [m3.draw_shade(cams, gen) for _ in range(len(cams))]
+    s3 = map_vs_batched(m3, lambda: m3.render(cams, draws=draws3), BATCHED["tol"]["stage3"])
+    del draws3
+    summary = {"stage2": s2, "stage3": s3, "cameras": len(cams),
+               "image": [BATCHED["stage23_image"]] * 2,
+               "stage2_widths": {k: STAGE2[k] for k in ("grid", "scene_scale", "pairs_budget",
+                                                        "max_render_faces", "num_samples_x")},
+               "stage3_widths": {k: getattr(task3, k) for k in (
+                   "resolution", "scene_scale", "pairs_budget", "num_samples_x")}}
+    if not (all(s["pair_lists_equal"] and s["rgba"]["ok"] and s["grads"]["ok"]
+                and s["total_pairs"][0] == s["total_pairs"][1] > 0 for s in (s2, s3))
+            and s2["aces"]["finite"] and 0.0 <= s2["aces"]["min"] <= s2["aces"]["max"] <= 1.0):
+        raise AssertionError(f"batched binning disagrees with the map path: {summary}")
+    return summary, m3
+
+
+def batched_options_card_vs_cpu(device, seed, m3) -> dict:
+    """(e) of phase 14: antialias at 800x800 on the stage-3 model's frozen
+    mesh (its value and its gradient in the vertices) and env_shade with
+    bsdf="diffuse" / "white", on the card against the CPU from the same
+    inputs. The projected vertices round differently on the two devices,
+    and an ulp of an 800-px coordinate (6e-5) moves a blend weight by as
+    much: the value is held to 2e-4."""
+    import torch
+
+    from geosplatting_tpu_torch.graphics.cameras import Cameras
+    from geosplatting_tpu_torch.graphics.mesh import TriangleMesh
+    from geosplatting_tpu_torch.ops import envshade as es
+    from geosplatting_tpu_torch.ops.mesh_raster import (
+        RasterOut, antialias, interpolate, rasterize_mesh,
+    )
+
+    res = BATCHED["stage23_image"]
+    cam = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=2.0, elevation_degrees=15.0,
+                             num_samples=1, width=res, height=res, device=device)[0]
+    mesh = m3.mesh
+    with torch.no_grad():
+        rast, info = rasterize_mesh(mesh, cam, tile_capacity=m3.mesh_raster_capacity)
+        vcol = torch.clamp(mesh.vertices * 0.8 + 0.5, 0.0, 1.0)
+        color = interpolate(vcol, mesh, rast) + (rast.tri_id < 0)[..., None] * 0.1
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn(color.shape, generator=g)
+    outs = []
+    for dev in (device, "cpu"):
+        v = mesh.vertices.detach().to(dev).requires_grad_()
+        m = TriangleMesh(vertices=v, indices=mesh.indices.to(dev),
+                         face_mask=None if mesh.face_mask is None else mesh.face_mask.to(dev))
+        out = antialias(color.to(dev), m, cam.to(dev), RasterOut(*(x.to(dev) for x in rast)))
+        (out * w.to(dev)).sum().backward()
+        outs.append((out.detach().cpu(), v.grad.cpu()))
+    (a_card, g_card), (a_cpu, g_cpu) = outs
+    grad_err = float((g_card - g_cpu).abs().max())
+    aa = {"faces": int(mesh.indices.shape[0]), "tile_fill": info.tile_fill,
+          "blended_pixels": int(((a_cpu - color.cpu()).abs().amax(-1) > 1e-3).sum()),
+          "max_abs_err": float((a_card - a_cpu).abs().max()), "grad_max_abs_err": grad_err,
+          "grad_max": float(g_cpu.abs().max())}
+    aa["ok"] = (aa["max_abs_err"] <= BATCHED["antialias_atol"] and aa["blended_pixels"] > 0
+                and aa["grad_max"] > 0
+                and grad_err <= BATCHED["antialias_grad_rel"] * aa["grad_max"])
+
+    # env_shade's white lobe (no visibility: the residual is 0 as the
+    # specular is): the rule of the card-vs-CPU tests (< 3 % of entries past
+    # 5e-3 + 5e-3 |x|, cosine > 0.999; a texel lookup may flip)
+    num = BATCHED["shade_points"]
+    d = torch.nn.functional.normalize(torch.randn((num, 3), generator=g), dim=-1)
+    pos = d * (0.36 + 0.2 * torch.rand((num, 1), generator=g))
+    view = torch.tensor([0.3, 0.6, 2.8])
+    nrm = torch.nn.functional.normalize(
+        0.3 * d + torch.nn.functional.normalize(view - pos, dim=-1), dim=-1)
+    kd = 0.2 + 0.6 * torch.rand((num, 3), generator=g)
+    arm = torch.stack((torch.zeros(num), 0.3 + 0.6 * torch.rand(num, generator=g),
+                       0.05 + 0.75 * torch.rand(num, generator=g)), -1)
+    i, j = torch.meshgrid(torch.arange(32.0), torch.arange(64.0), indexing="ij")
+    light = (0.3 + 0.2 * torch.sin(i / 10) * torch.cos(j / 9))[..., None] + torch.tensor(
+        [0.0, 0.07, 0.14])
+    draws = es.draw_shade(num, num_samples_x=4, generator=g)
+    shade = {}
+    for bsdf in ("diffuse", "white"):
+        res = [es.env_shade(*(x.to(dev) for x in (pos, nrm, view, kd, arm)),
+                            es.compute_light_pdf(light.to(dev)), draws.to(dev), bsdf=bsdf)
+               for dev in (device, "cpu")]
+        checks = []
+        for got, want in zip(*res):
+            got, want = got.double().cpu(), want.double()
+            off = float(((got - want).abs() > 5e-3 + 5e-3 * want.abs()).float().mean())
+            cos = float((got * want).sum() / max(float(got.norm() * want.norm()), 1e-300))
+            checks.append({"share_off": off, "cosine": cos,
+                           "max_abs_err": float((got - want).abs().max())})
+        spec_zero = float(res[0][1].abs().max()) == 0.0
+        shade[bsdf] = {"outputs": checks, "specular_zero": spec_zero,
+                       "ok": spec_zero and all(bool(torch.isfinite(o).all()) for o in res[0])
+                       and all(c["share_off"] < 0.03 for c in checks)
+                       and checks[0]["cosine"] > 0.999}
+    summary = {"antialias": aa, "env_shade": shade}
+    if not (aa["ok"] and all(s["ok"] for s in shade.values())):
+        raise AssertionError(f"an option disagrees card vs CPU: {summary}")
+    return summary
+
+
+def batched(device, seed, kernels, product_run: Path, stage2_run: Path, card: str,
+            slice_median: float, gsplat_median: float) -> tuple[dict, dict]:
+    """Phase 14 of the docstring, (a)-(c) and (e); returns (the phase's
+    numbers, (a)'s last camera's kernel inputs) for (d)."""
+    out = {}
+    out["slice"], captured = batched_slice(device, seed, kernels)
+    phase("batched_slice", **out["slice"], map_median_face_step_s=slice_median, card=card)
+    out["gsplat"] = batched_gsplat(device, seed, kernels)
+    phase("batched_gsplat", **out["gsplat"], map_median_step_s=gsplat_median, card=card)
+    out["stages"], m3 = batched_stages(device, seed, product_run, stage2_run)
+    phase("batched_stages", **out["stages"])
+    out["options"] = batched_options_card_vs_cpu(device, seed, m3)
+    phase("batched_options_card_vs_cpu", **out["options"])
+    return out, captured
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    # a fixed cuBLAS workspace, set before the first cuBLAS call: phase 14's
+    # deterministic comparisons need it (``deterministic``)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2921,6 +3422,12 @@ def main() -> int:
         t0 = time.perf_counter()
         qual, captured_quality = quality(device, args.seed, _kernels, Path(tmp) / "scene", smi)
         seconds["quality"] = time.perf_counter() - t0
+        # the camera-batched rasterizer against the per-camera path
+        t0 = time.perf_counter()
+        bat, captured_batched = batched(
+            device, args.seed, _kernels, Path(prod["run_dir"]), Path(s3["stage2_run_dir"]), smi,
+            sorted(face)[len(face) // 2], bench["median_step_s"])
+        seconds["batched"] = time.perf_counter() - t0
     # the kernels held to their plain versions at the differentiated ED
     # render's inputs: K2's gradient has a non-zero depth row there
     t0 = time.perf_counter()
@@ -2958,6 +3465,17 @@ def main() -> int:
             entry[name] = measured["rows"][entry["name"]]
     del captured_quality
     seconds["kernels_quality"] = time.perf_counter() - t0
+    # and at the batched slice's: K1-K3 fed by the one-pass binning
+    t0 = time.perf_counter()
+    measured = measure_kernels(captured_batched, bat["slice"]["launches"],
+                               bat["slice"]["steps"])
+    del captured_batched
+    phase("kernels_vs_plain_at_batched", **measured["checks"], **measured["counts"],
+          max_abs_err={k: r["max_abs_err"] for k, r in measured["rows"].items()},
+          tol=TOLERANCES)
+    for entry in line["kernels"]:
+        entry["batched"] = measured["rows"][entry["name"]]
+    seconds["kernels_batched"] = time.perf_counter() - t0
     phase("phase_seconds", **seconds, total=time.perf_counter() - start)
     print(smi)
     print(json.dumps(line))

@@ -21,6 +21,10 @@ name for name. The prior's tree is ``{"deform", "latlng", "exposure",
 "field"}`` and, without the jitter smoothing, ``kdks`` [6F, 5] and ``zs``
 [6F, 1]; its base mesh is a buffer, not a parameter.
 
+A standalone JAX ``MLPConfig`` tree, ``{"w0", "b0", "w1", ...}`` ([out, in]
+weights, [out] biases), is the state dict of the port's ``MLP`` name for
+name (``mlp_from_numpy`` / ``mlp_to_numpy``).
+
 Vanilla 3DGS (``GSplatTrainer.init_state``): the params tree is flat,
 ``means``, ``scales``, ``quats``, ``colors``, ``opacities`` and ``shs``,
 which is also the JAX task's export; each Adam group's state is the
@@ -112,6 +116,17 @@ def params_to_numpy(state: Mapping[str, torch.Tensor]) -> dict:
             field[head] = leaves
     tree["field"] = field
     return tree
+
+
+def mlp_from_numpy(tree: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``MLPConfig`` parameters (``w{i}``, ``b{i}``) -> the state dict
+    of ``models.mlp.MLP``; load it with ``load_state_dict``."""
+    return {k: _f32(v) for k, v in tree.items()}
+
+
+def mlp_to_numpy(state: Mapping[str, torch.Tensor]) -> dict:
+    """State dict of ``models.mlp.MLP`` -> the JAX ``MLPConfig`` tree."""
+    return {k: v.detach().cpu().numpy() for k, v in state.items()}
 
 
 # --- vanilla 3DGS -------------------------------------------------------------------

@@ -179,7 +179,6 @@ class ExtractedMesh(NamedTuple):
     num_surf_edges: torch.Tensor  # [] actual count
 
 
-_WEIGHT_SCALE = 0.99  # the raw FlexiCubes weights map into 1 +- 0.99
 
 
 def _vertex_id(grid: FlexiCubesGrid, x, y, z):
@@ -210,14 +209,20 @@ def _compact_lookup(keys: torch.Tensor, valid: torch.Tensor, size: int, fill: in
 
 def extract(
     grid: FlexiCubesGrid,
-    sdf: torch.Tensor,      # [V]
-    deform: torch.Tensor,   # [V, 3] raw (tanh'ed here)
+    sdf: torch.Tensor,                    # [V]
+    deform: torch.Tensor | None = None,   # [V, 3] raw (tanh'ed here)
+    alpha: torch.Tensor | None = None,    # [F, 8] raw
+    beta: torch.Tensor | None = None,     # [F, 12] raw
+    gamma: torch.Tensor | None = None,    # [F, 1] raw
     *,
-    alpha: torch.Tensor,    # [F, 8] raw
-    beta: torch.Tensor,     # [F, 12] raw
-    gamma: torch.Tensor,    # [F, 1] raw
+    weight_scale: float = 0.99,
+    sdf_eps: float | None = None,
 ) -> ExtractedMesh:
-    """Differentiable dual marching cubes (flexicubes.py:207)."""
+    """Differentiable dual marching cubes (flexicubes.py:207). Each weight
+    left out is 1 (the undeformed grid without ``deform``); the raw weights
+    map into 1 +- ``weight_scale`` (gamma into (1 - ws) / 2 + (0, ws)).
+    ``sdf_eps`` pulls every zero crossing's lerp weight w to (1 - eps) w +
+    eps / 2."""
     dmc_table_np, _num_vd_np, MAX_VD, _MAX_E = _build_dmc_tables()
     local_slot_np = _build_local_edge_slot()
     dev = sdf.device
@@ -228,7 +233,9 @@ def extract(
     S = grid.max_surf_cubes
     E = grid.max_surf_edges
 
-    vertices = grid.base_vertices(dev) + torch.tanh(deform) * grid.deform_step()
+    vertices = grid.base_vertices(dev)
+    if deform is not None:
+        vertices = vertices + torch.tanh(deform) * grid.deform_step()
     sdf = sdf.reshape(V)
     occ = sdf < 0
 
@@ -255,10 +262,14 @@ def extract(
     sc_safe = sc.clamp(max=F - 1)
     case_s = torch.where(sc_valid, case_ids[sc_safe], 0)
 
-    ws = _WEIGHT_SCALE
-    alpha_s = torch.tanh(gather_rows(alpha, sc_safe)) * ws + 1.0
-    beta_s = torch.tanh(gather_rows(beta, sc_safe)) * ws + 1.0
-    gamma_s = torch.sigmoid(gather_rows(gamma, sc_safe)[:, 0]) * ws + (1 - ws) / 2
+    ws = weight_scale
+    ones = sdf.new_ones
+    alpha_s = (torch.tanh(gather_rows(alpha, sc_safe)) * ws + 1.0 if alpha is not None
+               else ones((S, 8)))
+    beta_s = (torch.tanh(gather_rows(beta, sc_safe)) * ws + 1.0 if beta is not None
+              else ones((S, 12)))
+    gamma_s = (torch.sigmoid(gather_rows(gamma, sc_safe)[:, 0]) * ws + (1 - ws) / 2
+               if gamma is not None else ones((S,)))
 
     # --- surface edges (analytic ids: d * V + base vertex, then compaction) --
     strides = t([1, rx + 1, (rx + 1) * (ry + 1)])
@@ -286,6 +297,8 @@ def extract(
         denom = sa - sb
         denom = torch.where(denom.abs() < 1e-12, torch.ones_like(denom), denom)
         w_b = sa / denom
+        if sdf_eps is not None:
+            w_b = (1 - sdf_eps) * w_b + sdf_eps / 2
         return xb * w_b[..., None] + xa * (1 - w_b)[..., None]
 
     zero_x = lerp(sa, sb, gather_rows(vertices, se_a), gather_rows(vertices, se_b))  # [E, 3]

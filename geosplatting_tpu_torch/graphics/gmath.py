@@ -16,6 +16,15 @@ def safe_normalize(x: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     return x / torch.sqrt(torch.clamp((x * x).sum(-1, keepdim=True), min=eps))
 
 
+def dot(a: torch.Tensor, b: torch.Tensor, keepdim: bool = True) -> torch.Tensor:
+    return (a * b).sum(-1, keepdim=keepdim)
+
+
+def reflect(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """x mirrored about n: 2 (n . x) n - x."""
+    return 2.0 * dot(n, x) * n - x
+
+
 def abs_(x: torch.Tensor) -> torch.Tensor:
     """|x| whose gradient at x == 0 is +1, as ``jnp.abs``'s is (torch's is 0).
     Parameters start at exact zeros (the FlexiCubes weights, a constant
@@ -162,6 +171,31 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     return result
 
 
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of wxyz quaternions [..., 4]."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack((
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ), -1)
+
+
+def slerp_quat(qa: torch.Tensor, qb: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Spherical interpolation from qa (w = 0) to qb (w = 1) along the
+    shorter arc."""
+    cos = (qa * qb).sum(-1)
+    neg = cos < 0
+    cos = torch.where(neg, -cos, cos)
+    qa = torch.where(neg[..., None], -qa, qa)
+    angle = torch.clamp(torch.arccos(torch.clamp(cos, -1.0, 1.0 - 1e-7)), min=1e-8)
+    isin = 1.0 / torch.sin(angle)
+    return (qa * (torch.sin((1 - w) * angle) * isin)[..., None]
+            + qb * (torch.sin(w * angle) * isin)[..., None])
+
+
 def random_quaternion(shape: tuple[int, ...], *, generator: torch.Generator | None = None,
                       device=None, normal: torch.Tensor | None = None) -> torch.Tensor:
     """Uniform random unit quaternions: normalised standard-normal draws
@@ -195,3 +229,11 @@ def dir_to_latlng_uv(d: torch.Tensor) -> torch.Tensor:
     theta = torch.arccos(torch.clamp(d[..., 1], -1.0, 1.0))
     u = torch.atan2(d[..., 0], -d[..., 2]) / (2.0 * math.pi) + 0.5
     return torch.stack((u, theta / math.pi), -1)
+
+
+def latlng_dir(theta: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
+    """(theta in [0, pi] from the +y pole, phi in [-pi, pi) with 0 at -z)
+    -> unit direction, y up: the inverse of ``dir_to_latlng_uv`` with phi
+    = (u - 0.5) 2 pi."""
+    sin_t = torch.sin(theta)
+    return torch.stack((sin_t * torch.sin(phi), torch.cos(theta), -sin_t * torch.cos(phi)), -1)

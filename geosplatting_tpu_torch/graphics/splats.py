@@ -2,7 +2,7 @@
 
 Counterpart of ``geosplatting_tpu/graphics/splats.py`` (``Splats`` with
 ``random``, ``reset_opacities``, ``_mean_knn_distance``, and ``split``,
-``densify_and_cull`` and ``cull``). ``scales`` are log-scales and
+``densify_and_cull``, ``cull`` and ``as_points``). ``scales`` are log-scales and
 ``opacities`` are logits. ``shs`` holds the SH coefficients past the DC
 term, [N, K - 1, 3]; stages 1-3 leave it at its default [N, 0, 3].
 
@@ -202,3 +202,24 @@ def cull(splats: Splats, *, cull_alpha_thresh: float,
     scale_max = torch.exp(splats.scales).max(-1).values
     sel_idx = torch.nonzero(~_culls(splats, scale_max, cull_alpha_thresh, cull_scale_thresh))[:, 0]
     return splats[sel_idx], sel_idx
+
+
+def as_points(splats: Splats, num_samples: int, *, generator: torch.Generator | None = None,
+              idx: torch.Tensor | None = None, randn: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sample points from the Gaussian mixture: ``num_samples`` Gaussians
+    drawn in proportion to their volume exp(sum of log-scales) (``idx``),
+    each offset by its scaled, rotated standard-normal draw (``randn``
+    [num_samples, 3]); whichever draw is not given comes from
+    ``generator``. Returns (positions [num_samples, 3], their colours)."""
+    dev = splats.means.device
+    if idx is None:
+        volumes = torch.exp(splats.scales.sum(-1)) + 1e-20
+        idx = torch.multinomial(volumes / volumes.sum(), num_samples, replacement=True,
+                                generator=generator)
+    if randn is None:
+        randn = torch.randn((num_samples, 3), generator=generator, device=dev)
+    offsets = randn * torch.exp(splats.scales[idx])
+    rots = gmath.quat2rot(gmath.safe_normalize(splats.quats[idx]))
+    pos = splats.means[idx] + torch.einsum("nij,nj->ni", rots, offsets)
+    return pos, splats.colors[idx]

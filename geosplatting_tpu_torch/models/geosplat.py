@@ -9,7 +9,9 @@ for stage 3, ``KsBundle`` and ``load_ks_bundle`` (``apply_ks_bundle``),
 ``compact_faces``, face and vertex Gaussian sampling, split-sum shading in
 the fast (training) and exact (validation, export) qualities and
 ``GeoSplatter`` (an ``nn.Module`` that owns the stage-1 parameters) with
-``get_geometry``, ``get_envmap`` and the per-camera ``render``.
+``get_geometry``, ``get_envmap`` and ``render``: camera by camera, or with
+``batched_binning`` every camera shaded, then binned in one pass
+(``bin_cameras_batched``) and composited camera by camera.
 
 Randomness is explicit: ``render`` takes the jitter noise as a tensor (a
 standard-normal draw of ``field.jitter_shape``: one row a face for the
@@ -36,7 +38,7 @@ from ..graphics.mesh import TriangleMesh
 from ..graphics.splats import Splats
 from ..ops import cubemap as cm
 from ..ops.hashgrid import HashGridConfig, hashgrid_encode
-from ..ops.rasterize import rasterize
+from ..ops.rasterize import camera_matrices, rasterize, rasterize_batched
 from ..ops.segment_rows import gather_rows
 from .encodings import TriplaneEncoding, triplane_features
 from .mlp import MLP
@@ -630,6 +632,7 @@ class GeoSplatter(nn.Module):
         pairs_budget: int | None = None,
         tile_shape: str = "16",
         env_quality: str = "fast",
+        batched_binning: bool = False,
         triplane_resolution: int = 512,
         triplane_components: int = 32,
         field_hidden: int = 64,
@@ -651,6 +654,9 @@ class GeoSplatter(nn.Module):
         self.pairs_per_gaussian = pairs_per_gaussian
         self.pairs_budget = pairs_budget
         self.tile_shape = tile_shape
+        # bin the whole camera batch in one pass (one sort) instead of one
+        # binning a camera; the images and gradients are the same
+        self.batched_binning = batched_binning
         self.grid = fc.make_grid(
             resolution, scale=scale, surf_cube_budget=surf_cube_budget,
             surf_edge_budget=surf_edge_budget,
@@ -764,6 +770,28 @@ class GeoSplatter(nn.Module):
         reg = reg + light_reg * w["light"]
 
         shade_attrs = dataclasses.replace(attrs, kd_jitter=None, ks_jitter=None)
+        if self.batched_binning:
+            with record_function("geosplat.shade_rasterize"):
+                rgba, total, max_pairs = self._render_batched(
+                    splats, shade_attrs, cameras, exposure, base, mips, quality)
+        else:
+            rgba, total, max_pairs = self._render_map(
+                splats, shade_attrs, cameras, exposure, base, mips, quality)
+        aux = {
+            "num_gaussians": valid.sum(),
+            "num_surf_cubes": extracted.num_surf_cubes,
+            "num_surf_edges": extracted.num_surf_edges,
+            # overflow observables: silent truncation at either cap
+            "num_faces_valid": num_faces_valid,
+            "max_render_faces": self.max_render_faces,
+            "total_pairs": total,
+            "max_pairs": max_pairs,
+        }
+        return rgba, reg, aux
+
+    def _render_map(self, splats, shade_attrs, cameras, exposure, base, mips, quality):
+        """Shade and rasterize camera by camera: (rgba [B, H, W, 4], the
+        largest total_pairs, max_pairs)."""
         rgbas, totals = [], []
         for i in range(len(cameras)):
             with record_function("geosplat.shade_rasterize"):
@@ -777,14 +805,22 @@ class GeoSplatter(nn.Module):
                 )
             rgbas.append(rgba)
             totals.append(pair_info["total_pairs"])
-        aux = {
-            "num_gaussians": valid.sum(),
-            "num_surf_cubes": extracted.num_surf_cubes,
-            "num_surf_edges": extracted.num_surf_edges,
-            # overflow observables: silent truncation at either cap
-            "num_faces_valid": num_faces_valid,
-            "max_render_faces": self.max_render_faces,
-            "total_pairs": torch.stack(totals).max(),
-            "max_pairs": pair_info["max_pairs"],
-        }
-        return torch.stack(rgbas), reg, aux
+        return torch.stack(rgbas), torch.stack(totals).max(), pair_info["max_pairs"]
+
+    def _render_batched(self, splats, shade_attrs, cameras, exposure, base, mips, quality):
+        """Shade every camera, bin them all in one pass, composite camera by
+        camera (the JAX ``batched_binning`` branch): as ``_render_map``."""
+        shaded = [shade_colors_splitsum(
+            splats, shade_attrs, cameras[i].camera_pos, env_base=base, env_mips=mips,
+            min_roughness=self.min_roughness, max_metallic=self.max_metallic,
+            env_quality=quality) for i in range(len(cameras))]
+        colors_b, opac_b = (torch.stack(x) for x in zip(*shaded))
+        viewmats, Ks = camera_matrices(cameras)
+        render, alpha, info = rasterize_batched(
+            splats.means, gmath.safe_normalize(splats.quats), torch.exp(splats.scales),
+            opac_b, colors_b, viewmats, Ks, cameras.width, cameras.height,
+            rasterize_mode="antialiased", pairs_per_gaussian=self.pairs_per_gaussian,
+            max_pairs_override=self.pairs_budget, tile_size=self.tile_shape,
+        )
+        rgba = torch.cat((tone_naive(render[..., :3], exposure), alpha), -1)
+        return rgba, info["total_pairs"], info["max_pairs"]

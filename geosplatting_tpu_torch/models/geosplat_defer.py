@@ -10,7 +10,11 @@ metallic, occ) through the pairs rasterizer and divides it by the detached
 alpha, rasterizes the frozen stage-2 mesh for each pixel's surface position,
 shades every pixel with ``env_shade`` (SDF shadows through the frozen SDF),
 adds the residual light sigmoid(occ - 3) times the shadowed fraction,
-composites over alpha and tone-maps. ``render_attribute`` rasterizes kd,
+composites over alpha and tone-maps. With ``batched_binning`` every
+camera's G-buffer pairs are binned in one pass ahead of the loop
+(``bin_cameras_batched``), fed each camera's opacities with its back-facing
+Gaussians killed, and each camera composites from its bins.
+``render_attribute`` rasterizes kd,
 roughness / metallic or normals for the regularization and the evaluation;
 ``albedo_scaling`` with a relight environment gives the relit renders.
 The stage-3 export's ``params`` are ``convert.params_to_numpy`` of the
@@ -21,12 +25,14 @@ camera's ``ShadeDraws`` as tensors, or draws them from the caller's
 ``torch.Generator``. The roughness predictor is the stage-2 export's:
 the triplane trunk and head (``KsBundle``) or, for an export of the hash
 field, a ``HashEncoding`` (``ks_hash``, the JAX model's ``KS_ENC`` for a
-task). Left out of the JAX model: ``batched_binning``, ``tile_capacity``,
-``tile_chunk``, ``chunk_size`` and ``backend`` (the port has one
-rasterizer, the pairs path). The frozen mesh's raster keeps every
-triangle: its tile capacity is at least the mesh's face count, where the
-JAX model keeps ``mesh_tile_capacity`` a tile and drops the rest without a
-word (small images put thousands of triangles in one 16 x 16 tile).
+task). Left out of the JAX model: ``tile_capacity``, ``tile_chunk``,
+``chunk_size`` and ``backend`` (the port has one rasterizer, the pairs
+path). As in the JAX model, ``render_attribute`` (the trainer's kd and
+normal maps) bins camera by camera whatever ``batched_binning`` says. The
+frozen mesh's raster keeps every triangle: its tile capacity is at least
+the mesh's face count, where the JAX model keeps ``mesh_tile_capacity`` a
+tile and drops the rest without a word (small images put thousands of
+triangles in one 16 x 16 tile).
 """
 from __future__ import annotations
 
@@ -44,7 +50,9 @@ from ..graphics.mesh import TriangleMesh
 from ..ops import envshade as es
 from ..ops.hashgrid import HashGridConfig
 from ..ops.mesh_raster import interpolate, rasterize_mesh
-from ..ops.rasterize import rasterize
+from ..ops.rasterize import (
+    bin_cameras_batched, camera_matrices, camera_slice, composite_from_bins, rasterize,
+)
 from ..ops.sdf_visibility import make_sdf_visibility
 from .geosplat import (
     HashEncoding, HashEncodingConfig, KsBundle, check_ks_bundle, load_ks_bundle, tone_aces,
@@ -106,6 +114,7 @@ class GeoSplatterDefer(nn.Module):
         pairs_per_gaussian: int = 6,
         pairs_budget: int | None = None,
         tile_shape: str = "16",
+        batched_binning: bool = False,
         mesh_tile_capacity: int = 256,
         device: str | torch.device | None = None,
     ):
@@ -122,6 +131,7 @@ class GeoSplatterDefer(nn.Module):
         self.pairs_per_gaussian = pairs_per_gaussian
         self.pairs_budget = pairs_budget
         self.tile_shape = tile_shape
+        self.batched_binning = batched_binning
         self.mesh_tile_capacity = mesh_tile_capacity
         for name in GAUSSIAN_PARAMS:
             self.register_parameter(name, nn.Parameter(
@@ -270,19 +280,41 @@ class GeoSplatterDefer(nn.Module):
         ) if self.shadow_scale > 0 else None
         nsx = num_samples_override or self.num_samples_x
 
+        bends = [(normals.detach() * -cameras[i].c2w[:, 2]).sum(-1, keepdim=True) > 0
+                 for i in range(len(cameras))]
+        binned = None
+        if self.batched_binning:
+            # the per-camera kill of back-facing Gaussians feeds the binning
+            opac_b = torch.stack([torch.sigmoid(torch.where(bend, -2.0, self.opacities)[:, 0])
+                                  for bend in bends])
+            viewmats, Ks = camera_matrices(cameras)
+            binned = bin_cameras_batched(
+                means, gmath.safe_normalize(self.quats), torch.exp(self.scales), opac_b,
+                viewmats, Ks, cameras.width, cameras.height, rasterize_mode="antialiased",
+                pairs_per_gaussian=self.pairs_per_gaussian, max_pairs_override=self.pairs_budget,
+                tile_size=self.tile_shape,
+            )
+
         rgbas, totals, tile_fill, mesh_pair_fill = [], [], [], []
         for i in range(len(cameras)):
             cam = cameras[i]
             camera_pos = cam.c2w[:, 3]
-            camera_lookat = -cam.c2w[:, 2]
-            bend = (normals.detach() * camera_lookat).sum(-1, keepdim=True) > 0
+            bend = bends[i]
             frag_normals = torch.where(bend, -normals, normals)
-            opac = torch.where(bend, -2.0, self.opacities)
             with record_function("defer.gbuffer"):
                 gbuf = torch.cat((frag_normals, kd, ks, occ), -1)   # 14 channels
-                render, alpha, info = self._rasterize(
-                    gbuf, opac, cam, pairs_per_gaussian=self.pairs_per_gaussian,
-                    max_pairs_override=self.pairs_budget)
+                if binned is None:
+                    render, alpha, info = self._rasterize(
+                        gbuf, torch.where(bend, -2.0, self.opacities), cam,
+                        pairs_per_gaussian=self.pairs_per_gaussian,
+                        max_pairs_override=self.pairs_budget)
+                else:
+                    proj_b, bins_b, max_pairs = binned
+                    render, alpha, info = composite_from_bins(
+                        camera_slice(proj_b, i), camera_slice(bins_b, i), gbuf,
+                        max_pairs=max_pairs, width=cam.width, height=cam.height,
+                        tile_size=self.tile_shape,
+                    )
             render = render / torch.clamp(alpha.detach(), min=1e-6)
             frag_n = gmath.safe_normalize(render[..., 0:3])
             frag_kd = render[..., 3:6]

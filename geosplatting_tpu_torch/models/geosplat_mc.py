@@ -8,7 +8,10 @@ shades every Gaussian at its undisplaced surface position with ``env_shade``
 (visibility sphere-traced through the live SDF), bends the normals toward
 the camera, denoises the shading along the Gaussian axis, adds the residual
 light sigmoid(occ - 3) times the shadowed fraction, rasterizes
-(antialiased) and tone-maps. ``export_model`` and ``compact_export`` write
+(antialiased) and tone-maps (naive, ACES or none). With ``batched_binning``
+every camera is binned in one pass ahead of the Monte-Carlo loop
+(``bin_cameras_batched``; the opacities do not depend on the camera here)
+and each camera composites from its bins. ``export_model`` and ``compact_export`` write
 the stage-2 export that stage 3 loads; ``export_stage1`` writes the stage-1
 one that ``init_from_stage1`` reads.
 
@@ -16,9 +19,9 @@ Randomness is explicit: ``render`` takes the face jitter noise and each
 camera's ``ShadeDraws`` as tensors, or draws them from the caller's
 ``torch.Generator``. The field is the shared triplane field unless the
 caller gives a ``GaussianField`` (with ``occ_enc=OCC_ENC``), whose stage-1
-bundle is the hash grid's. Left out of the JAX model: ``batched_binning``,
-``tile_capacity``, ``tile_chunk`` and ``backend`` (the port has one
-rasterizer, the pairs path), and ``tone_aces``.
+bundle is the hash grid's. Left out of the JAX model: ``tile_capacity``,
+``tile_chunk`` and ``backend`` (the port has one rasterizer, the pairs
+path).
 """
 from __future__ import annotations
 
@@ -37,12 +40,14 @@ from ..ops import cubemap as cm
 from ..ops import envshade as es
 from ..ops.denoise import bilateral_denoise
 from ..ops.hashgrid import HashGridConfig
-from ..ops.rasterize import rasterize
+from ..ops.rasterize import (
+    bin_cameras_batched, camera_matrices, camera_slice, composite_from_bins, rasterize,
+)
 from ..ops.sdf_visibility import make_sdf_visibility
 from .geosplat import (
     _INITIAL_GUESS, GaussianField, GeoSplatter, HashEncodingConfig, SharedField,
     export_ks_bundle, get_gaussians_from_face, ks_bundle_layout, load_ks_bundle, param_tree,
-    tone_naive,
+    tone_aces, tone_naive,
 )
 
 LATLNG_HW = (256, 512)
@@ -89,6 +94,7 @@ class GeoSplatterMC(nn.Module):
         pairs_per_gaussian: int = 3,
         pairs_budget: int | None = None,
         tile_shape: str = "16",
+        batched_binning: bool = False,
         num_samples_x: int = 8,
         shadow_scale: float = 1.0,
         shadow_steps: int = 24,
@@ -113,6 +119,7 @@ class GeoSplatterMC(nn.Module):
         self.pairs_per_gaussian = pairs_per_gaussian
         self.pairs_budget = pairs_budget
         self.tile_shape = tile_shape
+        self.batched_binning = batched_binning
         self.num_samples_x = num_samples_x
         self.shadow_scale = shadow_scale
         self.shadow_steps = shadow_steps
@@ -226,8 +233,8 @@ class GeoSplatterMC(nn.Module):
         not given is drawn from ``generator``."""
         if mode not in ("pbr", "diffuse", "specular"):
             raise ValueError(f"mode: {mode!r}")
-        if tone_type == "aces":
-            raise NotImplementedError("tone_type='aces' is not ported yet; use 'naive' or 'none'")
+        if tone_type not in ("naive", "aces", "none"):
+            raise ValueError(f"tone_type: {tone_type!r}")
         w = {"sdf": 0.0, "occ": 0.0, "kd_grad": 0.0, "ks_grad": 0.0}
         if reg_weights:
             w.update(reg_weights)
@@ -266,6 +273,16 @@ class GeoSplatterMC(nn.Module):
         scales = torch.exp(splats.scales)
         opacities = torch.sigmoid(splats.opacities[:, 0])
 
+        binned = None
+        if self.batched_binning:
+            viewmats, Ks = camera_matrices(cameras)
+            binned = bin_cameras_batched(
+                splats.means, quats, scales, opacities.expand(len(cameras), -1), viewmats, Ks,
+                cameras.width, cameras.height, rasterize_mode="antialiased",
+                pairs_per_gaussian=self.pairs_per_gaussian, max_pairs_override=self.pairs_budget,
+                tile_size=self.tile_shape,
+            )
+
         rgbas, totals = [], []
         for i in range(len(cameras)):
             cam = cameras[i]
@@ -300,14 +317,27 @@ class GeoSplatterMC(nn.Module):
                 colors = diff * kd_factor
             else:
                 colors = spec
-            render, alpha, info = rasterize(
-                splats.means, quats, scales, opacities, colors,
-                cam.view_matrix, cam.intrinsic_matrix, cam.width, cam.height,
-                rasterize_mode="antialiased", pairs_per_gaussian=self.pairs_per_gaussian,
-                max_pairs_override=self.pairs_budget, tile_size=self.tile_shape,
-            )
+            if binned is None:
+                render, alpha, info = rasterize(
+                    splats.means, quats, scales, opacities, colors,
+                    cam.view_matrix, cam.intrinsic_matrix, cam.width, cam.height,
+                    rasterize_mode="antialiased", pairs_per_gaussian=self.pairs_per_gaussian,
+                    max_pairs_override=self.pairs_budget, tile_size=self.tile_shape,
+                )
+            else:
+                proj_b, bins_b, max_pairs = binned
+                render, alpha, info = composite_from_bins(
+                    camera_slice(proj_b, i), camera_slice(bins_b, i), colors,
+                    max_pairs=max_pairs, width=cam.width, height=cam.height,
+                    tile_size=self.tile_shape,
+                )
             rgb = render[..., :3]
-            rgb = tone_naive(rgb, exposure) if tone_type == "naive" else rgb * exposure
+            if tone_type == "naive":
+                rgb = tone_naive(rgb, exposure)
+            elif tone_type == "aces":
+                rgb = tone_aces(rgb, exposure)
+            else:
+                rgb = rgb * exposure
             rgbas.append(torch.cat((rgb, alpha), -1))
             totals.append(info["total_pairs"])
         n = splats.means.shape[0]

@@ -11,8 +11,12 @@ The ``classic`` and ``antialiased`` modes render on the pairs rasterizer
 ``2dgs`` renders through ``ops/rasterize_2dgs.py`` on the dense tile table,
 whose ``tile_capacity`` cuts each tile to its front Gaussians and whose
 ``tile_chunk`` (at most 4, as in the JAX model) sizes its chunks on the
-CPU. The JAX model's ``chunk_size``, ``backend`` and ``camera_batching``
-have no meaning here.
+CPU. ``camera_batching="vmap"`` renders a batch of cameras through
+``rasterize_batched`` (every camera binned in one pass, then composited
+camera by camera; ``render_rgba_batched``), "map" (the default) camera by
+camera; both give the same images and densification statistics. 2DGS has
+no pair binning to batch, so it takes "map" only. The JAX model's
+``chunk_size`` and ``backend`` have no meaning here.
 """
 from __future__ import annotations
 
@@ -24,10 +28,11 @@ from .. import _kernels
 from ..graphics import gmath
 from ..graphics.cameras import Cameras
 from ..graphics.splats import Splats
-from ..ops.rasterize import rasterize
+from ..ops.rasterize import camera_matrices, rasterize, rasterize_batched, sh_colors
 from ..ops.rasterize_2dgs import rasterize_2dgs
 
 MODES = ("classic", "antialiased", "2dgs")
+CAMERA_BATCHING = ("map", "vmap")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,11 +47,17 @@ class GSplatter:
     tile_capacity: int = 1024            # 2dgs: Gaussians kept per tile
     pairs_per_gaussian: int = 8
     tile_chunk: int = 8                  # 2dgs: tiles per chunk on the CPU (capped at 4)
+    camera_batching: str = "map"         # 'map' (camera by camera) | 'vmap' (one binning)
     device: str | torch.device | None = None
 
     def __post_init__(self):
         if self.rasterize_mode not in MODES:
             raise ValueError(f"unknown rasterize_mode: {self.rasterize_mode}")
+        if self.camera_batching not in CAMERA_BATCHING:
+            raise ValueError(f"unknown camera_batching: {self.camera_batching}")
+        if self.camera_batching == "vmap" and self.rasterize_mode == "2dgs":
+            raise ValueError("camera_batching='vmap' batches the pairs rasterizer's binning; "
+                             "2dgs takes 'map'")
         object.__setattr__(self, "device", _kernels.resolve_device(self.device))
 
     def get_background_color(self, training: bool,
@@ -94,6 +105,28 @@ class GSplatter:
             torch.sigmoid(splats.opacities[:, 0]), colors, camera.view_matrix,
             camera.intrinsic_matrix, camera.width, camera.height, sh_degree=deg,
             tile_size=self.block_width, pairs_per_gaussian=self.pairs_per_gaussian,
+            rasterize_mode=self.rasterize_mode, means2d_offset=means2d_offset,
+        )
+        return torch.cat((render[..., :3], alpha), -1), info
+
+    def render_rgba_batched(self, splats: Splats, cameras: Cameras, *,
+                            max_sh_degree: int | None = None,
+                            means2d_offset: torch.Tensor | None = None
+                            ) -> tuple[torch.Tensor, dict]:
+        """A batch of B cameras through ``rasterize_batched`` -> ([B, H, W,
+        4] premultiplied rgba, info with ``radii`` [B, N]); each camera's
+        image is ``render_rgba``'s. ``means2d_offset`` is [B, N, 2]."""
+        colors, deg = self._colors_and_degree(splats, max_sh_degree)
+        viewmats, Ks = camera_matrices(cameras)
+        if deg is None:
+            colors_b = colors.expand(len(cameras), *colors.shape)
+        else:
+            colors_b = torch.stack([sh_colors(deg, splats.means, colors, v) for v in viewmats])
+        opacities = torch.sigmoid(splats.opacities[:, 0])
+        render, alpha, info = rasterize_batched(
+            splats.means, gmath.safe_normalize(splats.quats), torch.exp(splats.scales),
+            opacities.expand(len(cameras), -1), colors_b, viewmats, Ks, cameras.width,
+            cameras.height, tile_size=self.block_width, pairs_per_gaussian=self.pairs_per_gaussian,
             rasterize_mode=self.rasterize_mode, means2d_offset=means2d_offset,
         )
         return torch.cat((render[..., :3], alpha), -1), info

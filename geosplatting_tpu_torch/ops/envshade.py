@@ -329,8 +329,13 @@ def _draw_samples(light, positions, normals, wo, kd, arm, bank_dirs, bank_pdf, d
     return _Samples(*(torch.cat(parts) for parts in zip(*out)))
 
 
-def _eval_sample(kd, arm, normals, wo, wi, mis_w, v, light_col, sample_frac):
+def _eval_sample(kd, arm, normals, wo, wi, mis_w, v, light_col, sample_frac, bsdf):
     diff_b, spec_b = eval_bsdf(kd, arm, normals, wo, wi)
+    if bsdf in ("diffuse", "white"):
+        # a white Lambertian lobe: cos / pi in every channel, no specular
+        spec_b = torch.zeros_like(spec_b)
+        diff_b = (torch.clamp((normals * wi).sum(-1, keepdim=True), min=0.0) / math.pi
+                  ).expand_as(diff_b)
     common = (mis_w * sample_frac)[..., None] * light_col
     diff = diff_b * common * v[..., None]
     spec = spec_b * common * v[..., None]
@@ -341,13 +346,13 @@ def _eval_sample(kd, arm, normals, wo, wi, mis_w, v, light_col, sample_frac):
     return diff, spec, resi
 
 
-def _mc_step(sample_frac, kd, arm, normals, wo, bank_cols, light_rows,
+def _mc_step(sample_frac, bsdf, kd, arm, normals, wo, bank_cols, light_rows,
              wi_l, mis_l, v_l, bidx, wi_b, mis_b, v_b, tex_b, d_acc, s_acc, r_acc):
     with record_function("envshade.mc_step"):
         d1, s1, r1 = _eval_sample(kd, arm, normals, wo, wi_l, mis_l, v_l,
-                                  gather_rows(bank_cols, bidx), sample_frac)
+                                  gather_rows(bank_cols, bidx), sample_frac, bsdf)
         d2, s2, r2 = _eval_sample(kd, arm, normals, wo, wi_b, mis_b, v_b,
-                                  gather_rows(light_rows, tex_b), sample_frac)
+                                  gather_rows(light_rows, tex_b), sample_frac, bsdf)
         return d_acc + d1 + d2, s_acc + s1 + s2, r_acc + r1 + r2
 
 
@@ -362,13 +367,18 @@ def env_shade(
     *,
     visibility_fn: Callable | None = None,
     shadow_scale: float = 1.0,
+    bsdf: str = "pbr",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (diffuse [N, 3], specular [N, 3], residual [N, 2]).
 
     S = ``draws.bidx.shape[0]`` steps (n^2 for ``num_samples_x`` n), each
     one light sample from the shared stratified bank of m^2 directions
     (m = ``sqrt(len(draws.ub))``) and one BSDF sample, weighted by the
-    summed-pdf balance heuristic."""
+    summed-pdf balance heuristic. ``bsdf="diffuse"`` or ``"white"``
+    evaluates a white Lambertian lobe (cos / pi, no specular) at the same
+    samples."""
+    if bsdf not in ("pbr", "diffuse", "white"):
+        raise ValueError(f"bsdf: {bsdf!r}")
     s = draws.bidx.shape[0]
     m = int(round(draws.ub.shape[0] ** 0.5))
     wo = gmath.safe_normalize(view_pos - positions)
@@ -384,7 +394,7 @@ def env_shade(
         bank_cols = eval_light(light, bank_dirs)
     smp = _draw_samples(light, positions.detach(), normals.detach(), wo.detach(), kd.detach(),
                         arm.detach(), bank_dirs, bank_pdf, draws, visibility_fn, shadow_scale)
-    step = functools.partial(_mc_step, 1.0 / s)
+    step = functools.partial(_mc_step, 1.0 / s, bsdf)
     light_rows = light.data.reshape(-1, light.data.shape[-1])
     n_pts = positions.shape[0]
     acc = (positions.new_zeros((n_pts, 3)), positions.new_zeros((n_pts, 3)),

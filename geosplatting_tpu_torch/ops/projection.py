@@ -3,8 +3,9 @@
 Counterpart of ``geosplatting_tpu/ops/projection.py``: world->camera
 transform, perspective projection of means, EWA 2D covariance with a 0.3 px
 low-pass, antialiased opacity compensation, eigenvalue screen radius, the
-opacity-aware tight bounds (``extents`` / ``prune_r``) and frustum culling.
-Gradients come from autograd.
+opacity-aware tight bounds (``extents`` / ``prune_r``) and frustum culling,
+which with ``radius_clip`` also culls Gaussians of a screen radius at most
+that many pixels. Gradients come from autograd.
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ def project(
     near: float = 0.01,
     far: float = 1e10,
     rasterize_mode: str = "antialiased",
+    radius_clip: float = 0.0,
 ) -> Projected:
     R = viewmat[:3, :3]
     t = viewmat[:3, 3]
@@ -114,6 +116,7 @@ def project(
         (z > near) & (z < far) & (det > 1e-12) & (op > MIN_ALPHA)
         & (mean2d[:, 0] + ext_x > 0) & (mean2d[:, 0] - ext_x < width)
         & (mean2d[:, 1] + ext_y > 0) & (mean2d[:, 1] - ext_y < height)
+        & (radius > radius_clip)
     )
     radii = torch.where(valid, radius, 0.0).to(torch.int32)
     keep = valid.to(means.dtype)

@@ -8,6 +8,13 @@ SH colours of ``sh_degree``; and the dense tile table of the JAX package's
 reference rasterizer: ``TileBins``, ``bin_gaussians``, ``_tile_pixel_grid``
 and ``composite_tiles_reference``.
 
+The camera-batched front end is ``bin_cameras_batched`` (every camera
+projected, then all binned in one pass by ``bin_pairs_batched``),
+``composite_from_bins`` (one camera's K1-K3 composite from its bins) and
+``rasterize_batched`` (the two, camera by camera). Each camera's pairs and
+image are those ``rasterize`` gives it alone. The JAX ``kc`` /
+``chunk_size`` is not taken: the port's chunk is ``CHUNK_PAIRS``.
+
 The render path is the pairs path on both devices (the kernels on the card,
 their plain versions on the CPU). The dense tile table serves the 2DGS
 rasterizer (``ops/rasterize_2dgs.py``); ``composite_tiles_reference`` is the
@@ -24,9 +31,11 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..graphics import gmath
+from ..graphics.cameras import Cameras
 from .projection import Projected, project
 from .rasterize_pairs import (  # noqa: F401  (constants re-exported as in the JAX package)
-    MAX_ALPHA, MIN_ALPHA, TRANSMITTANCE_EPS, bin_pairs, composite_pairs, tile_grid,
+    MAX_ALPHA, MIN_ALPHA, TRANSMITTANCE_EPS, PairBins, bin_pairs, bin_pairs_batched,
+    camera_slice, composite_pairs, tile_grid,
 )
 
 RENDER_MODES = ("RGB", "ED", "D", "RGB+ED", "RGB+D")
@@ -204,11 +213,7 @@ def rasterize_projected(
     (``RGB``), the depth [H, W, 1] (``ED``, ``D``) or both [H, W, C + 1]."""
     if render_mode not in RENDER_MODES:
         raise ValueError(f"unknown render_mode: {render_mode}")
-    n = proj.means2d.shape[0]
-    # every binning/pack/kernel buffer scales with this static budget
-    max_pairs = max(int(pairs_per_gaussian) * n, 1 << 12)
-    if max_pairs_override is not None:
-        max_pairs = max(min(max_pairs, int(max_pairs_override)), 1 << 12)
+    max_pairs = _pair_budget(proj.means2d.shape[0], pairs_per_gaussian, max_pairs_override)
 
     grid = tile_grid(width, height, tile_size)
     with record_function("rasterize.bin_pairs"):
@@ -236,6 +241,23 @@ def rasterize_projected(
     return render, img_a, info
 
 
+def _pair_budget(n: int, pairs_per_gaussian: int, max_pairs_override: int | None) -> int:
+    # every binning/pack/kernel buffer scales with this static budget
+    max_pairs = max(int(pairs_per_gaussian) * n, 1 << 12)
+    if max_pairs_override is not None:
+        max_pairs = max(min(max_pairs, int(max_pairs_override)), 1 << 12)
+    return max_pairs
+
+
+def sh_colors(sh_degree: int, means: torch.Tensor, colors: torch.Tensor,
+              viewmat: torch.Tensor) -> torch.Tensor:
+    """SH coefficients [N, K_sh, 3] evaluated towards the camera of
+    ``viewmat`` as max(SH + 0.5, 0): [N, 3]."""
+    campos = -viewmat[:3, :3].T @ viewmat[:3, 3]
+    viewdir = gmath.safe_normalize(means - campos)
+    return torch.clamp(gmath.eval_sh(sh_degree, colors, viewdir) + 0.5, min=0.0)
+
+
 def rasterize(
     means: torch.Tensor,
     quats: torch.Tensor,
@@ -254,6 +276,7 @@ def rasterize(
     pairs_per_gaussian: int = 8,
     rasterize_mode: str = "classic",
     render_mode: str = "RGB",
+    radius_clip: float = 0.0,
     means2d_offset: torch.Tensor | None = None,
     max_pairs_override: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, dict]:
@@ -265,16 +288,132 @@ def rasterize(
     camera as max(SH + 0.5, 0) before compositing (C = 3)."""
     proj = project(
         means, quats, scales, opacities, viewmat, K, width, height,
-        near=near, far=far, rasterize_mode=rasterize_mode,
+        near=near, far=far, rasterize_mode=rasterize_mode, radius_clip=radius_clip,
     )
     if means2d_offset is not None:
         proj = proj._replace(means2d=proj.means2d + means2d_offset)
     if sh_degree is not None:
-        campos = -viewmat[:3, :3].T @ viewmat[:3, 3]
-        viewdir = gmath.safe_normalize(means - campos)
-        colors = torch.clamp(gmath.eval_sh(sh_degree, colors, viewdir) + 0.5, min=0.0)
+        colors = sh_colors(sh_degree, means, colors, viewmat)
     return rasterize_projected(
         proj, colors, width, height, near=near, far=far, tile_size=tile_size,
         pairs_per_gaussian=pairs_per_gaussian, render_mode=render_mode,
         max_pairs_override=max_pairs_override,
     )
+
+
+# --- the camera-batched front end -------------------------------------------------
+
+
+def camera_matrices(cameras: Cameras) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B, 4, 4] view and [B, 3, 3] intrinsic matrices, each computed from
+    its camera alone (as the per-camera path computes them), so the batched
+    path projects with the same bits."""
+    cams = [cameras[i] for i in range(len(cameras))]
+    return (torch.stack([c.view_matrix for c in cams]),
+            torch.stack([c.intrinsic_matrix for c in cams]))
+
+
+def bin_cameras_batched(
+    means: torch.Tensor,
+    quats: torch.Tensor,         # normalized
+    scales: torch.Tensor,        # linear scales
+    opacities_b: torch.Tensor,   # [B, N] (per camera: culling may zero some)
+    viewmats_b: torch.Tensor,    # [B, 4, 4]
+    Ks_b: torch.Tensor,          # [B, 3, 3]
+    width: int,
+    height: int,
+    *,
+    near: float = 0.01,
+    far: float = 1e10,
+    rasterize_mode: str = "antialiased",
+    tile_size=16,
+    pairs_per_gaussian: int = 8,
+    max_pairs_override: int | None = None,
+    means2d_offset: torch.Tensor | None = None,   # [B, N, 2] zeros-valued hook
+) -> tuple[Projected, PairBins, int]:
+    """Projection of every camera, then one binning pass for the batch
+    (``bin_pairs_batched``: one sort of all B x ``max_pairs`` keys). Each
+    camera is projected by ``project`` as ``rasterize`` projects it, so its
+    floats, and so its pairs, are the per-camera path's bit for bit.
+    Returns (proj_b, bins_b, max_pairs), each field of the first two with
+    a leading camera axis; feed camera i's to ``composite_from_bins``.
+    Gradients reach the Gaussians through each camera's projection."""
+    projs = []
+    for i in range(viewmats_b.shape[0]):
+        proj = project(means, quats, scales, opacities_b[i], viewmats_b[i], Ks_b[i], width,
+                       height, near=near, far=far, rasterize_mode=rasterize_mode)
+        if means2d_offset is not None:
+            proj = proj._replace(means2d=proj.means2d + means2d_offset[i])
+        projs.append(proj)
+    proj_b = Projected(*(torch.stack(x) for x in zip(*projs)))
+    max_pairs = _pair_budget(means.shape[0], pairs_per_gaussian, max_pairs_override)
+    with record_function("rasterize.bin_pairs"):
+        bins_b = bin_pairs_batched(proj_b, width, height, tile_size=tile_size,
+                                   max_pairs=max_pairs, near=near, far=far)
+    return proj_b, bins_b, max_pairs
+
+
+def composite_from_bins(
+    proj: Projected,
+    bins: PairBins,
+    colors: torch.Tensor,        # [N, C]
+    *,
+    max_pairs: int,
+    width: int,
+    height: int,
+    tile_size=16,
+) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """One camera's composite (K1, and K2 and K3 in the backward) from its
+    precomputed (proj, bins). Returns (render [H, W, C], alpha [H, W, 1],
+    {total_pairs, max_pairs})."""
+    grid = tile_grid(width, height, tile_size)
+    with record_function("rasterize.composite"):
+        tiles_c, tiles_a, _ = composite_pairs(
+            bins, grid, proj.means2d, proj.conics, proj.opacities, colors, proj.depths
+        )
+    img_c = _tiles_to_image(tiles_c, grid, height, width)
+    img_a = _tiles_to_image(tiles_a[..., None], grid, height, width)
+    return img_c, img_a, {"total_pairs": bins.total_pairs, "max_pairs": max_pairs}
+
+
+def rasterize_batched(
+    means: torch.Tensor,
+    quats: torch.Tensor,         # normalized
+    scales: torch.Tensor,        # linear scales
+    opacities_b: torch.Tensor,   # [B, N] (per camera: culling may zero some)
+    colors_b: torch.Tensor,      # [B, N, C] per-camera shaded colours
+    viewmats_b: torch.Tensor,    # [B, 4, 4]
+    Ks_b: torch.Tensor,          # [B, 3, 3]
+    width: int,
+    height: int,
+    *,
+    near: float = 0.01,
+    far: float = 1e10,
+    rasterize_mode: str = "antialiased",
+    tile_size=16,
+    pairs_per_gaussian: int = 8,
+    max_pairs_override: int | None = None,
+    means2d_offset: torch.Tensor | None = None,   # [B, N, 2] zeros-valued hook
+) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """Camera-batched rasterization on the pairs path: ``bin_cameras_batched``,
+    then ``composite_from_bins`` camera by camera. Returns (render [B, H,
+    W, C], alpha [B, H, W, 1], info): ``total_pairs`` the batch's largest,
+    ``max_pairs``, and each camera's ``radii`` [B, N] (densification's
+    visibility)."""
+    proj_b, bins_b, max_pairs = bin_cameras_batched(
+        means, quats, scales, opacities_b, viewmats_b, Ks_b, width, height, near=near,
+        far=far, rasterize_mode=rasterize_mode, tile_size=tile_size,
+        pairs_per_gaussian=pairs_per_gaussian, max_pairs_override=max_pairs_override,
+        means2d_offset=means2d_offset,
+    )
+    renders, alphas = [], []
+    for i in range(viewmats_b.shape[0]):
+        img_c, img_a, _ = composite_from_bins(
+            camera_slice(proj_b, i), camera_slice(bins_b, i), colors_b[i],
+            max_pairs=max_pairs, width=width, height=height, tile_size=tile_size,
+        )
+        renders.append(img_c)
+        alphas.append(img_a)
+    info = {"total_pairs": bins_b.total_pairs.max(), "max_pairs": max_pairs,
+            "radii": proj_b.radii}
+    return torch.stack(renders), torch.stack(alphas), info

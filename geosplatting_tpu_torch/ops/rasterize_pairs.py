@@ -8,7 +8,9 @@ Counterpart of ``geosplatting_tpu/ops/rasterize_pairs.py``.
    sort key, so pair sets, ``total_pairs`` and ``pair_fill`` mean the same.
    Each tile's pairs are one contiguous range ``[seg_start[t],
    seg_start[t+1])`` of the sorted pair array (the TPU's chunk list and its
-   SMEM bit-packing are not needed).
+   SMEM bit-packing are not needed). ``bin_pairs_batched`` bins a batch of
+   cameras in one pass (one sort of every camera's keys, the camera index
+   above them), each camera's pairs exactly those ``bin_pairs`` gives it.
 2. ``chunk_list`` cuts every tile's range into chunks of at most
    ``CHUNK_PAIRS`` pairs (an empty tile is one chunk of none) inside the
    static budget ``num_tiles + ceil(max_pairs / kc)`` slots, on the device.
@@ -84,7 +86,9 @@ def tile_grid(width: int, height: int, tile_size) -> TileGrid:
 
 
 class PairBins(NamedTuple):
-    """Static-shape binning of (tile, depth)-sorted Gaussian pairs."""
+    """Static-shape binning of (tile, depth)-sorted Gaussian pairs; from
+    ``bin_pairs_batched`` every field has a leading camera axis
+    (``camera_slice`` takes one camera's)."""
 
     sorted_gid: torch.Tensor          # [max_pairs] gaussian id per sorted pair (N = invalid)
     seg_start: torch.Tensor           # [T+1] first sorted pair of each tile; [T] ends the valid pairs
@@ -97,6 +101,125 @@ class PairBins(NamedTuple):
     total_pairs: torch.Tensor         # [] true pair count (overflow check)
 
 
+def camera_slice(batch, i: int):
+    """Camera ``i``'s slice of a batched ``PairBins`` or ``Projected``
+    (contiguous views)."""
+    return type(batch)(*(None if x is None else x[i] for x in batch))
+
+
+def _gaussian_tiles(proj: Projected, grid: TileGrid, near: float, log_span: float,
+                    depth_bits: int):
+    """One camera's per-Gaussian binning inputs: the tile rectangle of the
+    opacity-aware extents (tx0, ty0, width in tiles, tile count; 0 tiles
+    when culled), the quantized log depth, and the prune circle."""
+    tw, th, tsx, tsy = grid
+    means2d = proj.means2d.detach()
+    depths = proj.depths.detach()
+    valid = proj.radii > 0
+    rx = proj.extents[:, 0].detach()
+    ry = proj.extents[:, 1].detach()
+    tx0 = torch.floor((means2d[:, 0] - rx) / tsx).clamp(0, tw).long()
+    ty0 = torch.floor((means2d[:, 1] - ry) / tsy).clamp(0, th).long()
+    tx1 = torch.ceil((means2d[:, 0] + rx) / tsx).clamp(0, tw).long()
+    ty1 = torch.ceil((means2d[:, 1] + ry) / tsy).clamp(0, th).long()
+    bw = (tx1 - tx0).clamp(min=0)
+    ntiles = torch.where(valid, bw * (ty1 - ty0).clamp(min=0), 0)
+    dq = (
+        torch.log(torch.clamp(depths / near, min=1e-6)) / log_span
+        * ((1 << depth_bits) - 1)
+    ).to(torch.int32).long().clamp(0, (1 << depth_bits) - 1)
+    return (tx0, ty0, bw, ntiles, dq, depths, means2d[:, 0], means2d[:, 1],
+            proj.prune_r.detach())
+
+
+def bin_pairs_batched(
+    proj_b: Projected,
+    width: int,
+    height: int,
+    *,
+    tile_size,
+    max_pairs: int,
+    near: float = 0.01,
+    far: float = 1e10,
+) -> PairBins:
+    """Bin B cameras' projections (every field with a leading camera axis)
+    in one pass: the pair expansion, one stable sort of all B x
+    ``max_pairs`` keys and the tile search run once for the batch. The
+    camera index sits above each camera's ``tile | log-depth`` key, whose
+    bits come from the tile count alone, so each camera's slice of the
+    sorted pairs is what ``bin_pairs`` gives it alone. The per-Gaussian
+    inputs (tile rectangles, quantized depths) are computed one camera at a
+    time with ``bin_pairs``' own shapes, so their floats are its bits too.
+    Returns a ``PairBins`` with a leading camera axis."""
+    grid = tile_grid(width, height, tile_size)
+    tw, th, tsx, tsy = grid
+    num_tiles = grid.num_tiles
+    if proj_b.extents is None or proj_b.prune_r is None:
+        raise ValueError("bin_pairs bins by the opacity-aware bounds: give the projection's "
+                         "extents and prune_r (ops/projection.project computes them)")
+    b, n = proj_b.means2d.shape[:2]
+    dev = proj_b.means2d.device
+    tile_bits = max(int(num_tiles + 1).bit_length(), 1)
+    depth_bits = min(31 - tile_bits, 19)
+    if depth_bits < 14:
+        raise ValueError(f"too many tiles for packed-key binning: {num_tiles}")
+    log_span = float(math.log(max(far / near, 1.0 + 1e-6)))
+    per_camera = [_gaussian_tiles(camera_slice(proj_b, i), grid, near, log_span,
+                                  depth_bits) for i in range(b)]
+    tx0, ty0, bw, ntiles, dq, depths, mx, my, prune_r = (torch.stack(x) for x in zip(*per_camera))
+
+    # depth-priority budget, per camera: when its pairs overflow max_pairs,
+    # slots go to Gaussians near-to-far, so the overflow drops the farthest
+    iota = torch.arange(n, device=dev).expand(b, n)
+    by_depth = torch.argsort(torch.where(ntiles > 0, depths, torch.inf), dim=1, stable=True)
+    order = torch.where(ntiles.sum(1, keepdim=True) > max_pairs, by_depth, iota)
+    order_inv = torch.empty_like(order).scatter_(1, order, iota)
+
+    counts = ntiles.gather(1, order)
+    offsets = torch.cumsum(counts, 1)
+    total = offsets[:, -1]
+    starts = offsets - counts
+    slot = torch.arange(max_pairs, device=dev).expand(b, max_pairs)
+    rank = torch.searchsorted(offsets, slot.contiguous(), right=True).clamp(max=n - 1)
+    gid = order.gather(1, rank)
+    local = slot - starts.gather(1, rank)
+    bw1 = bw.clamp(min=1).gather(1, gid)
+    tile_xi = tx0.gather(1, gid) + local % bw1
+    tile_yi = ty0.gather(1, gid) + local // bw1
+    tile_id = tile_yi * tw + tile_xi
+    in_range = slot < torch.clamp(total, max=max_pairs)[:, None]
+    # per-pair circle prune: a tile whose rect lies beyond prune_r of the mean
+    # is entirely below the 1/255 alpha cutoff, so dropping it is exact
+    gx, gy, r = mx.gather(1, gid), my.gather(1, gid), prune_r.gather(1, gid)
+    x0 = tile_xi.to(torch.float32) * tsx
+    y0 = tile_yi.to(torch.float32) * tsy
+    dx = gx - torch.minimum(torch.maximum(gx, x0), x0 + tsx)
+    dy = gy - torch.minimum(torch.maximum(gy, y0), y0 + tsy)
+    in_range = in_range & (dx * dx + dy * dy <= r * r)
+    tile_id = torch.where(in_range, tile_id, num_tiles)
+    pair_gid = torch.where(in_range, gid, n)
+
+    key = tile_id * (1 << depth_bits) + torch.where(in_range, dq.gather(1, gid), 0)
+    cam = torch.arange(b, device=dev)[:, None]
+    key = key + (cam << (tile_bits + depth_bits))
+    sorted_key, perm = torch.sort(key.reshape(-1), stable=True)
+    # camera c's keys are the c-th block of max_pairs in sorted order
+    perm = perm.view(b, max_pairs) - cam * max_pairs
+    sorted_tile = (sorted_key.view(b, max_pairs) >> depth_bits) - (cam << tile_bits)
+    seg_start = torch.searchsorted(
+        sorted_tile, torch.arange(num_tiles + 1, device=dev).expand(b, -1).contiguous()
+    )
+    return PairBins(
+        sorted_gid=pair_gid.gather(1, perm),
+        seg_start=seg_start,
+        sorted_row_of_slot=torch.empty_like(perm).scatter_(1, perm, slot),
+        gs_start=starts,
+        gs_count=counts,
+        gs_inv=order_inv,
+        total_pairs=total,
+    )
+
+
 def bin_pairs(
     proj: Projected,
     width: int,
@@ -107,91 +230,11 @@ def bin_pairs(
     near: float = 0.01,
     far: float = 1e10,
 ) -> PairBins:
-    grid = tile_grid(width, height, tile_size)
-    tw, th, tsx, tsy = grid
-    num_tiles = grid.num_tiles
-    n = proj.means2d.shape[0]
-    dev = proj.means2d.device
-
-    if proj.extents is None or proj.prune_r is None:
-        raise ValueError("bin_pairs bins by the opacity-aware bounds: give the projection's "
-                         "extents and prune_r (ops/projection.project computes them)")
-    means2d = proj.means2d.detach()
-    depths = proj.depths.detach()
-    valid = proj.radii > 0
-    rx = proj.extents[:, 0].detach()
-    ry = proj.extents[:, 1].detach()
-    prune_r = proj.prune_r.detach()
-
-    tx0 = torch.floor((means2d[:, 0] - rx) / tsx).clamp(0, tw).long()
-    ty0 = torch.floor((means2d[:, 1] - ry) / tsy).clamp(0, th).long()
-    tx1 = torch.ceil((means2d[:, 0] + rx) / tsx).clamp(0, tw).long()
-    ty1 = torch.ceil((means2d[:, 1] + ry) / tsy).clamp(0, th).long()
-    bw = (tx1 - tx0).clamp(min=0)
-    ntiles = torch.where(valid, bw * (ty1 - ty0).clamp(min=0), 0)
-
-    # depth-priority budget: when the pairs overflow max_pairs, slots go to
-    # Gaussians near-to-far, so the overflow drops the farthest ones
-    iota = torch.arange(n, device=dev)
-    by_depth = torch.argsort(
-        torch.where(ntiles > 0, depths, torch.inf), stable=True
-    )
-    order = torch.where(ntiles.sum() > max_pairs, by_depth, iota)
-    order_inv = torch.empty_like(order)
-    order_inv[order] = iota
-
-    tile_bits = max(int(num_tiles + 1).bit_length(), 1)
-    depth_bits = min(31 - tile_bits, 19)
-    if depth_bits < 14:
-        raise ValueError(f"too many tiles for packed-key binning: {num_tiles}")
-    log_span = float(math.log(max(far / near, 1.0 + 1e-6)))
-    dq = (
-        torch.log(torch.clamp(depths / near, min=1e-6)) / log_span
-        * ((1 << depth_bits) - 1)
-    ).to(torch.int32).long().clamp(0, (1 << depth_bits) - 1)
-
-    counts = ntiles[order]
-    offsets = torch.cumsum(counts, 0)
-    total = offsets[-1]
-    starts = offsets - counts
-    slot = torch.arange(max_pairs, device=dev)
-    rank = torch.searchsorted(offsets, slot, right=True).clamp(max=n - 1)
-    gid = order[rank]
-    local = slot - starts[rank]
-    bw1 = bw.clamp(min=1)[gid]
-    tile_xi = tx0[gid] + local % bw1
-    tile_yi = ty0[gid] + local // bw1
-    tile_id = tile_yi * tw + tile_xi
-    in_range = slot < torch.clamp(total, max=max_pairs)
-    # per-pair circle prune: a tile whose rect lies beyond prune_r of the mean
-    # is entirely below the 1/255 alpha cutoff, so dropping it is exact
-    mx, my = means2d[gid, 0], means2d[gid, 1]
-    r = prune_r[gid]
-    x0 = tile_xi.to(torch.float32) * tsx
-    y0 = tile_yi.to(torch.float32) * tsy
-    dx = mx - torch.minimum(torch.maximum(mx, x0), x0 + tsx)
-    dy = my - torch.minimum(torch.maximum(my, y0), y0 + tsy)
-    in_range = in_range & (dx * dx + dy * dy <= r * r)
-    tile_id = torch.where(in_range, tile_id, num_tiles)
-    pair_gid = torch.where(in_range, gid, n)
-
-    key = tile_id * (1 << depth_bits) + torch.where(in_range, dq[gid], 0)
-    sorted_key, perm = torch.sort(key, stable=True)
-    sorted_tile = sorted_key >> depth_bits
-    seg_start = torch.searchsorted(
-        sorted_tile, torch.arange(num_tiles + 1, device=dev)
-    )
-    sorted_row_of_slot = torch.empty_like(perm)
-    sorted_row_of_slot[perm] = slot
-    return PairBins(
-        sorted_gid=pair_gid[perm],
-        seg_start=seg_start,
-        sorted_row_of_slot=sorted_row_of_slot,
-        gs_start=starts,
-        gs_count=counts,
-        gs_inv=order_inv,
-        total_pairs=total,
-    )
+    """One camera's ``PairBins``: ``bin_pairs_batched`` of a batch of one."""
+    return camera_slice(
+        bin_pairs_batched(Projected(*(None if x is None else x[None] for x in proj)), width,
+                          height, tile_size=tile_size, max_pairs=max_pairs, near=near, far=far),
+        0)
 
 
 class Chunks(NamedTuple):

@@ -136,22 +136,32 @@ class GSplatTrainer:
             p.grad = None
         offsets, rgbs, radii, fills, tile_fills, n_losses, d_losses = [], [], [], [], [], [], []
         with record_function("gsplat.forward"):
-            for i in range(len(cameras)):
-                off = torch.zeros((n, 2), device=splats.means.device, requires_grad=True)
-                rgb, info = self.model.render_rgb(splats, cameras[i], background,
-                                                  max_sh_degree=max_sh_degree,
-                                                  means2d_offset=off)
-                offsets.append(off)
-                rgbs.append(rgb)
-                radii.append(info["radii"])
+            if self.model.camera_batching == "vmap":
+                # one [B, N, 2] hook: its gradient is every camera's at once
+                off = torch.zeros((len(cameras), n, 2), device=splats.means.device,
+                                  requires_grad=True)
+                rgba, info = self.model.render_rgba_batched(
+                    splats, cameras, max_sh_degree=max_sh_degree, means2d_offset=off)
+                offsets, radii = [off], list(info["radii"])
+                rgbs = list(rgba[..., :3] + (1.0 - rgba[..., 3:4]) * background)
                 fills.append(info["total_pairs"] / max(info["max_pairs"], 1))
-                if is_2dgs:
-                    # normal consistency and distortion (gsplat_trainer.py:135-139)
-                    n_losses.append((1.0 - (info["normal"] * (info["pseudo_normal"]
-                                                              * info["alpha_map"])).sum(-1)
-                                     ).mean())
-                    d_losses.append(info["distort"].mean())
-                    tile_fills.append(info["max_tile_pairs"] / info["tile_capacity"])
+            else:
+                for i in range(len(cameras)):
+                    off = torch.zeros((n, 2), device=splats.means.device, requires_grad=True)
+                    rgb, info = self.model.render_rgb(splats, cameras[i], background,
+                                                      max_sh_degree=max_sh_degree,
+                                                      means2d_offset=off)
+                    offsets.append(off)
+                    rgbs.append(rgb)
+                    radii.append(info["radii"])
+                    fills.append(info["total_pairs"] / max(info["max_pairs"], 1))
+                    if is_2dgs:
+                        # normal consistency and distortion (gsplat_trainer.py:135-139)
+                        n_losses.append((1.0 - (info["normal"] * (info["pseudo_normal"]
+                                                                  * info["alpha_map"])).sum(-1)
+                                         ).mean())
+                        d_losses.append(info["distort"].mean())
+                        tile_fills.append(info["max_tile_pairs"] / info["tile_capacity"])
             rgbs = torch.stack(rgbs)
             loss = ssim_l1_loss(rgbs, gt_rgb, ssim_lambda=self.config.ssim_lambda)
             if is_2dgs:
@@ -163,7 +173,8 @@ class GSplatTrainer:
         with torch.no_grad(), record_function("gsplat.update"):
             # densification statistics (gsplat_trainer.py:166-170)
             visible = (torch.stack(radii) > 0).float()                        # [B, N]
-            grad_norm = torch.linalg.norm(torch.stack([o.grad for o in offsets]), dim=-1)
+            grad_norm = torch.linalg.norm(torch.cat([o.grad.reshape(-1, n, 2) for o in offsets]),
+                                          dim=-1)
             self.xys_grad_norm += (grad_norm * visible).sum(0)
             self.vis_counts += visible.sum(0)
             for k in self.specs:   # an unused group still takes its (zero) update, as in optax

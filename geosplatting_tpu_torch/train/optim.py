@@ -7,8 +7,8 @@ schedule before every update, counted from 0 per update as
 ``optax.scale_by_schedule`` counts; Adam's update mu_hat / (sqrt(nu_hat) +
 eps) is optax's ``scale_by_adam``. ``mutate_params`` is the densification's
 state surgery (``mutate_optax_state``). ``ModelTrainerState`` is what a
-checkpoint keeps of the stage trainers. The cosine schedule is not ported
-yet.
+checkpoint keeps of the stage trainers. Both of the JAX package's
+schedules are here: "exp" (the trainers') and "cos" (``lr_decay_mode``).
 """
 from __future__ import annotations
 
@@ -20,13 +20,19 @@ import numpy as np
 import torch
 
 
-def make_schedule(lr: float, *, lr_decay: int | None = None,
-                  warm_up: int | None = None) -> Callable[[int], float]:
-    """The JAX package's "exp" schedule in float32: a quadratic ramp
+def make_schedule(lr: float, *, lr_decay: int | None = None, warm_up: int | None = None,
+                  mode: str = "exp") -> Callable[[int], float]:
+    """The JAX package's schedules in float32. "exp": a quadratic ramp
     (step / warm_up)^2 up to ``warm_up`` steps, then an exponential
-    half-life decay over ``lr_decay`` steps counted from ``warm_up``
-    (constant without ``lr_decay``)."""
+    half-life decay over ``lr_decay`` steps counted from ``warm_up``. "cos":
+    a linear ramp step / warm_up, then a cosine decay over ``lr_decay``
+    steps from ``warm_up`` down to a floor of 5 %; past ``lr_decay`` steps
+    the cosine rises again, as the JAX one does (its progress is not
+    clamped). Constant after the ramp without ``lr_decay``."""
+    if mode not in ("exp", "cos"):
+        raise ValueError(f"schedule mode: {mode!r}")
     f32 = np.float32
+    off = f32(0.0 if warm_up is None else warm_up)
 
     def exp_decay(step: int) -> float:
         s = f32(step)
@@ -35,10 +41,21 @@ def make_schedule(lr: float, *, lr_decay: int | None = None,
         if lr_decay is None:
             return float(f32(lr))
         lam = f32(math.log(2.0) / lr_decay)
-        off = f32(0.0 if warm_up is None else warm_up)
         return float(f32(lr) * np.exp(-lam * np.maximum(s - off, f32(0.0)), dtype=f32))
 
-    return exp_decay
+    def cos_decay(step: int) -> float:
+        s = f32(step)
+        if warm_up is not None and s < warm_up:
+            return float(f32(lr) * (s / f32(warm_up)))
+        if lr_decay is None:
+            return float(f32(lr))
+        progress = np.maximum(s - off, f32(0.0)) / f32(lr_decay)
+        alpha = f32(0.05)
+        decay = ((np.cos(f32(math.pi) * progress, dtype=f32) + f32(1.0)) * f32(0.5)
+                 * (f32(1.0) - alpha) + alpha)
+        return float(f32(lr) * decay)
+
+    return exp_decay if mode == "exp" else cos_decay
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,9 +64,11 @@ class OptimizerSpec:
     eps: float = 1e-15
     lr_decay: int | None = None
     warm_up: int | None = None
+    lr_decay_mode: str = "exp"
 
     def schedule(self) -> Callable[[int], float]:
-        return make_schedule(self.lr, lr_decay=self.lr_decay, warm_up=self.warm_up)
+        return make_schedule(self.lr, lr_decay=self.lr_decay, warm_up=self.warm_up,
+                             mode=self.lr_decay_mode)
 
 
 class GroupOptimizers:

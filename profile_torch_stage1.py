@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where one stage-1 train step of the PyTorch port spends its time, on one GPU.
 
-    python3 profile_torch_stage1.py [--steps 5] [--seed 0] [--out summary.json]
+    [BATCHED_BINNING=1] python3 profile_torch_stage1.py [--steps 5] [--seed 0] [--out summary.json]
 
 Builds chip_smoke.py's full-width slice (grid 96, 8 cameras at 800x800,
 pairs budget 1.4M), runs one vertex step and two face steps to warm up,
@@ -12,11 +12,14 @@ each: the timed steps; the traced step's wall time, the device's busy time
 span of the port (trainer.*, geosplat.*, rasterize.*); and the 25 kernels
 with the most device time. The last line is the summary, which ``--out``
 also writes to a file. Without a CUDA device it exits non-zero.
+``BATCHED_BINNING=1`` builds the slice with ``batched_binning`` (every
+camera binned in one pass).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -47,7 +50,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    trainer, cams, gt = make_slice(device, gen, **SLICE)
+    batched = os.environ.get("BATCHED_BINNING", "0") == "1"
+    trainer, cams, gt = make_slice(device, gen, **SLICE, batched_binning=batched)
 
     def step(i: int, sampling: str = "face") -> float:
         torch.cuda.synchronize()
@@ -98,7 +102,8 @@ def main() -> int:
     phase("top_kernels", kernels=top_rows)
 
     summary = {
-        "card": smi, "slice": SLICE, "median_face_step_s": statistics.median(seconds),
+        "card": smi, "slice": SLICE, "batched_binning": batched,
+        "median_face_step_s": statistics.median(seconds),
         "face_step_s": seconds, "traced_step_s": traced_s, "device_busy_s": busy_us / 1e6,
         "device_idle_share": max(0.0, 1.0 - busy_us / 1e6 / traced_s),
         "spans": spans, "top_kernels": top_rows,

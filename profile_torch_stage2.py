@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where one stage-2 train step of the PyTorch port spends its time, on one GPU.
 
-    python3 profile_torch_stage2.py [--steps 2] [--seed 0] [--out summary.json]
+    [BATCHED_BINNING=1] python3 profile_torch_stage2.py [--steps 2] [--seed 0] [--out summary.json]
 
 Builds stage 2 at the s4r presets' widths from a stage-1 export of
 chip_smoke.make_slice's GeoSplatter (grid 96, scene scale 0.8, the SDF
@@ -23,11 +23,14 @@ one JSON line each:
    each span of the port, the kernels K1-K3, and the 25 kernels with the
    most device time.
 The last line is the summary, which ``--out`` also writes to a file.
-Without a CUDA device it exits non-zero.
+Without a CUDA device it exits non-zero. ``BATCHED_BINNING=1`` builds the
+model with ``batched_binning`` (the trainer renders a camera at a time, so
+each binning pass holds one camera).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import json
 import statistics
 import subprocess
@@ -101,6 +104,7 @@ def build(device, seed: int):
         num_samples_x=STAGE2["num_samples_x"], shadow_steps=STAGE2["shadow_steps"],
         denoise=STAGE2["denoise"], triplane_resolution=planes[1],
         triplane_components=planes[-1], generator=gen, device=device,
+        batched_binning=os.environ.get("BATCHED_BINNING", "0") == "1",
     )
     model.init_from_stage1(export)
     del stage1, export
@@ -251,7 +255,8 @@ def main() -> int:
              "top_kernels": top_rows}
     phase("trace_one_camera", **trace)
 
-    summary = {"card": smi, "config": STAGE2, "median_step_s": statistics.median(seconds),
+    summary = {"card": smi, "config": STAGE2, "batched_binning": trainer.model.batched_binning,
+               "median_step_s": statistics.median(seconds),
                "step_s": seconds, "peak_memory_gib": peak, "split": split, "trace": trace}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

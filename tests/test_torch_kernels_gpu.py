@@ -476,6 +476,37 @@ def test_k1_k2_k3_at_3dgs_density(cuda_device):
     k3_close(cumsum_rows(rows), rows)
 
 
+@pytest.mark.parametrize("budget", [None, 1_000_000], ids=["fits", "overflows"])
+def test_batched_binning_matches_per_camera_on_card(cuda_device, budget):
+    """bin_cameras_batched at 8 x 800x800 (bench.py's 50k random Gaussians
+    at random opacities in [0.3, 0.9], ~40 pairs a Gaussian on 16x8 tiles,
+    a budget of 48) against bin_pairs of each camera alone on the card:
+    every field of each camera's PairBins equal, also where a budget of 1M
+    pairs makes every camera drop its farthest Gaussians."""
+    from geosplatting_tpu_torch.graphics.splats import Splats
+    from geosplatting_tpu_torch.ops import rasterize as rz
+
+    g = torch.Generator().manual_seed(12)
+    splats = Splats.random(50_000, sh_degree=0, random_scale=0.8, generator=g, device="cpu")
+    cams = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=2.5, elevation_degrees=15.0,
+                              num_samples=8, width=800, height=800, device=cuda_device)
+    means, quats, scales = (x.to(cuda_device) for x in (
+        splats.means, torch.nn.functional.normalize(splats.quats, dim=-1),
+        torch.exp(splats.scales)))
+    opac = torch.rand((8, 50_000), generator=g).to(cuda_device) * 0.6 + 0.3
+    vm, ks = rz.camera_matrices(cams)
+    proj_b, bins_b, max_pairs = rz.bin_cameras_batched(
+        means, quats, scales, opac, vm, ks, 800, 800, tile_size=(16, 8), pairs_per_gaussian=48,
+        max_pairs_override=budget)
+    totals = bins_b.total_pairs
+    assert (totals > max_pairs).all() if budget else (totals <= max_pairs).all()
+    for i in range(8):
+        alone = rp.bin_pairs(rp.camera_slice(proj_b, i), 800, 800, tile_size=(16, 8),
+                             max_pairs=max_pairs)
+        for field, got in zip(rp.PairBins._fields, rp.camera_slice(bins_b, i)):
+            assert torch.equal(got, getattr(alone, field)), (i, field)
+
+
 def test_gsplat_step_card_vs_cpu(cuda_device):
     """One GSplatTrainer step at SH degree 3 (2 cameras at 64x64, 2,000
     Gaussians) on the card and on the CPU from the same state: the loss, the
