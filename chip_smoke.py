@@ -42,8 +42,9 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
    scale 0.8, 8 cameras a batch, pairs budget 1.6M, 2^17 render faces,
    8 x 8 Monte-Carlo sample steps with 24-step SDF shadows, denoising, a
    256 x 512 lat-long light): 1 step with a checkpoint, validation and the
-   export, then a resume to 2 and the export read back and held against the
-   step-2 checkpoint key by key and against its gaussian_mask.
+   export (no resume here: phase 6 resumes the shared loop), the
+   export read back and held against the step-1 checkpoint key by key and
+   against its gaussian_mask.
    Every step's loss and PSNR finite, no non-finite gradient, pair and face
    fill <= 1. It prints the per-step metrics and seconds, the validation's
    seconds and PSNR, the live Gaussians, the peak device memory and the
@@ -59,9 +60,10 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
    started as a sphere), stage 2 (its preset, --load that run, 1 step),
    stage 3 at the full width of its s4r-twosphere preset (grid 96, scene
    scale 1.0, 8 cameras a batch at 800x800, pairs budget 1.6M, 8 x 8 sample
-   steps, 24-step shadows, mesh tile capacity 1024): 2 steps with a
-   checkpoint at each and a validation, a resume to 3, the export held key
-   by key against the step-3 checkpoint; then reliteval on that run. Gates
+   steps, 24-step shadows, mesh tile capacity 1024): 1 step with a
+   checkpoint and a validation, the export held key by key against the
+   step-1 checkpoint (no resume here: phase 6 resumes the shared
+   loop); then reliteval on that run. Gates
    on every stage-3 step: loss, reg and PSNR finite, no non-finite
    gradient, the pair fill and the mesh raster's tile and pair fills <= 1;
    the export's kd and latlng_hue inside float32 [0.01, 0.99]; every number
@@ -96,27 +98,28 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
    through the 64^3 occupancy grid, denoising, pairs budget 2.5M; 4 orbit
    cameras at radius 2 and elevation 20 degrees at 800x800, the analytic
    sphere as ground truth; GeoSplatPriorTrainer at batch 2 for 1 warm-up
-   and 3 timed steps, uninstrumented (median s/step, pair_fill, the peak
+   and 2 timed steps, uninstrumented (median s/step, pair_fill, the peak
    memory), then one instrumented step (pairs of each camera, the
    visibility build and march synchronised and their share of that step,
    the kernels' inputs) and one traced step (the device's busy time and
    idle share), the live Gaussians, that deform moved; every step's loss
    and reg finite, no non-finite gradient, pair_fill <= 1, K1, K2 and K3
    launched once per camera. (b) The same with the hash-grid GaussianField
-   (the occ encoder of OCC_ENC): 2 timed steps and the instrumented one,
+   (the occ encoder of OCC_ENC): 1 timed step and the instrumented one,
    the same gates and numbers.
    (c) GeoSplatPriorTrainTask at the object preset's widths (batch 8, 8 x 8
    sample steps, scene scale 1.05) on the product phase's scene, its prior
-   a 120 x 112 UV sphere (26,880 faces) written as binary PLY: 2 steps with
-   a checkpoint, validation and the export, a resume to 3, the export held
-   key by key against the step-3 checkpoint (sdf and mc_face_mask None).
+   a 120 x 112 UV sphere (26,880 faces) written as binary PLY: 1 step with
+   a checkpoint, validation and the export (no resume), the
+   export held key by key against the step-1 checkpoint (sdf and
+   mc_face_mask None).
    Then every kernel pass is held against its plain version at the inputs
    of (a)'s last camera, and its row of the kernels line gains a "prior"
    entry measured there.
 11. gsplat2d: GSplatter's 2dgs mode and the depth render modes. (a)
    bench.py's 3DGS scene of phase 9 in 2dgs mode (32 pairs a Gaussian, tile
    capacity 2560), GSplatTrainer with both regularisers at their JAX
-   weights: 1 warm-up and 3 timed steps, uninstrumented (median s/step,
+   weights: 1 warm-up and 2 timed steps, uninstrumented (median s/step,
    peak memory), one instrumented step (the compositing's forward and the
    backward synchronised, their shares) and one traced step (busy time,
    idle share, leading device operations); every step's loss, normal loss
@@ -139,9 +142,9 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
    images_4 size: 24 orbit views of the analytic sphere, 10k points):
    GeoSplatPriorTrainTask at the unbounded preset (batch 4, scene scale
    2.0) through the CLI's task, its prior phase 10 (a)'s 300 x 280 UV
-   sphere as PLY (1,008,000 Gaussians): 2 steps with checkpoints,
-   validation and the export, a resume to 3, the export held against the
-   step-3 checkpoint; median s/step, peak memory, pairs and the fullest
+   sphere as PLY (1,008,000 Gaussians): 1 step with a checkpoint,
+   validation and the export (no resume), the export held
+   against the step-1 checkpoint; median s/step, peak memory, pairs and the fullest
    tile of each camera. (b) A Stanford-ORB scene (blender_LDR/sphere, 16 +
    2 views of 2048x2048 PNGs with masks, the ground-truth mesh): 2
    GeoSplatTrainTask steps at the product phase's widths at the parser's
@@ -191,7 +194,7 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
    jitter draw and background at step 200 on each path, their per-camera
    pair lists (sorted_gid, seg_start, total_pairs) equal exactly, RGBA
    within 1e-5 / 1e-5, loss and flattened gradients within 2e-4 / 2e-3;
-   then 4 timed batched steps (median s/step beside phase 4's, peak memory,
+   then 2 timed batched steps (median s/step beside phase 4's, peak memory,
    K1-K3 launched once per camera per step, the same gates as phase 4) and
    the device memory the binning alone takes, batched and for one camera.
    (b) Phase 9 (a)'s 3DGS workload with camera_batching="vmap" against
@@ -200,10 +203,8 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
    per camera and batched: stage 2 at phase 7's widths from the product
    run's stage-1 export (RGBA 5e-4 / 1e-3, gradients 1e-3 / 5e-3) and stage
    3 at the chain's widths from its stage-2 run (gradients 1e-2 / 5e-3),
-   pair lists equal; stage 2's per-camera path once more with the default
-   algorithms against its deterministic run (the spread those tolerances
-   would otherwise meet, reported, not gated), and once with
-   tone_type="aces", finite and in [0, 1]. (d) Every kernel pass held against its plain version at (a)'s
+   pair lists equal; stage 2 once more with tone_type="aces", finite and in
+   [0, 1]. (d) Every kernel pass held against its plain version at (a)'s
    last camera, and its row of the kernels line gains a "batched" entry.
    (e) On the card against the CPU from the same inputs: antialias at
    800x800 on (c)'s stage-3 frozen mesh (the value within 2e-4, about
@@ -211,6 +212,46 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
    its largest entry) and env_shade with
    bsdf="diffuse" and "white" (the card-vs-CPU rule of
    tests/test_torch_kernels_gpu.py, no specular).
+15. scripts_dp: the root entry scripts and multi-GPU training. (a)
+   scripts/make_synthetic_scene writes the two-sphere quality scene in the
+   Syn4Relight layout at 160^2 (the nearest size to the quality benchmark's
+   reduced 128^2 that divides the layout's 800^2; 8 train, 2 test views, 4
+   x 4 ground-truth samples), then scripts/run_pipeline trains stages 1 ->
+   2 -> 3 on it at the reduced shape's grid 48, batch 4 and 4 x 4 training
+   samples (light 128; 2 / 1 / 1 steps) and runs reliteval: every stage's loss and PSNR finite, no
+   non-finite gradient, every fill <= 1, every eval number finite, K1-K3
+   launched, the three exports and the checkpoint written. (b)
+   scripts/premask on that scene with the two spheres as a 48 x 64 UV-sphere
+   mesh each at 160^2 (tile capacity 8192): the layout read back through
+   RFMaskedRealDataparser, every view's mask within an IoU of 0.97 of the
+   scene's alpha, the fullest tile against the capacity. (c) Two ranks in
+   fresh processes (spawn) on a gloo group sharing the one card (NCCL
+   refuses two ranks on one device), under deterministic algorithms:
+   train_step_dp of the slice (4 cameras a rank), of stage 2 at the stage2
+   phase's widths from the product run and of stage 3 at the chain's from
+   its stage-2 run (2 cameras of 800x800, 1 a rank), and of bench.py's 3DGS
+   workload (4 cameras a rank), each against this process's train_step on
+   the whole batch from the same seed and generator state: the loss within
+   rtol 1e-4, the gradients within the JAX package's DP bounds (rtol 1e-3,
+   atol 2e-5 for stage 1 and 3DGS with its densification statistics; rtol
+   2e-3, atol 2e-5 for stages 2 and 3), every parameter bit-equal across the
+   ranks after a second step; each rank's step seconds, the bytes the
+   gradients' all-reduce moved and its seconds (two processes on one card:
+   correctness and collective overhead, not scaling). (d)
+   rasterize_tile_sharded at bench.py's 3DGS scene (50k Gaussians, 800x800)
+   and rasterize_gs_sharded at the prior's scale (1,008,000 Gaussians on its
+   sphere, 800x800) on the two ranks, against the single-process render:
+   images within 3e-5 and 1e-5, the Gaussians' gradients of sum(render^2) +
+   sum(alpha), with the segment sums' prefix in float64 on both sides (K3's
+   float32 prefix path reported beside them), within the JAX package's
+   bound between its two rasterizer backends (rtol 2e-3, atol 2e-3 of each
+   tensor's largest entry past 1). (e)
+   GeoSplatTrainTask with data_parallel on the two ranks at the product
+   phase's widths (its triplane at 64 texels) on its scene, 2 steps: only rank 0's run directory exists,
+   its export equals its checkpoint, the ranks' losses are equal. Then every
+   kernel pass is held against its plain version at rank 0's last camera of
+   (c)'s stage-1 step, and its row of the kernels line gains a "scripts_dp"
+   entry measured there (launches: rank 0's in its two steps).
 The last three lines are the card's name and power limit, the kernels JSON
 line and the result JSON line; the line before them gives each phase's
 seconds. Without a CUDA device it exits non-zero before printing any result.
@@ -1094,7 +1135,7 @@ def product(device, seed, kernels, tmp: Path) -> dict:
 
 STAGE2 = dict(grid=96, scene_scale=0.8, cameras=8, pairs_budget=1_600_000,
               max_render_faces=1 << 17, num_samples_x=8, shadow_steps=24, denoise=True,
-              latlng=[256, 512], steps=1, resume_to=2)
+              latlng=[256, 512], steps=1, resume_to=1)
 
 
 def stage2(device, seed, kernels, scene: Path, load: Path) -> tuple[dict, dict]:
@@ -1116,7 +1157,7 @@ def stage2(device, seed, kernels, scene: Path, load: Path) -> tuple[dict, dict]:
     task = GeoSplatMCTrainTask(
         dataset_path=scene, experiment_name="stage2", load=load, seed=seed,
         num_steps=STAGE2["steps"], batch_size=STAGE2["cameras"], num_steps_per_save=1,
-        num_steps_per_val=STAGE2["steps"], num_val_images=2, resolution=STAGE2["grid"],
+        num_steps_per_val=STAGE2["steps"], num_val_images=1, resolution=STAGE2["grid"],
         scene_scale=STAGE2["scene_scale"], num_samples_x=STAGE2["num_samples_x"],
         pairs_budget=STAGE2["pairs_budget"], max_render_faces=STAGE2["max_render_faces"],
         device=str(device),
@@ -1131,9 +1172,10 @@ def stage2(device, seed, kernels, scene: Path, load: Path) -> tuple[dict, dict]:
         out = task.run()
         run_dir = Path(out["output_dir"]).resolve()
         runs.append(out)
-        again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
-                                    num_steps=STAGE2["resume_to"])
-        runs.append(again.run(resume_dir=run_dir))
+        if STAGE2["resume_to"] > STAGE2["steps"]:   # a resume to resume_to
+            again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
+                                        num_steps=STAGE2["resume_to"])
+            runs.append(again.run(resume_dir=run_dir))
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     launches = {k: kernels.launches[k] for k in kernels.KERNELS}
     log = (run_dir / "log.txt").read_text()
@@ -1181,10 +1223,11 @@ def stage2(device, seed, kernels, scene: Path, load: Path) -> tuple[dict, dict]:
     phase("stage2", **summary)
     finite = all(math.isfinite(v) for v in val_psnr
                  + [m[k] for m in per_step for k in ("loss", "splat_psnr", "reg")])
-    if not (finite and len(per_step) == STAGE2["resume_to"] and len(val.seconds) == 2
+    if not (finite and len(per_step) == STAGE2["resume_to"] and len(val.seconds) == len(runs)
             and all(m["nonfinite_grads"] == 0 for m in per_step)
             and all(m["pair_fill"] <= 1.0 and m["face_fill"] <= 1.0 for m in per_step)
-            and summary["resumed"] and f"step {STAGE2['resume_to']}:" in log
+            and (summary["resumed"] or len(runs) == 1)
+            and f"step {STAGE2['resume_to']}:" in log
             and not mismatched and mask_ok and live > 0
             and all(launches[k] > 0 for k in kernels.KERNELS)):
         raise AssertionError(f"stage 2 failed a check: {summary}")
@@ -1193,8 +1236,8 @@ def stage2(device, seed, kernels, scene: Path, load: Path) -> tuple[dict, dict]:
 
 # the chain phase: stage 1 -> 2 -> 3 -> reliteval through the tasks the CLIs
 # build from their s4r-twosphere presets, on the closed-form S4R scene
-CHAIN = dict(views={"train": 16, "test": 2}, stage1_steps=2, stage2_steps=1, stage3_steps=2,
-             stage3_resume_to=3, sdf_sphere_init=0.45)
+CHAIN = dict(views={"train": 16, "test": 2}, stage1_steps=2, stage2_steps=1, stage3_steps=1,
+             stage3_resume_to=1, sdf_sphere_init=0.45)
 F32_01, F32_99 = 0.009999999776482582, 0.9900000095367432   # float32(0.01), float32(0.99)
 
 
@@ -1223,7 +1266,7 @@ def chain(device, seed, kernels, tmp: Path) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     write_s4r_scene(scene, c["views"], 800, device)
     scene_s = time.perf_counter() - t0
-    common = dict(dataset_path=scene, seed=seed, device=str(device), num_val_images=2)
+    common = dict(dataset_path=scene, seed=seed, device=str(device), num_val_images=1)
     t0 = time.perf_counter()
     out1 = dataclasses.replace(
         cli1.TASKS["s4r-twosphere"], experiment_name="chain-s1", num_steps=c["stage1_steps"],
@@ -1250,9 +1293,10 @@ def chain(device, seed, kernels, tmp: Path) -> tuple[dict, dict]:
         out = task.run()
         run_dir = Path(out["output_dir"]).resolve()
         runs.append(out)
-        again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
-                                    num_steps=c["stage3_resume_to"])
-        runs.append(again.run(resume_dir=run_dir))
+        if c["stage3_resume_to"] > c["stage3_steps"]:   # a resume to resume_to
+            again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
+                                        num_steps=c["stage3_resume_to"])
+            runs.append(again.run(resume_dir=run_dir))
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     launches = {k: kernels.launches[k] for k in kernels.KERNELS}
     log = (run_dir / "log.txt").read_text()
@@ -1313,11 +1357,13 @@ def chain(device, seed, kernels, tmp: Path) -> tuple[dict, dict]:
     }
     phase("chain", **summary)
     finite = all(math.isfinite(m[k]) for m in per_step for k in ("loss", "reg", "splat_psnr"))
-    if not (finite and len(per_step) == c["stage3_resume_to"] and len(val.seconds) == 2
+    if not (finite and len(per_step) == c["stage3_resume_to"]
+            and len(val.seconds) == len(runs)
             and all(m["nonfinite_grads"] == 0 and m["pair_fill"] <= 1.0
                     and m["mesh_tile_fill"] <= 1.0 and m["mesh_pair_fill"] <= 1.0
                     for m in per_step)
-            and summary["resumed"] and f"step {c['stage3_resume_to']}:" in log
+            and (summary["resumed"] or len(runs) == 1)
+            and f"step {c['stage3_resume_to']}:" in log
             and not mismatched and clamps_ok and eval_finite
             and {"nvs", "relight/envmap6", "relight/envmap12", "albedo"} <= set(eval_json)
             and all(launches[k] > 0 for k in kernels.KERNELS)
@@ -1557,9 +1603,10 @@ def gsplat_task(device, seed, kernels, scene: Path) -> dict:
         out = task.run()
         run_dir = Path(out["output_dir"]).resolve()
         runs.append(out)
-        again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
-                                    num_steps=c["task_resume_to"])
-        runs.append(again.run(resume_dir=run_dir))
+        if c["task_resume_to"] > c["task_steps"]:   # a resume to resume_to
+            again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
+                                        num_steps=c["task_resume_to"])
+            runs.append(again.run(resume_dir=run_dir))
     launches = {k: kernels.launches[k] for k in kernels.KERNELS}
     log = (run_dir / "log.txt").read_text()
     exported = load_export(run_dir)
@@ -1593,8 +1640,8 @@ def gsplat_task(device, seed, kernels, scene: Path) -> dict:
 # phase 10: the mesh prior at the defining scale of scripts/prior_scale_demo.py
 PRIOR = dict(rows=300, cols=280, radius=0.5, scale=1.0, num_samples_x=4, shadow_scale=0.95,
              visibility_resolution=64, denoise=True, pairs_budget=2_500_000, resolution=800,
-             cam_radius=2.0, elevation=20.0, cameras=4, batch=2, warmup_steps=1, timed_steps=3,
-             hash_steps=2, task_rows=120, task_cols=112, task_steps=2, task_resume_to=3)
+             cam_radius=2.0, elevation=20.0, cameras=4, batch=2, warmup_steps=1, timed_steps=2,
+             hash_steps=1, task_rows=120, task_cols=112, task_steps=1, task_resume_to=1)
 PRIOR_SPANS = ("trainer.", "prior.", "envshade.", "geosplat.", "rasterize.")
 
 
@@ -1729,8 +1776,9 @@ def prior_train(device, seed, kernels, hash_field: bool) -> tuple[dict, dict]:
 def prior_task(device, seed, kernels, scene: Path, tmp: Path) -> dict:
     """(c) of phase 10: GeoSplatPriorTrainTask at the object preset's widths
     on the product phase's scene, its prior the 120 x 112 UV sphere written
-    as binary PLY: 2 steps with checkpoints, validation and the export, a
-    resume to 3, the export held against the step-3 checkpoint key by key."""
+    as binary PLY: PRIOR's task steps with checkpoints, validation and the
+    export, a resume, the export held against the last checkpoint key by
+    key."""
     import dataclasses
 
     import numpy as np
@@ -1761,9 +1809,10 @@ def prior_task(device, seed, kernels, scene: Path, tmp: Path) -> dict:
         out = task.run()
         run_dir = Path(out["output_dir"]).resolve()
         runs.append(out)
-        again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
-                                    num_steps=c["task_resume_to"])
-        runs.append(again.run(resume_dir=run_dir))
+        if c["task_resume_to"] > c["task_steps"]:   # a resume to resume_to
+            again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
+                                        num_steps=c["task_resume_to"])
+            runs.append(again.run(resume_dir=run_dir))
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = {k: kernels.launches[k] for k in kernels.KERNELS}
     log = (run_dir / "log.txt").read_text()
@@ -1783,9 +1832,10 @@ def prior_task(device, seed, kernels, scene: Path, tmp: Path) -> dict:
     }
     if not (all(math.isfinite(m["loss"]) and math.isfinite(m["reg"])
                 and m["nonfinite_grads"] == 0 and m["pair_fill"] <= 1 for m in per_step)
-            and len(per_step) == c["task_resume_to"] and len(val.seconds) == 2
+            and len(per_step) == c["task_resume_to"] and len(val.seconds) == len(runs)
             and all(math.isfinite(v) for v in summary["val_psnr"])
-            and summary["resumed"] and f"step {c['task_resume_to']}:" in log
+            and (summary["resumed"] or len(runs) == 1)
+            and f"step {c['task_resume_to']}:" in log
             and export["export_ok"] and all(launches[k] > 0 for k in kernels.KERNELS)):
         raise AssertionError(f"the prior task failed a check: {summary}")
     return summary
@@ -1832,7 +1882,7 @@ def prior_export_check(run_dir: Path, base: dict, step: int) -> dict:
 # The fullest tile holds ~1,950-2,000 Gaussians at 32 pairs a Gaussian (CPU
 # count of bin_gaussians on this scene), so the tile capacity is the 2DGS
 # task's, which leaves a quarter of headroom
-GSPLAT2D = dict(pairs_per_gaussian=32, tile_capacity=2560, warmup_steps=1, timed_steps=3,
+GSPLAT2D = dict(pairs_per_gaussian=32, tile_capacity=2560, warmup_steps=1, timed_steps=2,
                 task_steps=2, task_resume_to=3)
 SPANS_2D = ("gsplat.", "rasterize.")
 
@@ -2020,9 +2070,10 @@ def gsplat2d_task(device, seed, scene: Path, tmp: Path) -> dict:
         out = task.run()
         run_dir = Path(out["output_dir"]).resolve()
         runs.append(out)
-        again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
-                                    num_steps=c["task_resume_to"])
-        runs.append(again.run(resume_dir=run_dir))
+        if c["task_resume_to"] > c["task_steps"]:   # a resume to resume_to
+            again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
+                                        num_steps=c["task_resume_to"])
+            runs.append(again.run(resume_dir=run_dir))
     peak = torch.cuda.max_memory_allocated() / 2**30
     log = (run_dir / "log.txt").read_text()
     exported = load_export(run_dir)
@@ -2125,7 +2176,7 @@ def check_2dgs_card_vs_cpu(device, seed) -> dict:
 # 1.4M scaled by its pixels, (1024 / 800)^2.
 CAPTURES = dict(
     colmap_wh=(1297, 840), colmap_views=24, colmap_points=10_000, colmap_focal=1100.0,
-    colmap_radius=2.2, colmap_elevation=20.0, prior_steps=2, prior_resume_to=3,
+    colmap_radius=2.2, colmap_elevation=20.0, prior_steps=1, prior_resume_to=1,
     orb_views={"train": 16, "test": 2}, orb_pairs_budget=2_400_000,
     dtu_wh=(1600, 1200), dtu_views=10, dtu_k=(2892.0, 2892.0, 880.0, 560.0),
     stage1=dict(num_steps=2, batch_size=8, resolution=SLICE["grid"], light_resolution=512,
@@ -2329,8 +2380,8 @@ def write_dtu_scene(root: Path, device) -> None:
 def captures_prior(device, seed, kernels, tmp: Path) -> tuple[dict, dict]:
     """(a) of phase 12: the prior's unbounded preset (batch 4, scene scale
     2.0) through the CLI's task on the COLMAP scene, its prior the 300 x 280
-    UV sphere of phase 10 (a) as PLY: 2 steps with checkpoints, validation
-    and the export, a resume to 3, the export held against the step-3
+    UV sphere of phase 10 (a) as PLY: CAPTURES' steps with checkpoints,
+    validation and the export, a resume, the export held against the last
     checkpoint. Gates on every step; returns (summary, the last camera's
     kernel inputs)."""
     import dataclasses
@@ -2381,9 +2432,10 @@ def captures_prior(device, seed, kernels, tmp: Path) -> tuple[dict, dict]:
         out = task.run()
         run_dir = Path(out["output_dir"]).resolve()
         runs.append(out)
-        again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
-                                    num_steps=c["prior_resume_to"])
-        runs.append(again.run(resume_dir=run_dir))
+        if c["prior_resume_to"] > c["prior_steps"]:   # a resume to resume_to
+            again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
+                                        num_steps=c["prior_resume_to"])
+            runs.append(again.run(resume_dir=run_dir))
     peak = torch.cuda.max_memory_allocated() / 2**30
     log = (run_dir / "log.txt").read_text()
     export = prior_export_check(run_dir, base, c["prior_resume_to"])
@@ -2410,7 +2462,8 @@ def captures_prior(device, seed, kernels, tmp: Path) -> tuple[dict, dict]:
                     and m["nonfinite_grads"] == 0 and m["pair_fill"] <= 1 for m in per_step)
             and all(all(n == b for n in counts.values()) for counts in steps.launches)
             and len(per_step) == c["prior_resume_to"] and len(pairs) == b * len(per_step)
-            and all(math.isfinite(v) for v in summary["val_psnr"]) and summary["resumed"]
+            and all(math.isfinite(v) for v in summary["val_psnr"])
+            and (summary["resumed"] or len(runs) == 1)
             and export["export_ok"] and bwd.args is not None and k3.args is not None):
         raise AssertionError(f"the COLMAP prior run failed a check: {summary}")
     return summary, {"bwd": bwd.args, "k3": k3.args}
@@ -2836,7 +2889,7 @@ def quality(device, seed, kernels, scene: Path, card: str) -> tuple[dict, dict]:
 # GeoSplatterDefer batched_binning, GSplatter camera_batching="vmap") against
 # the per-camera path, with the tolerances the JAX package holds its own two
 # paths to (tests/test_geosplat_stage1.py:129-145, tests/test_batched_binning.py)
-BATCHED = dict(compare_step=200, timed_steps=(200, 201, 202, 203), stage23_cameras=2,
+BATCHED = dict(compare_step=200, timed_steps=(200, 201), stage23_cameras=2,
                stage23_image=800,
                tol={"stage1": {"rgba": (1e-5, 1e-5), "grad": (2e-4, 2e-3)},
                     "gsplat": {"rgba": (1e-5, 1e-5), "grad": (2e-4, 2e-3)},
@@ -2952,7 +3005,7 @@ def binning_bytes(rz, step) -> dict:
 
 def batched_slice(device, seed, kernels) -> tuple[dict, dict]:
     """(a) of phase 14: the slice with batched_binning against the map path
-    from the same state, jitter draw and background, then 4 timed steps.
+    from the same state, jitter draw and background, then 2 timed steps.
     Returns (summary, the last camera's kernel inputs)."""
     import torch
 
@@ -3098,42 +3151,33 @@ def batched_gsplat(device, seed, kernels) -> dict:
     return summary
 
 
-def map_vs_batched(model, render, tol, spread: bool = False) -> dict:
+def map_vs_batched(model, render, tol) -> dict:
     """One render and backward of sum(rgba) + reg with ``model``'s binning
     per camera, then batched, from the same weights and draws, under
-    deterministic algorithms. With ``spread`` the per-camera path runs once
-    more with the default algorithms, against its deterministic run: the
-    run-to-run spread the comparison would otherwise see."""
+    deterministic algorithms."""
     import torch
 
     runs, nondeterministic = {}, []
-    for batched, exact in ((False, True), (True, True)) + (((False, False),) if spread else ()):
+    for batched in (False, True):
         model.batched_binning = batched
         model.zero_grad(set_to_none=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with (deterministic(nondeterministic) if exact else contextlib.nullcontext()), \
-                PairLists() as lists:
+        with deterministic(nondeterministic), PairLists() as lists:
             rgba, reg, aux = render()
             (rgba.sum() + reg).backward()
         torch.cuda.synchronize()
-        runs[batched, exact] = {"rgba": rgba.detach(), "grads": flat_grads(model),
-                                "bins": lists.bins, "total_pairs": int(aux["total_pairs"]),
-                                "seconds": time.perf_counter() - t0}
+        runs[batched] = {"rgba": rgba.detach(), "grads": flat_grads(model),
+                         "bins": lists.bins, "total_pairs": int(aux["total_pairs"]),
+                         "seconds": time.perf_counter() - t0}
     model.zero_grad(set_to_none=True)
-    m0, m1 = runs[False, True], runs[True, True]
+    m0, m1 = runs[False], runs[True]
     out = {"pair_lists_equal": same_pair_lists(m0["bins"], m1["bins"]),
            "total_pairs": [m0["total_pairs"], m1["total_pairs"]],
            "rgba": close_to(m1["rgba"], m0["rgba"], *tol["rgba"]),
            "grads": close_to(m1["grads"], m0["grads"], *tol["grad"]),
            "seconds": {"map": m0["seconds"], "batched": m1["seconds"]},
            "nondeterministic_ops": nondeterministic}
-    if spread:
-        d = runs[False, False]
-        out["default_algorithms_map_vs_map"] = {
-            "rgba": close_to(d["rgba"], m0["rgba"], *tol["rgba"]),
-            "grads": close_to(d["grads"], m0["grads"], *tol["grad"]),
-            "grad_max": float(m0["grads"].abs().max()), "entries": m0["grads"].numel()}
     return out
 
 
@@ -3171,7 +3215,7 @@ def batched_stages(device, seed, product_run: Path, stage2_run: Path) -> tuple[d
                         device=device)
     draws = [m2.draw_shade(gen) for _ in range(len(cams))]
     s2 = map_vs_batched(m2, lambda: m2.render(cams, jitter_noise=noise, draws=draws),
-                        BATCHED["tol"]["stage2"], spread=True)
+                        BATCHED["tol"]["stage2"])
     with torch.no_grad():
         aces, _, _ = m2.render(cams, tone_type="aces", jitter_noise=noise, draws=draws)
     s2["aces"] = {"finite": bool(torch.isfinite(aces).all()), "min": float(aces.min()),
@@ -3294,6 +3338,560 @@ def batched(device, seed, kernels, product_run: Path, stage2_run: Path, card: st
     phase("batched_stages", **out["stages"])
     out["options"] = batched_options_card_vs_cpu(device, seed, m3)
     phase("batched_options_card_vs_cpu", **out["options"])
+    return out, captured
+
+
+# --- phase 15: the root entry scripts and multi-GPU training ----------------------
+
+# (a) the scripts at the quality benchmark's reduced shape (grid 48, batch
+# 4; 160^2 images, the S4R layout's 800^2 / 5: its 128^2 does not divide
+# 800), a few steps a stage; (b) the premask mesh: two UV spheres at the
+# quality scene's centres and radii; (c)-(e) two gloo ranks sharing the one
+# card. Tolerances: the JAX package's between its DP and single-device steps
+# (tests/test_dp_geosplat.py:98-99, 174, 222), its sharding tests' for the
+# images (tests/test_tile_sharding.py:36-37, tests/test_gs_sharding.py:50-52)
+# and, for the sharded renders' gradients, the one between its own two
+# rasterizer backends (rtol 2e-3, atol 2e-3 of the largest entry past 1;
+# tests/test_rasterize_pallas.py:127-132): at these scales a band's segment
+# sums differ from the whole image's by more than the sharding test's 2e-4,
+# which was set on the dense backend at 64 x 48
+SCRIPTS_DP = dict(
+    scene=dict(n_train=8, n_test=2, res=160, spp_x=4, seed=11),
+    pipeline=dict(resolution=48, batch=4, light_resolution=128, num_samples_x=4,
+                  steps=(2, 1, 1)),
+    mask=dict(rows=48, cols=64, tile_capacity=8192, iou=0.97),
+    world=2, step=200.0, stage23_cameras=2, gs_gaussians=1_008_000, task_steps=2,
+    task_triplane=64,   # (e) checks who writes: a small export and checkpoints
+    tol={"loss_rtol": 1e-4, "stage1": (1e-3, 2e-5), "gsplat": (1e-3, 2e-5),
+         "stage2": (2e-3, 2e-5), "stage3": (2e-3, 2e-5), "tile_fwd": 3e-5, "gs_fwd": 1e-5,
+         "render_grad": 2e-3},
+)
+
+
+def scripts_pipeline(device, seed, kernels, tmp: Path) -> dict:
+    """(a) of phase 15: make_synthetic_scene, then run_pipeline through the
+    three stages and reliteval on it."""
+    import torch
+
+    from geosplatting_tpu_torch.scripts import make_synthetic_scene, run_pipeline
+
+    c, p = SCRIPTS_DP["scene"], SCRIPTS_DP["pipeline"]
+    t0 = time.perf_counter()
+    scene = make_synthetic_scene.make_scene(
+        tmp / "synthetic" / "twosphere", n_train=c["n_train"], n_test=c["n_test"], res=c["res"],
+        spp_x=c["spp_x"], seed=c["seed"], device=device, log=lambda msg: None)
+    scene_s = time.perf_counter() - t0
+    s1, s2, s3 = p["steps"]
+    args = run_pipeline.parse_args([
+        "--scene", "twosphere", "--dataset_path", str(scene), "--resolution", str(p["resolution"]),
+        "--scene_scale", "1.0", "--light_resolution", str(p["light_resolution"]),
+        "--s1-steps", str(s1), "--s2-steps", str(s2), "--s3-steps", str(s3),
+        "--batch", str(p["batch"]), "--scale_factor", str(c["res"] / 800), "--seed", str(seed),
+        "--num_samples_x", str(p["num_samples_x"]), "--eval", "reliteval",
+        "--device", str(device)])
+    cwd = os.getcwd()
+    os.chdir(tmp)   # outputs/ under the temporary directory
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = run_pipeline.run_pipeline(args)
+        torch.cuda.synchronize()
+        pipeline_s = time.perf_counter() - t0
+        launches = {k: kernels.launches[k] for k in kernels.KERNELS}
+        run = (tmp / out["output_dir"]).resolve()
+    finally:
+        os.chdir(cwd)
+    ev = out.pop("eval")
+    numbers = [v for k, v in ev.items() if k != "albedo_scaling"]
+    flat = [x for v in numbers for x in (v.values() if isinstance(v, dict) else [v])]
+    flat = [x for x in flat + ev["albedo_scaling"] if x is not None]   # no LPIPS weights
+    fills = {k: v for k, v in out.items() if k.endswith("_fill")}
+    summary = {"scene": str(scene), "scene_seconds": scene_s, "pipeline_seconds": pipeline_s,
+               **out, "eval": ev, "launches": launches,
+               "files": sorted(str(f.relative_to(run)) for f in run.rglob("*") if f.is_file())}
+    ok = (all(math.isfinite(out[f"s{i}_{k}"]) for i in (1, 2, 3) for k in ("loss", "psnr"))
+          and all(out[f"s{i}_nonfinite_grads"] == 0 for i in (1, 2, 3))
+          and all(v <= 1.0 for v in fills.values()) and len(fills) >= 5
+          and all(math.isfinite(x) for x in flat)
+          and all(launches[k] > 0 for k in kernels.KERNELS)
+          and {"stage1/export.npz", "stage2/export.npz", "stage3/export.npz",
+               f"ckpts/{s3}.pt"} <= set(summary["files"]))
+    phase("scripts_pipeline", **summary, ok=ok)
+    if not ok:
+        raise AssertionError(f"run_pipeline failed a check: {summary}")
+    return summary
+
+
+def two_spheres_mesh(rows: int, cols: int):
+    """The quality scene's two spheres as UV-sphere meshes (numpy vertices,
+    faces)."""
+    import numpy as np
+
+    from geosplatting_tpu_torch.bench import quality as q
+
+    verts, faces = [], []
+    for centre, radius in zip(q.SPHERE_CENTERS, q.SPHERE_RADII):
+        m = uv_sphere(rows, cols, float(radius))
+        faces.append(m.indices.numpy() + sum(len(v) for v in verts))
+        verts.append(m.vertices.numpy() + centre)
+    return np.concatenate(verts).astype(np.float32), np.concatenate(faces).astype(np.int32)
+
+
+def scripts_premask(device, scene: Path, tmp: Path) -> dict:
+    """(b) of phase 15: premask on the synthetic scene with the two spheres
+    as the mesh, the layout read back through RFMaskedRealDataparser, each
+    view's mask against the scene's alpha."""
+    import numpy as np
+
+    from geosplatting_tpu_torch.data.dataset import Dataset
+    from geosplatting_tpu_torch.graphics.mesh_io import save_mesh
+    from geosplatting_tpu_torch.scripts import premask
+
+    c, m = SCRIPTS_DP["scene"], SCRIPTS_DP["mask"]
+    verts, faces = two_spheres_mesh(m["rows"], m["cols"])
+    save_mesh(tmp / "two_spheres.ply", verts, faces)
+    t0 = time.perf_counter()
+    info = premask.premask(tmp / "two_spheres.ply", scene, tmp / "masked",
+                           scale_factor=c["res"] / 800, tile_capacity=m["tile_capacity"],
+                           device=device, log=lambda msg: None)
+    seconds = time.perf_counter() - t0
+    from geosplatting_tpu_torch.data.dataparsers.real_captures import _modulo_split
+
+    masked = Dataset(tmp / "masked", device=device)
+    parser = masked.dataparser
+    ratios = (parser.train_split_ratio, parser.val_split_ratio, parser.test_split_ratio)
+    order = [i for s in ("train", "test", "val") for i in _modulo_split(info["views"], s, ratios)]
+    got = np.concatenate([masked.get_split(s)[1] for s in ("train", "test", "val")])
+    gt = Dataset(scene, scale_factor=c["res"] / 800, device=device)
+    want = np.concatenate([gt.get_split(s)[1] for s in ("train", "val", "test")])[order]
+    ious = []
+    for a, b in zip(got[..., 3] > 0.5, want[..., 3] > 0.5):
+        ious.append(float((a & b).sum() / max((a | b).sum(), 1)))
+    summary = {**info, "faces": len(faces), "seconds": seconds,
+               "parser": type(parser).__name__, "read_back": len(got),
+               "iou_min": min(ious), "iou": ious, "iou_gate": m["iou"]}
+    ok = (summary["parser"] == "RFMaskedRealDataparser" and len(got) == info["views"]
+          == len(want) and min(ious) >= m["iou"]
+          and info["max_tile_triangles"] <= info["tile_capacity"])
+    phase("scripts_premask", **summary, ok=ok)
+    if not ok:
+        raise AssertionError(f"premask failed a check: {summary}")
+    return summary
+
+
+def _dp_setup(name: str, device, seed, paths: dict):
+    """(trainer, cameras, ground truth) of one of (c)'s workloads, built
+    alike in every process from the seed and the earlier phases' exports."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from geosplatting_tpu_torch.graphics.cameras import Cameras
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if name == "stage1":
+        return make_slice(device, gen, **SLICE)
+    if name == "gsplat":
+        from geosplatting_tpu_torch.train.gsplat_trainer import (
+            GSplatTrainer, GSplatTrainerConfig,
+        )
+
+        splats, model, cams, gt = gsplat_scene(device, gen, sh_degree=0)
+        trainer = GSplatTrainer(GSplatTrainerConfig(batch_size=len(cams)), model,
+                                dataset_size=len(cams))
+        trainer.init_state(splats)
+        return trainer, cams, gt
+    from geosplatting_tpu_torch.engine.stage_io import find_export, load_export
+
+    n = SCRIPTS_DP["stage23_cameras"]
+    cams = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=2.0, elevation_degrees=15.0,
+                              num_samples=n, width=800, height=800, device=device)
+    if name == "stage2":
+        from geosplatting_tpu_torch.models.geosplat_mc import GeoSplatterMC
+        from geosplatting_tpu_torch.train.geosplat_mc_trainer import (
+            GeoSplatMCTrainer, GeoSplatMCTrainerConfig,
+        )
+
+        export = load_export(find_export(paths["product_run"]))
+        planes = np.shape(export["ks_enc"]["planes"])
+        m2 = GeoSplatterMC(resolution=STAGE2["grid"], scale=STAGE2["scene_scale"],
+                           num_samples_x=STAGE2["num_samples_x"],
+                           shadow_steps=STAGE2["shadow_steps"], pairs_budget=STAGE2["pairs_budget"],
+                           max_render_faces=STAGE2["max_render_faces"],
+                           triplane_resolution=planes[1], triplane_components=planes[-1],
+                           generator=gen, device=device)
+        m2.init_from_stage1(export)
+        return GeoSplatMCTrainer(GeoSplatMCTrainerConfig(batch_size=n), m2), cams, sphere_gt(cams)
+    from geosplatting_tpu_torch.scripts import train_geosplat_defer as cli3
+    from geosplatting_tpu_torch.train.geosplat_defer_trainer import (
+        GeoSplatDeferTrainer, GeoSplatDeferTrainerConfig,
+    )
+
+    task3 = dataclasses.replace(cli3.TASKS["s4r-twosphere"], load=paths["stage2_run"])
+    export3 = load_export(find_export(paths["stage2_run"]))
+    m3 = task3.make_model(export3, device)
+    m3.init_from_stage2(export3)
+    return GeoSplatDeferTrainer(GeoSplatDeferTrainerConfig(batch_size=n), m3), cams, sphere_gt(cams)
+
+
+DP_SETUPS = ("stage1", "stage2", "stage3", "gsplat")
+
+
+def _dp_step(name: str, trainer, cams, gt, gen, dp: bool) -> dict:
+    fn = trainer.train_step_dp if dp else trainer.train_step
+    step = SCRIPTS_DP["step"]
+    if name == "stage1":
+        return fn(cams, gt, step, sampling="face", generator=gen)
+    if name == "stage2":
+        return fn(cams, gt, step, generator=gen)
+    if name == "stage3":
+        return fn(cams, gt, generator=gen)
+    return fn(cams, gt, max_sh_degree=None, generator=gen)
+
+
+def _dp_params(name: str, trainer) -> dict:
+    """The trained parameters (3DGS: those with an optimizer group)."""
+    if name == "gsplat":
+        return {k: trainer.params[k] for k in trainer.specs}
+    return dict(trainer.model.named_parameters())
+
+
+def _sharded_inputs(kind: str, device, seed):
+    """(d)'s scenes: bench.py's 3DGS scene for the band render (its 32 pairs
+    a Gaussian), 1,008,000 Gaussians on the prior's sphere for the
+    Gaussian-sharded one (8 a Gaussian). Returns (dict of the Gaussians'
+    tensors, the camera, the rasterizer's keywords)."""
+    import torch
+
+    from geosplatting_tpu_torch.graphics import gmath
+    from geosplatting_tpu_torch.graphics.cameras import Cameras
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if kind == "tile":
+        splats, _, cams, _ = gsplat_scene(device, gen, sh_degree=0)
+        return {"means": splats.means, "quats": gmath.safe_normalize(splats.quats),
+                "scales": torch.exp(splats.scales),
+                "opacities": torch.sigmoid(splats.opacities[:, 0]),
+                "colors": splats.colors}, cams[0], {"pairs_per_gaussian": GSPLAT["pairs_per_gaussian"]}
+    n = SCRIPTS_DP["gs_gaussians"]
+    kw = dict(generator=gen, device=device)
+    pts = torch.randn((n, 3), **kw)
+    cam = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=PRIOR["cam_radius"],
+                             elevation_degrees=PRIOR["elevation"], num_samples=1,
+                             width=PRIOR["resolution"], height=PRIOR["resolution"],
+                             device=device)[0]
+    return {"means": PRIOR["radius"] * pts / torch.linalg.norm(pts, dim=-1, keepdim=True),
+            "quats": gmath.safe_normalize(torch.randn((n, 4), **kw)),
+            "scales": torch.exp(torch.rand((n, 3), **kw) * 1.5 - 6.5),
+            "opacities": torch.rand(n, **kw) * 0.8 + 0.1,
+            "colors": torch.rand((n, 3), **kw)}, cam, {"pairs_per_gaussian": 8}
+
+
+def _render_loss(render, alpha):
+    return (render ** 2).sum() + alpha.sum()
+
+
+@contextlib.contextmanager
+def f64_prefix():
+    """The segment sums' prefix (K3) in float64 for the with-block. K3's
+    float32 prefix differences carry an error that grows with the running
+    prefix (ROADMAP C, "Prefix-difference precision"): at (d)'s 1-2.4M
+    pairs it is larger than the bound the sharded renders are held to, so
+    their gradients are compared with the prefix in float64 on both sides,
+    and the float32 path's differences are reported beside them."""
+    import torch
+
+    from geosplatting_tpu_torch.ops import segment_rows as sr
+
+    fn = sr.cumsum_rows
+    sr.cumsum_rows = lambda values: torch.cumsum(values.double(), 0).float()
+    try:
+        yield
+    finally:
+        sr.cumsum_rows = fn
+
+
+def _sharded_pass(fn, scene, cam, kw, prefix64: bool):
+    """One render and backward of ``render_loss``; (render, alpha, grads,
+    seconds)."""
+    import torch
+
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in scene.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with f64_prefix() if prefix64 else contextlib.nullcontext():
+        render, alpha = fn(*leaves.values(), cam.view_matrix, cam.intrinsic_matrix,
+                           cam.width, cam.height, **kw)[:2]
+        _render_loss(render, alpha).backward()
+    torch.cuda.synchronize()
+    return render.detach(), alpha.detach(), {k: v.grad for k, v in leaves.items()}, \
+        time.perf_counter() - t0
+
+
+def _rank_train(name: str, rank: int, device, seed, paths: dict, work: Path,
+                warnings: list) -> dict:
+    """Two train_step_dp of (c)'s workload ``name`` on this rank: the
+    first under deterministic algorithms (it is held to one process's),
+    rank 0 keeping its gradients; rank 0 records its stage-1 second step's
+    last kernel inputs into ``work/captured.pt``. Returns the steps'
+    seconds, metrics, rank 0's gradients, the parameters' digests after
+    the second step, the launches and the gradients' reduce seconds."""
+    import hashlib
+
+    import torch
+
+    from geosplatting_tpu_torch import _kernels
+    from geosplatting_tpu_torch.ops import rasterize_pairs as rp
+    from geosplatting_tpu_torch.ops import segment_rows as sr
+    from geosplatting_tpu_torch.train import dp
+
+    trainer, cams, gt = _dp_setup(name, device, seed, paths)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    recorders = [Recorder(rp, "composite_bwd"), Recorder(sr, "cumsum_rows")]
+    seconds, metrics, grads = [], [], None
+    launches = {k: 0 for k in _kernels.KERNELS}
+    with Timed(dp, "reduce_grads") as reduce:
+        for i in range(2):
+            record = name == "stage1" and rank == 0 and i == 1
+            with contextlib.ExitStack() as stack:
+                if i == 0:
+                    stack.enter_context(deterministic(warnings))
+                if record:
+                    for r in recorders:
+                        stack.enter_context(r)
+                torch.cuda.synchronize()
+                _kernels.reset_launches()
+                t0 = time.perf_counter()
+                m = _dp_step(name, trainer, cams, gt, gen, dp=True)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+            launches = {k: launches[k] + _kernels.launches[k] for k in _kernels.KERNELS}
+            if i == 0 and rank == 0:
+                # copies: the next step reuses .grad and the statistics in place
+                grads = {k: p.grad.detach().clone().cpu()
+                         for k, p in _dp_params(name, trainer).items()}
+                if name == "gsplat":
+                    grads["stats.xys_grad_norm"] = trainer.xys_grad_norm.clone().cpu()
+                    grads["stats.vis_counts"] = trainer.vis_counts.clone().cpu()
+    if name == "stage1" and rank == 0:
+        torch.save({"bwd": recorders[0].args, "k3": recorders[1].args}, work / "captured.pt")
+    digests = {k: hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
+               for k, p in _dp_params(name, trainer).items()}
+    return {"seconds": seconds, "metrics": metrics, "grads": grads, "digests": digests,
+            "launches": launches, "reduce_seconds": reduce.seconds}
+
+
+def scripts_dp_rank(rank: int, world: int, work: str, paths: dict, seed: int,
+                    device_name: str) -> None:
+    """One rank of (c)-(e) of phase 15, in a fresh process on the shared card
+    (a gloo group: NCCL refuses two ranks on one device). Writes what it
+    measured to ``<work>/rank<r>.pt``."""
+    import torch
+
+    from geosplatting_tpu_torch.engine.train_task import GeoSplatTrainTask
+    from geosplatting_tpu_torch.parallel.gs_sharding import rasterize_gs_sharded
+    from geosplatting_tpu_torch.parallel.sharding import init_from_env, shard_batch
+    from geosplatting_tpu_torch.parallel.tile_sharding import rasterize_tile_sharded
+
+    _, _, device = init_from_env(device_name)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work = Path(work)
+    out = {"deterministic_warnings": []}
+    for name in DP_SETUPS:
+        out[name] = _rank_train(name, rank, device, seed, paths, work,
+                                out["deterministic_warnings"])
+        torch.cuda.empty_cache()
+
+    # (d) the sharded renders, through K3 and with the prefix in float64
+    with deterministic(out["deterministic_warnings"]):
+        for kind, fn in (("tile", rasterize_tile_sharded), ("gs", rasterize_gs_sharded)):
+            scene, cam, kw = _sharded_inputs(kind, device, seed)
+            if kind == "gs":
+                scene = shard_batch(scene, rank, world)
+            render, alpha, grads, seconds = _sharded_pass(fn, scene, cam, kw, False)
+            grads_f64 = _sharded_pass(fn, scene, cam, kw, True)[2]
+            out[kind] = {"seconds": seconds, "render": render.cpu(), "alpha": alpha.cpu(),
+                         "grads": {k: v.cpu() for k, v in grads.items()},
+                         "grads_f64": {k: v.cpu() for k, v in grads_f64.items()}}
+            del scene, render, alpha, grads, grads_f64
+            torch.cuda.empty_cache()
+
+    # (e) a data-parallel task, as torchrun would start it
+    (work / "task").mkdir(exist_ok=True)
+    os.chdir(work / "task")
+    task = GeoSplatTrainTask(
+        dataset_path=Path(paths["product_scene"]), experiment_name="dp-product", seed=seed,
+        num_steps=SCRIPTS_DP["task_steps"], batch_size=SLICE["cameras"], num_steps_per_save=1,
+        num_steps_per_val=SCRIPTS_DP["task_steps"], num_val_images=1, resolution=SLICE["grid"],
+        light_resolution=512, scene_scale=0.8, pairs_budget=SLICE["pairs_budget"],
+        device=device_name, sdf_sphere_init=PRODUCT["sdf_sphere_init"], data_parallel=True,
+        triplane_resolution=SCRIPTS_DP["task_triplane"])
+    out["task"] = task.run()
+    torch.save(out, work / f"rank{rank}.pt")
+
+
+def scripts_dp(device, seed, paths: dict, tmp: Path, card: str) -> tuple[dict, dict]:
+    """(c)-(e) of phase 15 on two gloo ranks sharing the card, each against
+    this process's single-process run of the same workload. Returns (the
+    phase's numbers, rank 0's last camera's kernel inputs of (c)'s stage-1
+    step with that run's launches)."""
+    import torch
+
+    from geosplatting_tpu_torch.engine.stage_io import load_export
+    from geosplatting_tpu_torch.ops.rasterize import rasterize
+    from geosplatting_tpu_torch.parallel import sharding
+
+    work = tmp / "dp"
+    work.mkdir()
+    tol = SCRIPTS_DP["tol"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sharding.spawn_gloo(scripts_dp_rank, SCRIPTS_DP["world"], work / "rendezvous", str(work),
+                        {k: str(v) for k, v in paths.items()}, seed, device.type)
+    ranks_s = time.perf_counter() - t0
+    # the ranks' own files (tile grids and chunk lists are not plain tensors)
+    r0, r1 = (torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(2))
+    summary = {"label": "two processes sharing one card: correctness and collective overhead, "
+                        "not multi-GPU scaling", "card": card, "ranks_seconds": ranks_s}
+    ok = True
+    warnings = []
+    with deterministic(warnings):
+        for name in DP_SETUPS:
+            trainer, cams, gt = _dp_setup(name, device, seed, paths)
+            gen = torch.Generator(device=device).manual_seed(seed + 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = {k: float(v) for k, v in _dp_step(name, trainer, cams, gt, gen, dp=False).items()}
+            torch.cuda.synchronize()
+            single_s = time.perf_counter() - t0
+            want = {k: p.grad.detach() for k, p in _dp_params(name, trainer).items()}
+            if name == "gsplat":
+                want["stats.xys_grad_norm"] = trainer.xys_grad_norm
+                want["stats.vis_counts"] = trainer.vis_counts
+            rtol, atol = tol[name]
+            worst = {"max_abs_err": 0.0, "past_tol": 0, "ok": True}
+            for k, w in want.items():
+                res = close_to(r0[name]["grads"][k].to(device), w, atol, rtol)
+                worst = {"max_abs_err": max(worst["max_abs_err"], res["max_abs_err"]),
+                         "past_tol": worst["past_tol"] + res["past_tol"],
+                         "ok": worst["ok"] and res["ok"]}
+            del trainer, cams, gt, want
+            torch.cuda.empty_cache()
+            got = r0[name]["metrics"][0]
+            loss_err = abs(got["loss"] - m["loss"]) / abs(m["loss"])
+            bit_equal = r0[name]["digests"] == r1[name]["digests"]
+            entry = {
+                "loss_dp": got["loss"], "loss_single": m["loss"], "loss_rel_err": loss_err,
+                "grads": {**worst, "rtol": rtol, "atol": atol},
+                "params_bit_equal_after_2_steps": bit_equal,
+                "nonfinite_grads": [x["nonfinite_grads"] for r in (r0, r1)
+                                    for x in r[name]["metrics"]],
+                "fills": {k: max(x[k] for r in (r0, r1) for x in r[name]["metrics"])
+                          for k in got if k.endswith("_fill")},
+                "dp_step_seconds": {"rank0": r0[name]["seconds"], "rank1": r1[name]["seconds"]},
+                "single_step_seconds": single_s,
+                "dp_reduce_bytes": got["dp_reduce_bytes"],
+                "dp_reduce_seconds": {"rank0": r0[name]["reduce_seconds"],
+                                      "rank1": r1[name]["reduce_seconds"]},
+                "launches_rank0": r0[name]["launches"],
+            }
+            entry["ok"] = (loss_err <= tol["loss_rtol"] and worst["ok"] and bit_equal
+                           and all(v == 0 for v in entry["nonfinite_grads"])
+                           and all(v <= 1.0 for v in entry["fills"].values())
+                           and all(v > 0 for v in r0[name]["launches"].values()))
+            summary[name] = entry
+            ok = ok and entry["ok"]
+            phase(f"scripts_dp_{name}", **entry)
+
+        for kind, fwd_tol in (("tile", tol["tile_fwd"]), ("gs", tol["gs_fwd"])):
+            scene, cam, kw = _sharded_inputs(kind, device, seed)
+            render, alpha, grads_k3, single_s = _sharded_pass(rasterize, scene, cam, kw, False)
+            grads_f64 = _sharded_pass(rasterize, scene, cam, kw, True)[2]
+            pairs = int(rasterize(*scene.values(), cam.view_matrix, cam.intrinsic_matrix,
+                                  cam.width, cam.height, **kw)[2]["total_pairs"])
+            fwd = [close_to(r[kind][x].to(device), y, fwd_tol, 0.0)
+                   for r in (r0, r1) for x, y in (("render", render), ("alpha", alpha))]
+
+            def sharded(key, k):
+                parts = [r[kind][key][k] for r in (r0, r1)]
+                return (parts[0] if kind == "tile" else torch.cat(parts)).to(device)
+
+            grads, k3_path = {}, {}
+            bound = tol["render_grad"]
+            for k, want in grads_f64.items():
+                scale = max(1.0, float(want.abs().max()))
+                grads[k] = {**close_to(sharded("grads_f64", k), want, bound * scale, bound),
+                            "atol": bound * scale, "rtol": bound}
+                # reported, not gated: the same through K3's float32 prefix
+                k3_path[k] = {
+                    **close_to(sharded("grads", k), grads_k3[k], bound * scale, bound),
+                    "sharded_vs_single_rel": float((sharded("grads", k) - grads_k3[k]).abs()
+                                                   .max()) / scale,
+                    "single_k3_vs_f64_rel": float((grads_k3[k] - want).abs().max()) / scale}
+            entry = {"gaussians": int(scene["means"].shape[0]), "image": [cam.width, cam.height],
+                     "pairs": pairs, **kw,
+                     "forward": {"max_abs_err": max(f["max_abs_err"] for f in fwd),
+                                 "atol": fwd_tol, "ok": all(f["ok"] for f in fwd)},
+                     "grads_prefix_f64": grads, "grads_k3_path": k3_path,
+                     "sharded_seconds": {"rank0": r0[kind]["seconds"],
+                                         "rank1": r1[kind]["seconds"]},
+                     "single_seconds": single_s}
+            entry["ok"] = (entry["forward"]["ok"] and all(g["ok"] for g in grads.values())
+                           and pairs <= kw["pairs_per_gaussian"] * entry["gaussians"])
+            if kind == "tile":
+                entry["ranks_equal_grads"] = all(
+                    torch.equal(r0[kind][key][k], r1[kind][key][k])
+                    for key in ("grads", "grads_f64") for k in grads)
+                entry["ok"] = entry["ok"] and entry["ranks_equal_grads"]
+            summary[f"sharded_{kind}"] = entry
+            ok = ok and entry["ok"]
+            phase(f"scripts_dp_sharded_{kind}", **entry)
+            del scene, render, alpha, grads_k3, grads_f64
+            torch.cuda.empty_cache()
+
+    # (e) only rank 0 wrote a run directory; its export equals its checkpoint
+    runs = sorted((work / "task" / "outputs").glob("*/*"))
+    run = Path(r0["task"]["output_dir"])
+    run = run if run.is_absolute() else work / "task" / run
+    files = sorted(str(f.relative_to(run)) for f in run.rglob("*") if f.is_file())
+    exported = load_export(run)
+    ckpt = torch.load(run / "ckpts" / f"{SCRIPTS_DP['task_steps']}.pt", map_location="cpu")
+    from geosplatting_tpu_torch.convert import params_to_numpy
+
+    params = params_to_numpy(ckpt["model"])
+    mismatched = [k for k in ("sdf", "deform", "weights", "cubemap", "exposure")
+                  if not (exported[k] == params[k]).all()]
+    task = {"runs": [str(p) for p in runs], "rank1_output_dir": r1["task"]["output_dir"],
+            "files": files, "export_mismatched": mismatched,
+            "loss": [r0["task"]["loss"], r1["task"]["loss"]],
+            "val_psnr": r0["task"].get("val_psnr"), "nonfinite_grads": r0["task"]["nonfinite_grads"],
+            "pair_fill": r0["task"]["pair_fill"]}
+    task["ok"] = (len(runs) == 1 and runs[0].resolve() == run.resolve()
+                  and r1["task"]["output_dir"] is None and not mismatched
+                  and {"task.py", "export.npz", "log.txt", "ckpts/1.pt", "ckpts/2.pt"} <= set(files)
+                  and task["loss"][0] == task["loss"][1] and task["nonfinite_grads"] == 0
+                  and task["pair_fill"] <= 1.0)
+    summary["task"] = task
+    phase("scripts_dp_task", **task)
+    summary["deterministic_warnings"] = sorted(set(warnings + r0["deterministic_warnings"]))
+    ok = ok and task["ok"]
+    if not ok:
+        raise AssertionError(f"phase 15's data-parallel checks failed: {summary}")
+    captured = torch.load(work / "captured.pt", map_location=device, weights_only=False)
+    return summary, {"captured": captured, "launches": r0["stage1"]["launches"], "steps": 2}
+
+
+def scripts_and_dp(device, seed, kernels, paths: dict, tmp: Path, card: str
+                   ) -> tuple[dict, dict]:
+    """Phase 15 of the docstring, (a)-(e)."""
+    out = {"pipeline": scripts_pipeline(device, seed, kernels, tmp)}
+    out["premask"] = scripts_premask(device, Path(out["pipeline"]["scene"]), tmp)
+    out["dp"], captured = scripts_dp(device, seed, paths, tmp, card)
     return out, captured
 
 
@@ -3428,6 +4026,14 @@ def main() -> int:
             device, args.seed, _kernels, Path(prod["run_dir"]), Path(s3["stage2_run_dir"]), smi,
             sorted(face)[len(face) // 2], bench["median_step_s"])
         seconds["batched"] = time.perf_counter() - t0
+        # the root entry scripts, then two gloo ranks sharing the card
+        t0 = time.perf_counter()
+        (Path(tmp) / "scripts_dp").mkdir()
+        sdp, captured_dp = scripts_and_dp(
+            device, args.seed, _kernels,
+            {"product_run": Path(prod["run_dir"]), "stage2_run": Path(s3["stage2_run_dir"]),
+             "product_scene": Path(tmp) / "scene"}, Path(tmp) / "scripts_dp", smi)
+        seconds["scripts_dp"] = time.perf_counter() - t0
     # the kernels held to their plain versions at the differentiated ED
     # render's inputs: K2's gradient has a non-zero depth row there
     t0 = time.perf_counter()
@@ -3476,6 +4082,17 @@ def main() -> int:
     for entry in line["kernels"]:
         entry["batched"] = measured["rows"][entry["name"]]
     seconds["kernels_batched"] = time.perf_counter() - t0
+    # and at rank 0's last camera of phase 15's data-parallel stage-1 step
+    t0 = time.perf_counter()
+    measured = measure_kernels(captured_dp["captured"], captured_dp["launches"],
+                               captured_dp["steps"])
+    del captured_dp
+    phase("kernels_vs_plain_at_scripts_dp", **measured["checks"], **measured["counts"],
+          max_abs_err={k: r["max_abs_err"] for k, r in measured["rows"].items()},
+          tol=TOLERANCES)
+    for entry in line["kernels"]:
+        entry["scripts_dp"] = measured["rows"][entry["name"]]
+    seconds["kernels_scripts_dp"] = time.perf_counter() - t0
     phase("phase_seconds", **seconds, total=time.perf_counter() - start)
     print(smi)
     print(json.dumps(line))

@@ -38,7 +38,7 @@ Deviations from the JAX function, each deliberate:
 - on the card every stage's peak device memory (``s<k>_peak_mem_gib``), the
   largest of each budget fill over its steps (``s<k>_<fill>``), its
   non-finite gradients summed (``s<k>_nonfinite_grads``) and its last loss
-  (``s<k>_loss``) are returned beside the JAX keys, and ``on_stage`` is
+  and PSNR (``s<k>_loss``, ``s<k>_psnr``) are returned beside the JAX keys, and ``on_stage`` is
   called with each stage's numbers as the stage ends.
 
 Randomness comes from ``torch.Generator``s seeded as the JAX function seeds
@@ -77,7 +77,7 @@ def _generator(device, seed: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-class _Stage:
+class StageRecord:
     """One stage's loop bookkeeping: the step clock, the fills, the
     non-finite gradients and the peak memory."""
 
@@ -113,6 +113,7 @@ class _Stage:
         out = {f"{n}_wall_s": now - self.t0,
                f"{n}_s_per_step": (now - self.t1) / max(self.num_steps - 1, 1),
                f"{n}_loss": float(self.metrics["loss"]),
+               f"{n}_psnr": float(self.metrics["splat_psnr"]),
                f"{n}_nonfinite_grads": self.nonfinite,
                **{f"{n}_{k}": v for k, v in self.fills.items()}}
         if self.device.type == "cuda":
@@ -177,7 +178,7 @@ def run_quality_chain(
             idx = rng.choice(n_train, size=batch, replace=False)
             yield s, torch.as_tensor(idx, device=device)
 
-    def finish(stage: _Stage) -> None:
+    def finish(stage: StageRecord) -> None:
         numbers = stage.numbers()
         results.update(numbers)
         on_stage(stage.name, numbers)
@@ -196,7 +197,7 @@ def run_quality_chain(
                               vertex_sample_warmup=min(50, max(s1_steps // 8, 2))),
         s1,
     )
-    stage = _Stage("s1", s1_steps, device, log, 50)
+    stage = StageRecord("s1", s1_steps, device, log, 50)
     for step, idx in batches(s1_steps):
         m1 = t1.train_step(train_cams[idx], gt_train[idx], float(step),
                            sampling=t1.sampling_at(step), generator=gen)
@@ -221,7 +222,7 @@ def run_quality_chain(
                                 geometry_warm_up=min(50, max(s2_steps // 4, 2))),
         s2,
     )
-    stage = _Stage("s2", s2_steps, device, log, 25)
+    stage = StageRecord("s2", s2_steps, device, log, 25)
     for step, idx in batches(s2_steps):
         stage.record(step, t2.train_step(train_cams[idx], gt_train[idx], float(step),
                                          generator=gen))
@@ -240,7 +241,7 @@ def run_quality_chain(
     )
     s3.init_from_stage2(export2)
     t3 = GeoSplatDeferTrainer(GeoSplatDeferTrainerConfig(num_steps=s3_steps, batch_size=batch), s3)
-    stage = _Stage("s3", s3_steps, device, log, 25)
+    stage = StageRecord("s3", s3_steps, device, log, 25)
     for step, idx in batches(s3_steps):
         stage.record(step, t3.train_step(train_cams[idx], gt_train[idx], generator=gen))
     finish(stage)

@@ -25,11 +25,14 @@ The tooling of the JAX loop: ``dashboard`` (a live ``rich`` dashboard,
 orbit through the task's ``val_render`` into ``dump/vis/<step>.png`` where
 its schedule says) and ``vis_export_every`` (every N steps the task's
 ``vis_splats`` as a standalone HTML viewer in ``vis_html/<step>.html``;
-stages 1 and 3 and 3DGS have them, as in the JAX package). Options of the
-JAX tasks without a meaning in the port yet are left out: ``backend``,
-``tile_capacity`` and ``data_parallel`` (multi-GPU; with it the stage-3
-``train_step_dp``); the prior task keeps ``backend`` (the pairs path) and
-``tile_capacity`` (unused) so its presets are the JAX ones. Options the
+stages 1 and 3 and 3DGS have them, as in the JAX package). ``data_parallel``
+(stages 1-3 and 3DGS): run under ``torchrun``, each rank trains its shard
+of every batch and rank 0 alone writes (``run``); where the JAX task falls
+back to gcd(batch, devices) devices, a batch the world size does not divide
+raises. Options of the JAX tasks without a meaning in the port are left
+out: ``backend`` and ``tile_capacity``; the prior task keeps ``backend``
+(the pairs path) and ``tile_capacity`` (unused) so its presets are the JAX
+ones. Options the
 JAX tasks lack: ``GeoSplatTrainTask.sdf_sphere_init`` (default off) and
 ``triplane_resolution`` (the JAX model's 512, also the prior task's).
 A stage-2 or stage-3 task takes the hash field when the export it loads
@@ -149,6 +152,28 @@ FILLS = {
 }
 
 
+def stage2_export(model) -> dict:
+    """The stage-2 export of a ``GeoSplatterMC`` (what stage 3 loads): the
+    compacted ``export_model``, its scalars float32 / int32 arrays as the
+    JAX task's one jitted program returns them."""
+    from ..models.geosplat_mc import compact_export
+
+    out = compact_export(model.export_model())
+    for k in ("geom_scale", "min_roughness", "max_metallic"):
+        out[k] = np.float32(out[k])
+    out["resolution"] = np.int32(out["resolution"])
+    return out
+
+
+def stage3_export(model, stage2: dict) -> dict:
+    """The stage-3 export (what ``RelightEvalTask`` evaluates): the trained
+    parameters, and the frozen geometry as the stage-2 export stored it."""
+    from ..convert import params_to_numpy
+    from ..models.geosplat_defer import frozen_geometry
+
+    return {"params": params_to_numpy(model.state_dict()), "geometry": frozen_geometry(stage2)}
+
+
 def _psnr(pred: np.ndarray, gt: np.ndarray) -> float:
     mse = float(np.mean((pred - gt) ** 2))
     return -10.0 * float(np.log10(max(mse, 1e-12)))
@@ -171,6 +196,7 @@ class _TrainTaskBase:
     dashboard: bool = False         # a live rich dashboard (ui/console.py)
     turntable: str = "disable"      # '+z' | '+y': turntable frames in dump/vis/
     vis_export_every: int = 0       # N > 0: an HTML splat viewer every N steps
+    _world = 1                      # ranks of the running data_parallel run (set by run)
 
     # ---- subclass hooks ----------------------------------------------------
     def build(self, dataset: Dataset, generator: torch.Generator):
@@ -197,26 +223,59 @@ class _TrainTaskBase:
         no cheap splat view."""
         return None
 
+    def dp_state(self, trainer) -> list[torch.Tensor]:
+        """The tensors rank 0 broadcasts to the other ranks of a
+        ``data_parallel`` run before its first step."""
+        return [*trainer.model.parameters(), *trainer.model.buffers()]
+
+    def _start_ranks(self) -> tuple[int, int, torch.device]:
+        """(rank, world size, device): one process and the task's device,
+        unless the task has ``data_parallel`` set and runs under
+        ``torchrun`` (or in a process group already started)."""
+        if not getattr(self, "data_parallel", False):
+            return 0, 1, _kernels.resolve_device(self.device)
+        from ..parallel.sharding import init_from_env
+
+        rank, world, device = init_from_env(self.device)
+        if self.batch_size % world:
+            raise ValueError(f"data_parallel: batch_size {self.batch_size} does not split "
+                             f"over {world} ranks; give a batch size divisible by {world}")
+        return rank, world, device
+
     # ---- the loop ----------------------------------------------------------
     def run(self, resume_dir: Path | None = None, resume_step: int | None = None) -> dict:
-        device = _kernels.resolve_device(self.device)
+        """The training loop. Under ``data_parallel`` with several ranks,
+        every rank loads the same batches and trains its shard of each
+        (``train_step_dp``); rank 0 alone writes the run directory (task.py,
+        log.txt, dumps, checkpoints, the export) and validates while the
+        other ranks wait at a barrier; a resume loads the checkpoint on
+        every rank."""
+        rank, world, device = self._start_ranks()
+        self._world, lead = world, rank == 0
         dataset = Dataset(self.dataset_path, scale_factor=self.scale_factor, device=device)
         generator = torch.Generator(device=device).manual_seed(self.seed)
         model, trainer = self.build(dataset, generator)
+        if world > 1:
+            from ..parallel.sharding import replicate
+
+            replicate(self.dp_state(trainer))
 
         if resume_dir is not None:
-            exp = Experiment.attach(Path(resume_dir)).setup()
+            exp = Experiment.attach(Path(resume_dir))
         else:
-            exp = Experiment(self.experiment_name).setup()
-        (exp.base_dir / "task.py").write_text(dump_dataclass_as_str(self))
+            exp = Experiment(self.experiment_name)
+        if lead:
+            exp.setup()
+            (exp.base_dir / "task.py").write_text(dump_dataclass_as_str(self))
 
         start_step = 0
         if resume_dir is not None and exp.ckpt_dir.exists():
             start_step = load_checkpoint(exp.ckpt_dir, trainer, generator, resume_step)
-            exp.log(f"resumed from step {start_step}")
+            if lead:
+                exp.log(f"resumed from step {start_step}")
 
         vis = None
-        if self.turntable != "disable":
+        if self.turntable != "disable" and lead:
             from ..visualization.turntable import OptimizationVisualizer
 
             val_cams, _, _ = dataset.get_split(self._val_split(dataset))
@@ -233,7 +292,7 @@ class _TrainTaskBase:
         val_metrics: dict = {}
         with contextlib.ExitStack() as stack:
             dash = None
-            if self.dashboard:
+            if self.dashboard and lead:
                 from ..ui.console import console
 
                 dash = stack.enter_context(
@@ -245,9 +304,12 @@ class _TrainTaskBase:
                 self.after_update(trainer, step, (cams.width, cams.height), generator)
                 if dash is not None:
                     dash(step + 1, {**metrics, **val_metrics})
-                self._visualize(model, vis, exp, step + 1)
                 last = step + 1 == self.num_steps
-                if (step + 1) % self.num_steps_per_val == 0 or last:
+                due_val = (step + 1) % self.num_steps_per_val == 0 or last
+                due_save = (step + 1) % self.num_steps_per_save == 0 or last
+                if lead:
+                    self._visualize(model, vis, exp, step + 1)
+                if lead and due_val:
                     val_metrics = self._validate(model, dataset, exp, step + 1)
                     its = (step + 1 - start_step) / (time.time() - t_start)
                     line = " ".join(f"{k}={float(v):.4g}" for k, v in metrics.items())
@@ -265,16 +327,22 @@ class _TrainTaskBase:
                                    + f"; raise {knob} (model config)")
                             exp.log(msg)
                             print(msg, flush=True)
-                if (step + 1) % self.num_steps_per_save == 0 or last:
+                if lead and due_save:
                     save_checkpoint(exp.ckpt_dir, step + 1, trainer, generator)
+                if world > 1 and (due_val or due_save):
+                    torch.distributed.barrier()   # the others wait while rank 0 writes
 
-        export = self.export(model)
-        if export is not None:
-            save_export(exp.base_dir / "export.npz", export)
-            exp.log("export written: export.npz")
         out = {k: float(v) for k, v in metrics.items()}
         out.update(val_metrics)
-        out["output_dir"] = str(exp.base_dir)
+        if lead:
+            export = self.export(model)
+            if export is not None:
+                save_export(exp.base_dir / "export.npz", export)
+                exp.log("export written: export.npz")
+        if world > 1:
+            torch.distributed.barrier()   # the export is on disk before any rank returns
+        # the run directory is rank 0's; the other ranks write none
+        out["output_dir"] = str(exp.base_dir) if lead else None
         return out
 
     @torch.no_grad()
@@ -349,6 +417,8 @@ class GeoSplatTrainTask(_TrainTaskBase):
     # texels of the material field's triplane trunk, which stages 2 and 3
     # inherit through the export (the JAX model's 512)
     triplane_resolution: int = 512
+    # under torchrun, each rank trains its shard of every batch (train_step_dp)
+    data_parallel: bool = False
 
     def build(self, dataset, generator):
         from ..models.geosplat import GeoSplatter
@@ -371,6 +441,9 @@ class GeoSplatTrainTask(_TrainTaskBase):
         return model, trainer
 
     def step_fn(self, trainer, cams, gt, generator, step):
+        if self._world > 1:
+            return trainer.train_step_dp(cams, gt, float(step),
+                                         sampling=trainer.sampling_at(step), generator=generator)
         return trainer.train_step(cams, gt, float(step), sampling=trainer.sampling_at(step),
                                   generator=generator)
 
@@ -419,6 +492,7 @@ class GeoSplatMCTrainTask(_TrainTaskBase):
     tile_shape: str = "16"
     max_render_faces: int = 1 << 18
     load: Path | None = None
+    data_parallel: bool = False     # see GeoSplatTrainTask.data_parallel
 
     def build(self, dataset, generator):
         from ..models.geosplat import GaussianField, ks_bundle_layout
@@ -449,6 +523,8 @@ class GeoSplatMCTrainTask(_TrainTaskBase):
         return model, trainer
 
     def step_fn(self, trainer, cams, gt, generator, step):
+        if self._world > 1:
+            return trainer.train_step_dp(cams, gt, float(step), generator=generator)
         return trainer.train_step(cams, gt, float(step), generator=generator)
 
     def val_render(self, model, cams):
@@ -461,15 +537,7 @@ class GeoSplatMCTrainTask(_TrainTaskBase):
         return torch.cat((rgb, rgba[..., 3:]), -1)
 
     def export(self, model):
-        from ..models.geosplat_mc import compact_export
-
-        out = compact_export(model.export_model())
-        # the JAX task computes its export in one jitted program, which
-        # returns the scalars as float32 / int32 arrays: so does this file
-        for k in ("geom_scale", "min_roughness", "max_metallic"):
-            out[k] = np.float32(out[k])
-        out["resolution"] = np.int32(out["resolution"])
-        return out
+        return stage2_export(model)
 
 
 # --- stage 3 ---------------------------------------------------------------------
@@ -498,6 +566,7 @@ class GeoSplatDeferTrainTask(_TrainTaskBase):
     pairs_budget: int | None = None   # see GeoSplatTrainTask.pairs_budget
     tile_shape: str = "16"
     load: Path | None = None
+    data_parallel: bool = False     # see GeoSplatTrainTask.data_parallel
 
     def make_model(self, params, device):
         """A GeoSplatterDefer sized for ``params`` (a stage-2 export or a
@@ -531,6 +600,8 @@ class GeoSplatDeferTrainTask(_TrainTaskBase):
         return model, trainer
 
     def step_fn(self, trainer, cams, gt, generator, step):
+        if self._world > 1:
+            return trainer.train_step_dp(cams, gt, generator=generator)
         return trainer.train_step(cams, gt, generator=generator)
 
     def val_render(self, model, cams):
@@ -546,13 +617,7 @@ class GeoSplatDeferTrainTask(_TrainTaskBase):
                 "opacities": model.opacities, "colors": model.kd.clamp(0, 1)}
 
     def export(self, model):
-        from ..convert import params_to_numpy
-        from ..models.geosplat_defer import frozen_geometry
-
-        # the trained parameters, and the frozen geometry as the stage-2
-        # export stored it
-        return {"params": params_to_numpy(model.state_dict()),
-                "geometry": frozen_geometry(self._stage2)}
+        return stage3_export(model, self._stage2)
 
 
 # --- mesh-prior variant ----------------------------------------------------------
@@ -658,6 +723,7 @@ class GSplatTrainTask(_TrainTaskBase):
     pairs_per_gaussian: int = PAIRS_PER_GAUSSIAN
     # 2dgs only: Gaussians kept per tile (TILE_CAPACITY_2DGS; JAX: 1024)
     tile_capacity: int = TILE_CAPACITY_2DGS
+    data_parallel: bool = False     # see GeoSplatTrainTask.data_parallel
 
     def build(self, dataset, generator):
         from ..graphics.splats import Splats
@@ -677,9 +743,12 @@ class GSplatTrainTask(_TrainTaskBase):
         return model, trainer
 
     def step_fn(self, trainer, cams, gt, generator, step):
-        return trainer.train_step(cams, gt, max_sh_degree=trainer.max_sh_degree_at(step),
-                                  reg_weights=trainer.reg_weights_at(step),
-                                  generator=generator)
+        step_fn = trainer.train_step_dp if self._world > 1 else trainer.train_step
+        return step_fn(cams, gt, max_sh_degree=trainer.max_sh_degree_at(step),
+                       reg_weights=trainer.reg_weights_at(step), generator=generator)
+
+    def dp_state(self, trainer):
+        return list(trainer.params.values())
 
     def after_update(self, trainer, step, last_wh, generator):
         trainer.after_update(step, last_wh, generator=generator)

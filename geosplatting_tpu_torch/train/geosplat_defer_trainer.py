@@ -15,8 +15,8 @@ backward one camera at a time, the gradients summed in ``.grad``, then
 scaled by 1/B before Adam. Every camera's render sees the step's one ks
 jitter noise and its own ``ShadeDraws``; what is not passed in is drawn
 from the caller's ``torch.Generator``: the per-pixel background, then the
-jitter noise, then each camera's draws. The data-parallel step waits for
-the multi-GPU port.
+jitter noise, then each camera's draws. ``train_step_dp`` is the step of
+one rank of a data-parallel group.
 """
 from __future__ import annotations
 
@@ -31,6 +31,8 @@ from ..graphics.cameras import Cameras
 from ..models.geosplat_defer import GeoSplatterDefer
 from ..ops.envshade import ShadeDraws
 from ..ops.ssim import ssim_l1_loss
+from ..parallel.sharding import rank_and_world, shard_batch, shard_range
+from . import dp
 from .grad_utils import sanitize
 from .optim import GroupOptimizers, ModelTrainerState, OptimizerSpec
 
@@ -127,6 +129,12 @@ class GeoSplatDeferTrainer(ModelTrainerState):
             mse = ((pred_srgb - gt_clamped[..., :3] * mask) ** 2).mean()
         return loss + reg, (loss.detach(), mse, reg.detach()), aux
 
+    def _draw_jitter(self, generator: torch.Generator | None) -> torch.Tensor | None:
+        m = self.model
+        if self.config.ks_reg > 0:
+            return torch.randn(m.means.shape, generator=generator, device=m.device)
+        return None
+
     def compute_grads(
         self,
         cameras: Cameras,
@@ -144,8 +152,8 @@ class GeoSplatDeferTrainer(ModelTrainerState):
         if background is None:
             background = torch.rand(gt_rgba[..., :3].shape, generator=generator,
                                     device=gt_rgba.device)
-        if jitter_noise is None and self.config.ks_reg > 0:
-            jitter_noise = torch.randn(m.means.shape, generator=generator, device=m.device)
+        if jitter_noise is None:
+            jitter_noise = self._draw_jitter(generator)
         m.zero_grad(set_to_none=False)
         sums, aux = None, None
         for i in range(len(cameras)):
@@ -180,6 +188,38 @@ class GeoSplatDeferTrainer(ModelTrainerState):
                 for p in self.model.parameters():
                     p.grad.mul_(inv)
             return self._apply_grads(loss * inv, mse * inv, reg * inv, aux)
+
+    def train_step_dp(self, cameras: Cameras, gt_rgba: torch.Tensor, *, group=None,
+                      generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+        """Camera-batch data-parallel step (``train/dp.py``; JAX
+        ``train_step_dp``), as ``GeoSplatMCTrainer.train_step_dp``: the
+        whole batch's background, ks jitter and per-camera ``ShadeDraws``
+        drawn on every rank (its own cameras' draws kept), the mean of its
+        cameras' gradients, then the reduce over the ranks and the update.
+        The frozen geometry is the model's, the same on every rank."""
+        m = self.model
+        rank, world = rank_and_world(group)
+        lo, hi = shard_range(len(cameras), rank, world)
+        background = torch.rand(gt_rgba[..., :3].shape, generator=generator,
+                                device=gt_rgba.device)
+        jitter_noise = self._draw_jitter(generator)
+        draws = []
+        for i in range(len(cameras)):
+            d = m.draw_shade(cameras[i], generator)
+            if lo <= i < hi:
+                draws.append(d)
+        cams, gt, bg = shard_batch((cameras, gt_rgba, background), rank, world)
+        sums, aux = self.compute_grads(cams, gt, background=bg, jitter_noise=jitter_noise,
+                                       draws=draws, generator=generator)
+        inv = 1.0 / len(cams)
+        with torch.no_grad():
+            for p in m.parameters():
+                p.grad.mul_(inv)
+        with record_function("trainer.dp_reduce"):
+            nbytes = dp.reduce_grads(m.parameters(), group)
+            (loss, mse, reg), aux = dp.reduce_aux(tuple(x * inv for x in sums), aux, group)
+        with record_function("trainer.apply_grads"):
+            return {**self._apply_grads(loss, mse, reg, aux), "dp_reduce_bytes": nbytes}
 
     @torch.no_grad()
     def _apply_grads(self, loss, mse, reg, aux) -> dict[str, torch.Tensor]:

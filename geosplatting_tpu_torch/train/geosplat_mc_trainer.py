@@ -13,7 +13,8 @@ the whole batch at once), the gradients summed in ``.grad``, then scaled by
 1/B before Adam. Every camera's render sees the step's one jitter noise and
 its own ``ShadeDraws``; what is not passed in is drawn from the caller's
 ``torch.Generator``: the per-pixel background, then the jitter noise, then
-each camera's draws.
+each camera's draws. ``train_step_dp`` is the step of one rank of a
+data-parallel group.
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ from ..graphics.cameras import Cameras
 from ..models.geosplat_mc import GeoSplatterMC
 from ..ops.envshade import ShadeDraws
 from ..ops.ssim import ssim_l1_loss
+from ..parallel.sharding import rank_and_world, shard_batch, shard_range
+from . import dp
 from .geosplat_trainer import _ramp
 from .grad_utils import sanitize
 from .optim import GroupOptimizers, ModelTrainerState, OptimizerSpec
@@ -122,6 +125,13 @@ class GeoSplatMCTrainer(ModelTrainerState):
             mse = ((pred_srgb - gt_rgba[..., :3] * mask) ** 2).mean()
         return loss + reg, (loss.detach(), mse, reg.detach()), aux
 
+    def _draw_jitter(self, generator: torch.Generator | None) -> torch.Tensor | None:
+        m, c = self.model, self.config
+        if m.smooth_type == "jitter" and (c.kd_perturb_std > 0 or c.ks_perturb_std > 0):
+            return torch.randn(m.field.jitter_shape(m.num_field_points()),
+                               generator=generator, device=m.device)
+        return None
+
     def compute_grads(
         self,
         cameras: Cameras,
@@ -141,10 +151,8 @@ class GeoSplatMCTrainer(ModelTrainerState):
         if background is None:
             background = torch.rand(gt_rgba[..., :3].shape, generator=generator,
                                     device=gt_rgba.device)
-        if jitter_noise is None and m.smooth_type == "jitter" and (
-                c.kd_perturb_std > 0 or c.ks_perturb_std > 0):
-            jitter_noise = torch.randn(m.field.jitter_shape(m.num_field_points()),
-                                       generator=generator, device=m.device)
+        if jitter_noise is None:
+            jitter_noise = self._draw_jitter(generator)
         rw = self.reg_weights(step)
         m.zero_grad(set_to_none=False)
         sums, aux = None, None
@@ -180,6 +188,42 @@ class GeoSplatMCTrainer(ModelTrainerState):
                 for p in self.model.parameters():
                     p.grad.mul_(inv)
             return self._apply_grads(loss * inv, mse * inv, reg * inv, aux)
+
+    def train_step_dp(self, cameras: Cameras, gt_rgba: torch.Tensor, step: float, *,
+                      group=None,
+                      generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+        """Camera-batch data-parallel step (``train/dp.py``; JAX
+        ``train_step_dp``). ``cameras`` and ``gt_rgba`` are the whole batch,
+        the same on every rank of ``group``, and so is ``generator``'s
+        state. The rank draws what ``train_step`` draws for the whole batch
+        (the background, the jitter noise, every camera's ``ShadeDraws``,
+        keeping only its own cameras' draws), takes the mean of its
+        cameras' gradients, and the gradients and metrics are reduced over
+        the ranks before the update. Equal to ``train_step`` on the whole
+        batch up to float reassociation."""
+        m = self.model
+        rank, world = rank_and_world(group)
+        lo, hi = shard_range(len(cameras), rank, world)
+        background = torch.rand(gt_rgba[..., :3].shape, generator=generator,
+                                device=gt_rgba.device)
+        jitter_noise = self._draw_jitter(generator)
+        draws = []
+        for i in range(len(cameras)):
+            d = m.draw_shade(generator)
+            if lo <= i < hi:
+                draws.append(d)
+        cams, gt, bg = shard_batch((cameras, gt_rgba, background), rank, world)
+        sums, aux = self.compute_grads(cams, gt, step, background=bg, jitter_noise=jitter_noise,
+                                       draws=draws, generator=generator)
+        inv = 1.0 / len(cams)
+        with torch.no_grad():
+            for p in m.parameters():
+                p.grad.mul_(inv)
+        with record_function("trainer.dp_reduce"):
+            nbytes = dp.reduce_grads(m.parameters(), group)
+            (loss, mse, reg), aux = dp.reduce_aux(tuple(x * inv for x in sums), aux, group)
+        with record_function("trainer.apply_grads"):
+            return {**self._apply_grads(loss, mse, reg, aux), "dp_reduce_bytes": nbytes}
 
     @torch.no_grad()
     def _apply_grads(self, loss, mse, reg, aux) -> dict[str, torch.Tensor]:

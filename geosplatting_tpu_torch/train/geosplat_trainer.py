@@ -10,6 +10,7 @@ The trainer owns the model's optimizer; ``train_step`` updates the model in
 place and returns the step's metrics as 0-d tensors. Randomness is explicit:
 the per-pixel background and the field jitter noise may be passed in as
 tensors, else they are drawn from the caller's ``torch.Generator``.
+``train_step_dp`` is the step of one rank of a data-parallel group.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ from ..graphics import images as gimages
 from ..graphics.cameras import Cameras
 from ..models.geosplat import GeoSplatter
 from ..ops.ssim import ssim_l1_loss
+from ..parallel.sharding import rank_and_world, shard_batch, shard_range
+from . import dp
 from .grad_utils import sanitize
 from .optim import GroupOptimizers, ModelTrainerState, OptimizerSpec
 
@@ -186,6 +189,31 @@ class GeoSplatTrainer(ModelTrainerState):
         )
         with record_function("trainer.apply_grads"):
             return self._apply_grads(loss, mse, reg, aux)
+
+    def train_step_dp(self, cameras: Cameras, gt_rgba: torch.Tensor, step: float, *,
+                      sampling: str = "face", group=None,
+                      generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+        """Camera-batch data-parallel step (``train/dp.py``; JAX
+        ``train_step_dp``). ``cameras`` and ``gt_rgba`` are the whole batch,
+        the same on every rank of ``group``, and so is ``generator``'s
+        state: the rank draws the whole batch's background, renders its
+        shard of the cameras, and the gradients and metrics are reduced over
+        the ranks before the update (``nonfinite_grads`` counts after the
+        reduce). Equal to ``train_step`` on the whole batch up to float
+        reassociation; ``dp_reduce_bytes`` is what the gradients' all-reduce
+        moved."""
+        rank, world = rank_and_world(group)
+        shard_range(len(cameras), rank, world)   # an indivisible batch raises before a draw
+        background = torch.rand(gt_rgba[..., :3].shape, generator=generator,
+                                device=gt_rgba.device)
+        cams, gt, bg = shard_batch((cameras, gt_rgba, background), rank, world)
+        parts, aux = self.compute_grads(cams, gt, step, sampling=sampling, background=bg,
+                                        generator=generator)
+        with record_function("trainer.dp_reduce"):
+            nbytes = dp.reduce_grads(self.model.parameters(), group)
+            (loss, mse, reg), aux = dp.reduce_aux(parts, aux, group)
+        with record_function("trainer.apply_grads"):
+            return {**self._apply_grads(loss, mse, reg, aux), "dp_reduce_bytes": nbytes}
 
     @torch.no_grad()
     def _apply_grads(self, loss, mse, reg, aux) -> dict[str, torch.Tensor]:

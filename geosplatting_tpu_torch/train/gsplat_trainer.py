@@ -15,6 +15,7 @@ weights ``reg_weights_at`` gives for the step.
 
 Randomness is explicit: the training background and the split's normal
 draws come from the caller's ``torch.Generator`` or are passed in.
+``train_step_dp`` is the step of one rank of a data-parallel group.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ from torch.profiler import record_function
 from ..graphics.cameras import Cameras
 from ..graphics.splats import FIELDS, Splats, cull, densify_and_cull
 from ..models.gsplatter import GSplatter
+from ..parallel.sharding import all_reduce_, rank_and_world, shard_batch
+from . import dp
 from .losses import ssim_l1_loss
 from .optim import GroupOptimizers, OptimizerSpec
 
@@ -125,6 +128,29 @@ class GSplatTrainer:
         pseudo normal x alpha) and of the distortion), the densification
         statistics of every camera, Adam. Returns the metrics as 0-d
         tensors."""
+        return self._step(cameras, gt_rgba, max_sh_degree, reg_weights, background, generator)
+
+    def train_step_dp(self, cameras: Cameras, gt_rgba: torch.Tensor, *,
+                      max_sh_degree: int | None,
+                      reg_weights: tuple[float, float] = (0.0, 0.0), group=None,
+                      generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+        """The step of one rank of a data-parallel group (``train/dp.py``):
+        ``cameras`` and ``gt_rgba`` are the whole batch, the same on every
+        rank, and so is ``generator``'s state (the step's background). The
+        rank renders its shard; the gradients are reduced to their mean over
+        the ranks, the densification statistics summed over the ranks (each
+        camera's screen-position gradient weighed as in the whole batch's
+        loss, 1/B), the losses averaged and the fills taken at their largest,
+        all before the update; ``after_update`` then decides alike on every
+        rank. Equal to ``train_step`` on the whole batch up to float
+        reassociation."""
+        rank, world = rank_and_world(group)
+        cams, gt = shard_batch((cameras, gt_rgba), rank, world)
+        return self._step(cams, gt, max_sh_degree, reg_weights, None, generator,
+                          group=group, world=world)
+
+    def _step(self, cameras, gt_rgba, max_sh_degree, reg_weights, background, generator,
+              group=None, world: int = 1) -> dict[str, torch.Tensor]:
         is_2dgs = self.model.rasterize_mode == "2dgs"
         normal_w, distort_w = reg_weights
         if background is None:
@@ -175,11 +201,17 @@ class GSplatTrainer:
             visible = (torch.stack(radii) > 0).float()                        # [B, N]
             grad_norm = torch.linalg.norm(torch.cat([o.grad.reshape(-1, n, 2) for o in offsets]),
                                           dim=-1)
-            self.xys_grad_norm += (grad_norm * visible).sum(0)
-            self.vis_counts += visible.sum(0)
+            # a rank's loss weighs its cameras 1 / (B / world), the batch's 1 / B
+            stats = torch.stack(((grad_norm / world * visible).sum(0), visible.sum(0)))
             for k in self.specs:   # an unused group still takes its (zero) update, as in optax
                 if self.params[k].grad is None:
                     self.params[k].grad = torch.zeros_like(self.params[k])
+            nbytes = None
+            if world > 1:
+                all_reduce_(stats, group=group)
+                nbytes = dp.reduce_grads([self.params[k] for k in self.specs], group)
+            self.xys_grad_norm += stats[0]
+            self.vis_counts += stats[1]
             nonfinite = sum(int((~torch.isfinite(self.params[k].grad)).sum())
                             for k in self.specs)
             self.optimizers.step()
@@ -197,6 +229,13 @@ class GSplatTrainer:
                 normal_loss=normal_loss.detach(), distort_loss=distort_loss.detach(),
                 # > 1 means the tile capacity cut a tile's farthest Gaussians
                 tile_fill=torch.stack(tile_fills).max())
+        if nbytes is not None:
+            means = [k for k in ("loss", "normal_loss", "distort_loss") if k in metrics]
+            maxes = [k for k in ("pair_fill", "tile_fill") if k in metrics]
+            reduced, top = dp.reduce_aux((*(metrics[k] for k in means), mse),
+                                         {k: metrics[k] for k in maxes}, group)
+            metrics.update(zip(means, reduced[:-1]), **top, dp_reduce_bytes=nbytes,
+                           psnr=-10.0 * torch.log10(torch.clamp(reduced[-1], min=1e-12)))
         return metrics
 
     # ---- host-side schedule ----------------------------------------------------
