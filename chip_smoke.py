@@ -207,11 +207,21 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
    [0, 1]. (d) Every kernel pass held against its plain version at (a)'s
    last camera, and its row of the kernels line gains a "batched" entry.
    (e) On the card against the CPU from the same inputs: antialias at
-   800x800 on (c)'s stage-3 frozen mesh (the value within 2e-4, about
-   three ulps of an 800-px coordinate, the vertex gradient within 1e-3 of
-   its largest entry) and env_shade with
-   bsdf="diffuse" and "white" (the card-vs-CPU rule of
-   tests/test_torch_kernels_gpu.py, no specular).
+   800x800 on a fixed mesh, phase 10 (c)'s 120 x 112 UV sphere (the value
+   in float32 within 2e-4, about three ulps of an 800-px coordinate; the
+   vertex gradient within 1e-3 of its largest entry in float64: in float32
+   a pixel pair whose edge crosses exactly at its midpoint on one device
+   and an ulp off it on the other passes its gradient on one device only,
+   and that error is reported beside it),
+   images.resize with every method jax.image.resize takes at 800 -> 512
+   and 512 -> 800 (within 1e-5, "nearest" equal), and env_shade with
+   bsdf="diffuse" and "white"
+   (the card-vs-CPU rule of tests/test_torch_kernels_gpu.py, no specular).
+   (f) Phase 11 (a)'s 2DGS scene with camera_batching="vmap" (every camera
+   binned in one sort) against "map": each camera's dense tile table equal
+   exactly, the images, the regularisers' maps, one step's loss, gradients
+   and densification statistics within (b)'s tolerances, then 1 warm-up
+   and 2 timed steps of each path, alternating.
 15. scripts_dp: the root entry scripts and multi-GPU training. (a)
    scripts/make_synthetic_scene writes the two-sphere quality scene in the
    Syn4Relight layout at 160^2 (the nearest size to the quality benchmark's
@@ -2895,7 +2905,8 @@ BATCHED = dict(compare_step=200, timed_steps=(200, 201), stage23_cameras=2,
                     "gsplat": {"rgba": (1e-5, 1e-5), "grad": (2e-4, 2e-3)},
                     "stage2": {"rgba": (5e-4, 1e-3), "grad": (1e-3, 5e-3)},
                     "stage3": {"rgba": (5e-4, 1e-3), "grad": (1e-2, 5e-3)}},
-               antialias_atol=2e-4, antialias_grad_rel=1e-3, shade_points=4096)
+               antialias_atol=2e-4, antialias_grad_rel=1e-3, antialias_sphere=(120, 112),
+               resize_atol=1e-5, shade_points=4096, gsplat2d_timed_steps=2)
 
 
 @contextlib.contextmanager
@@ -3181,12 +3192,11 @@ def map_vs_batched(model, render, tol) -> dict:
     return out
 
 
-def batched_stages(device, seed, product_run: Path, stage2_run: Path) -> tuple[dict, object]:
+def batched_stages(device, seed, product_run: Path, stage2_run: Path) -> dict:
     """(c) of phase 14: one render and backward of 2 cameras at 800x800 per
     camera and batched, stage 2 at the stage2 phase's widths (from the
     product run's stage-1 export) and stage 3 at the chain's (from its
-    stage-2 run); stage 2 once more with tone_type="aces". Returns (summary,
-    the stage-3 model)."""
+    stage-2 run); stage 2 once more with tone_type="aces"."""
     import dataclasses
 
     import numpy as np
@@ -3228,7 +3238,7 @@ def batched_stages(device, seed, product_run: Path, stage2_run: Path) -> tuple[d
     m3.init_from_stage2(export3)
     draws3 = [m3.draw_shade(cams, gen) for _ in range(len(cams))]
     s3 = map_vs_batched(m3, lambda: m3.render(cams, draws=draws3), BATCHED["tol"]["stage3"])
-    del draws3
+    del draws3, m3
     summary = {"stage2": s2, "stage3": s3, "cameras": len(cams),
                "image": [BATCHED["stage23_image"]] * 2,
                "stage2_widths": {k: STAGE2[k] for k in ("grid", "scene_scale", "pairs_budget",
@@ -3239,21 +3249,30 @@ def batched_stages(device, seed, product_run: Path, stage2_run: Path) -> tuple[d
                 and s["total_pairs"][0] == s["total_pairs"][1] > 0 for s in (s2, s3))
             and s2["aces"]["finite"] and 0.0 <= s2["aces"]["min"] <= s2["aces"]["max"] <= 1.0):
         raise AssertionError(f"batched binning disagrees with the map path: {summary}")
-    return summary, m3
+    return summary
 
 
-def batched_options_card_vs_cpu(device, seed, m3) -> dict:
-    """(e) of phase 14: antialias at 800x800 on the stage-3 model's frozen
-    mesh (its value and its gradient in the vertices) and env_shade with
-    bsdf="diffuse" / "white", on the card against the CPU from the same
-    inputs. The projected vertices round differently on the two devices,
-    and an ulp of an 800-px coordinate (6e-5) moves a blend weight by as
-    much: the value is held to 2e-4."""
+def antialias_card_vs_cpu(device, g) -> dict:
+    """Antialias at 800x800 on a fixed mesh, the 120 x 112 UV sphere of
+    phase 10 (c) (the same in every run, where a trained mesh is not), on
+    the card against the CPU from the same inputs. The value is held in
+    float32, as the port runs it, to 2e-4 over every pixel: the projected
+    vertices round differently on the two devices (by an ulp, 6e-5 px at
+    800), and an ulp moves a blend weight by as much. The vertex gradient is
+    held to 1e-3 of its largest entry in float64. In float32 a pair whose
+    edge crosses exactly at its midpoint on one device (weight 0: neither
+    pixel blends, and the pair passes no gradient) may cross an ulp off it
+    on the other (a weight near 0 that passes the whole gradient of the
+    crossing): the value agrees, the gradient of such a pair does not, and
+    on this mesh that puts the two devices' float32 gradients more than
+    1e-3 apart in every run. The float32 gradient's error is reported
+    beside the gate. The cotangent is drawn from the CPU generator ``g``."""
+    import dataclasses
+
     import torch
 
     from geosplatting_tpu_torch.graphics.cameras import Cameras
     from geosplatting_tpu_torch.graphics.mesh import TriangleMesh
-    from geosplatting_tpu_torch.ops import envshade as es
     from geosplatting_tpu_torch.ops.mesh_raster import (
         RasterOut, antialias, interpolate, rasterize_mesh,
     )
@@ -3261,30 +3280,79 @@ def batched_options_card_vs_cpu(device, seed, m3) -> dict:
     res = BATCHED["stage23_image"]
     cam = Cameras.from_orbit(center=[0.0, 0.0, 0.0], radius=2.0, elevation_degrees=15.0,
                              num_samples=1, width=res, height=res, device=device)[0]
-    mesh = m3.mesh
+    mesh = uv_sphere(*BATCHED["antialias_sphere"], device=device)
+    faces = int(mesh.indices.shape[0])
     with torch.no_grad():
-        rast, info = rasterize_mesh(mesh, cam, tile_capacity=m3.mesh_raster_capacity)
+        rast, info = rasterize_mesh(mesh, cam, tile_capacity=faces)
         vcol = torch.clamp(mesh.vertices * 0.8 + 0.5, 0.0, 1.0)
         color = interpolate(vcol, mesh, rast) + (rast.tri_id < 0)[..., None] * 0.1
-    g = torch.Generator().manual_seed(seed)
     w = torch.randn(color.shape, generator=g)
-    outs = []
-    for dev in (device, "cpu"):
-        v = mesh.vertices.detach().to(dev).requires_grad_()
-        m = TriangleMesh(vertices=v, indices=mesh.indices.to(dev),
-                         face_mask=None if mesh.face_mask is None else mesh.face_mask.to(dev))
-        out = antialias(color.to(dev), m, cam.to(dev), RasterOut(*(x.to(dev) for x in rast)))
-        (out * w.to(dev)).sum().backward()
-        outs.append((out.detach().cpu(), v.grad.cpu()))
-    (a_card, g_card), (a_cpu, g_cpu) = outs
-    grad_err = float((g_card - g_cpu).abs().max())
-    aa = {"faces": int(mesh.indices.shape[0]), "tile_fill": info.tile_fill,
+
+    def run(dev, dtype):
+        v = mesh.vertices.detach().to(dev, dtype).requires_grad_()
+        m = TriangleMesh(vertices=v, indices=mesh.indices.to(dev))
+        c = dataclasses.replace(cam, **{k: getattr(cam, k).to(dev, dtype)
+                                        for k in ("c2w", "fx", "fy", "cx", "cy")})
+        out = antialias(color.to(dev, dtype), m, c, RasterOut(*(x.to(dev) for x in rast)))
+        (out * w.to(dev, dtype)).sum().backward()
+        return out.detach().cpu().double(), v.grad.cpu().double()
+
+    (a_card, g_card), (a_cpu, g_cpu) = run(device, torch.float32), run("cpu", torch.float32)
+    (a64_card, g64_card), (a64_cpu, g64_cpu) = run(device, torch.float64), run("cpu", torch.float64)
+    grad_max = float(g64_cpu.abs().max())
+    aa = {"mesh": f"uv_sphere{tuple(BATCHED['antialias_sphere'])}", "faces": faces,
+          "tile_fill": info.tile_fill,
           "blended_pixels": int(((a_cpu - color.cpu()).abs().amax(-1) > 1e-3).sum()),
-          "max_abs_err": float((a_card - a_cpu).abs().max()), "grad_max_abs_err": grad_err,
-          "grad_max": float(g_cpu.abs().max())}
-    aa["ok"] = (aa["max_abs_err"] <= BATCHED["antialias_atol"] and aa["blended_pixels"] > 0
-                and aa["grad_max"] > 0
-                and grad_err <= BATCHED["antialias_grad_rel"] * aa["grad_max"])
+          "max_abs_err": float((a_card - a_cpu).abs().max()),
+          "float64_max_abs_err": float((a64_card - a64_cpu).abs().max()),
+          "grad_max_abs_err": float((g64_card - g64_cpu).abs().max()), "grad_max": grad_max,
+          "float32_grad_max_abs_err": float((g_card - g_cpu).abs().max()),
+          "float32_grad_max": float(g_cpu.abs().max())}
+    aa["grad_rel_err"] = aa["grad_max_abs_err"] / max(grad_max, 1e-30)
+    aa["float32_grad_rel_err"] = aa["float32_grad_max_abs_err"] / max(aa["float32_grad_max"],
+                                                                        1e-30)
+    aa["ok"] = (aa["max_abs_err"] <= BATCHED["antialias_atol"]
+                and aa["float64_max_abs_err"] <= BATCHED["antialias_atol"]
+                and aa["blended_pixels"] > 0 and grad_max > 0
+                and aa["grad_rel_err"] <= BATCHED["antialias_grad_rel"])
+    return aa
+
+
+def resize_card_vs_cpu(device, seed) -> dict:
+    """images.resize with every method jax.image.resize takes, 800 -> 512
+    and 512 -> 800, on the card against the CPU: within 1e-5 absolute
+    ("nearest" equal)."""
+    import torch
+
+    from geosplatting_tpu_torch.graphics import images
+
+    g = torch.Generator().manual_seed(seed + 1)
+    out = {}
+    for src, dst in ((800, 512), (512, 800)):
+        img = torch.rand((src, src, 3), generator=g)
+        for method in ("nearest", *images.RESIZE_KERNELS):
+            got = images.resize(img.to(device), dst, dst, method).cpu()
+            want = images.resize(img, dst, dst, method)
+            err = float((got - want).abs().max())
+            out[f"{method}_{src}_{dst}"] = {
+                "max_abs_err": err, "shape": list(got.shape),
+                "ok": got.shape == (dst, dst, 3) and (
+                    err == 0.0 if method == "nearest" else err <= BATCHED["resize_atol"])}
+    return out
+
+
+def batched_options_card_vs_cpu(device, seed) -> dict:
+    """(e) of phase 14: antialias on a fixed mesh (``antialias_card_vs_cpu``),
+    images.resize's methods (``resize_card_vs_cpu``) and env_shade with
+    bsdf="diffuse" / "white", on the card against the CPU from the same
+    inputs."""
+    import torch
+
+    from geosplatting_tpu_torch.ops import envshade as es
+
+    g = torch.Generator().manual_seed(seed)
+    aa = antialias_card_vs_cpu(device, g)
+    resized = resize_card_vs_cpu(device, seed)
 
     # env_shade's white lobe (no visibility: the residual is 0 as the
     # specular is): the rule of the card-vs-CPU tests (< 3 % of entries past
@@ -3319,25 +3387,122 @@ def batched_options_card_vs_cpu(device, seed, m3) -> dict:
                        "ok": spec_zero and all(bool(torch.isfinite(o).all()) for o in res[0])
                        and all(c["share_off"] < 0.03 for c in checks)
                        and checks[0]["cosine"] > 0.999}
-    summary = {"antialias": aa, "env_shade": shade}
-    if not (aa["ok"] and all(s["ok"] for s in shade.values())):
+    summary = {"antialias": aa, "resize": resized, "env_shade": shade}
+    if not (aa["ok"] and all(r["ok"] for r in resized.values())
+            and all(s["ok"] for s in shade.values())):
         raise AssertionError(f"an option disagrees card vs CPU: {summary}")
+    return summary
+
+
+def batched_gsplat2d(device, seed) -> dict:
+    """(f) of phase 14: phase 11 (a)'s 2DGS scene with camera_batching="vmap"
+    against "map" from the same state, background and regulariser weights:
+    each camera's dense tile table equal exactly (bin_gaussians_batched's
+    one sort against bin_gaussians alone), the images, the regularisers'
+    maps, one step's loss, gradients, xys_grad_norm and vis_counts within
+    the 3DGS comparison's tolerances, both under deterministic algorithms;
+    then 1 warm-up and ``gsplat2d_timed_steps`` timed steps of each path,
+    alternating (median s/step of each)."""
+    import torch
+
+    from geosplatting_tpu_torch.ops import rasterize_2dgs as r2d
+    from geosplatting_tpu_torch.train.gsplat_trainer import GSplatTrainer, GSplatTrainerConfig
+
+    c, c2 = GSPLAT, GSPLAT2D
+    b = c["cameras"]
+    tol = BATCHED["tol"]["gsplat"]
+    maps = ("normal", "pseudo_normal", "distort", "median_depth", "depth")
+    runs, trainers, nondeterministic = {}, {}, []
+    for batching in ("map", "vmap"):
+        gen = torch.Generator(device=device).manual_seed(seed + 2)
+        splats, model, cams, gt = gsplat_scene(device, gen, sh_degree=0, rasterize_mode="2dgs",
+                                               pairs_per_gaussian=c2["pairs_per_gaussian"],
+                                               tile_capacity=c2["tile_capacity"],
+                                               camera_batching=batching)
+        trainer = GSplatTrainer(GSplatTrainerConfig(batch_size=b, warmup_length=10**9), model,
+                                dataset_size=b)
+        trainer.init_state(splats)
+        reg = (trainer.config.normal_weight, trainer.config.distort_weight)
+        with deterministic(nondeterministic):
+            with torch.no_grad(), Timed(r2d, "bin_gaussians") as one, \
+                    Timed(r2d, "bin_gaussians_batched") as batch:
+                if batching == "vmap":
+                    rgba, info = model.render_rgba_batched(trainer.splats(), cams)
+                    tables = list(batch.outputs[0].tile_gid)
+                else:
+                    per = [model.render_rgba(trainer.splats(), cams[i]) for i in range(b)]
+                    rgba = torch.stack([r for r, _ in per])
+                    info = {k: torch.stack([i[k] for _, i in per]) for k in maps}
+                    tables = [o.tile_gid for o in one.outputs]
+                    del per
+            m = trainer.train_step(cams, gt, max_sh_degree=None, reg_weights=reg,
+                                   generator=gen)
+        runs[batching] = {
+            "rgba": rgba, "maps": {k: info[k] for k in maps}, "tables": tables,
+            "bin_calls": [len(one.outputs), len(batch.outputs)],
+            "grads": torch.cat([trainer.params[k].grad.reshape(-1) for k in trainer.specs]),
+            "xys_grad_norm": trainer.xys_grad_norm.clone(),
+            "vis_counts": trainer.vis_counts.clone(),
+            "metrics": {k: float(v) for k, v in m.items()}}
+        trainers[batching] = (trainer, cams, gt, gen, reg)
+    a, v = runs["map"], runs["vmap"]
+    checks = {
+        "tables_equal": len(a["tables"]) == len(v["tables"]) == b and all(
+            torch.equal(x, y) for x, y in zip(a["tables"], v["tables"])),
+        "bin_calls": {"map": a["bin_calls"], "vmap": v["bin_calls"]},
+        "rgba": close_to(v["rgba"], a["rgba"], *tol["rgba"]),
+        "maps": {k: close_to(v["maps"][k], a["maps"][k], *tol["rgba"]) for k in maps},
+        "loss": close_to(torch.tensor(v["metrics"]["loss"]),
+                         torch.tensor(a["metrics"]["loss"]), *tol["grad"]),
+        "grads": close_to(v["grads"], a["grads"], *tol["grad"]),
+        "xys_grad_norm": close_to(v["xys_grad_norm"], a["xys_grad_norm"], *tol["grad"]),
+        "vis_counts_equal": bool(torch.equal(v["vis_counts"], a["vis_counts"])),
+        "visible": float(v["vis_counts"].sum()),
+        "metrics": {"map": a["metrics"], "vmap": v["metrics"]},
+        "nondeterministic_ops": nondeterministic}
+    del runs, a, v
+    seconds = {"map": [], "vmap": []}
+    for i in range(1 + BATCHED["gsplat2d_timed_steps"]):
+        for batching, (trainer, cams, gt, gen, reg) in trainers.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = trainer.train_step(cams, gt, max_sh_degree=None, reg_weights=reg,
+                                   generator=gen)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if not (math.isfinite(float(m["loss"])) and float(m["nonfinite_grads"]) == 0
+                    and float(m["pair_fill"]) <= 1.0 and float(m["tile_fill"]) <= 1.0):
+                raise AssertionError(f"2DGS {batching} step {i}: {m}")
+            if i >= 1:
+                seconds[batching].append(dt)
+    summary = {"checks": checks, "timed_step_seconds": seconds,
+               "median_step_s": {k: sorted(x)[len(x) // 2] for k, x in seconds.items()}}
+    ok = (checks["tables_equal"] and checks["bin_calls"] == {"map": [b, 0], "vmap": [0, 1]}
+          and checks["rgba"]["ok"] and all(r["ok"] for r in checks["maps"].values())
+          and checks["loss"]["ok"] and checks["grads"]["ok"] and checks["xys_grad_norm"]["ok"]
+          and checks["vis_counts_equal"] and checks["visible"] > 0
+          and all(x["tile_fill"] <= 1.0 and x["nonfinite_grads"] == 0
+                  for x in checks["metrics"].values()))
+    if not ok:
+        raise AssertionError(f"2DGS camera_batching='vmap' disagrees with 'map': {summary}")
     return summary
 
 
 def batched(device, seed, kernels, product_run: Path, stage2_run: Path, card: str,
             slice_median: float, gsplat_median: float) -> tuple[dict, dict]:
-    """Phase 14 of the docstring, (a)-(c) and (e); returns (the phase's
+    """Phase 14 of the docstring, (a)-(c), (e) and (f); returns (the phase's
     numbers, (a)'s last camera's kernel inputs) for (d)."""
     out = {}
     out["slice"], captured = batched_slice(device, seed, kernels)
     phase("batched_slice", **out["slice"], map_median_face_step_s=slice_median, card=card)
     out["gsplat"] = batched_gsplat(device, seed, kernels)
     phase("batched_gsplat", **out["gsplat"], map_median_step_s=gsplat_median, card=card)
-    out["stages"], m3 = batched_stages(device, seed, product_run, stage2_run)
+    out["stages"] = batched_stages(device, seed, product_run, stage2_run)
     phase("batched_stages", **out["stages"])
-    out["options"] = batched_options_card_vs_cpu(device, seed, m3)
+    out["options"] = batched_options_card_vs_cpu(device, seed)
     phase("batched_options_card_vs_cpu", **out["options"])
+    out["gsplat2d"] = batched_gsplat2d(device, seed)
+    phase("batched_gsplat2d", **out["gsplat2d"], card=card)
     return out, captured
 
 

@@ -2,8 +2,10 @@
 
 Counterpart of ``geosplatting_tpu/graphics/cameras.py``: ``c2w`` is an
 OpenGL-style camera-to-world [..., 3, 4] (camera looks down -z, y up);
-``view_matrix`` flips y/z to the rasterizer convention (+z forward, y down).
-A plain dataclass of tensors; width/height/near/far are Python numbers.
+``view_matrix`` flips y/z to the rasterizer convention (+z forward, y down);
+``projection_matrix`` is the OpenGL frustum over that view space and
+``resize`` scales the intrinsics to a new image size. A plain dataclass of
+tensors; width/height/near/far are Python numbers.
 """
 from __future__ import annotations
 
@@ -198,6 +200,24 @@ class Cameras:
         return torch.cat((top, bottom), dim=-2)
 
     @property
+    def projection_matrix(self) -> torch.Tensor:
+        """OpenGL-style frustum [..., 4, 4] over the +z-forward view space."""
+        n, f = self.near, self.far
+        t = self.cy * (n / self.fy)
+        b = (self.cy - self.height) * (n / self.fy)
+        r = self.cx * (n / self.fx)
+        l = (self.cx - self.width) * (n / self.fx)  # noqa: E741
+        zeros = torch.zeros_like(self.fx)
+        rows = torch.stack((
+            2 * n / (r - l), zeros, (r + l) / (r - l), zeros,
+            zeros, 2 * n / (t - b), (t + b) / (t - b), zeros,
+            zeros, zeros, torch.full_like(self.fx, (f + n) / (f - n)),
+            torch.full_like(self.fx, -2 * f * n / (f - n)),
+            zeros, zeros, torch.ones_like(self.fx), zeros,
+        ), dim=-1)
+        return rows.reshape(self.shape + (4, 4))
+
+    @property
     def camera_pos(self) -> torch.Tensor:
         return self.c2w[..., :3, 3]
 
@@ -221,3 +241,11 @@ class Cameras:
         d_world = gmath.safe_normalize((rot @ d_cam[..., None])[..., 0])
         origins = self.c2w[..., :3, 3].reshape(shp + (1, 1, 3)).expand(d_world.shape)
         return origins, d_world
+
+    def resize(self, width: int, height: int) -> "Cameras":
+        """The same cameras at ``width`` x ``height``: fx, cx scaled by the
+        width's ratio, fy, cy by the height's."""
+        sx = width / self.width
+        sy = height / self.height
+        return dataclasses.replace(self, fx=self.fx * sx, fy=self.fy * sy, cx=self.cx * sx,
+                                   cy=self.cy * sy, width=width, height=height)

@@ -1,7 +1,8 @@
 """3D Gaussian splat container and the vanilla-3DGS densification.
 
 Counterpart of ``geosplatting_tpu/graphics/splats.py`` (``Splats`` with
-``random``, ``reset_opacities``, ``_mean_knn_distance``, and ``split``,
+``random``, ``from_points``, ``cov3d_half``, ``cov3d``, ``reset_opacities``,
+``_mean_knn_distance``, and ``split``,
 ``densify_and_cull``, ``cull`` and ``as_points``). ``scales`` are log-scales and
 ``opacities`` are logits. ``shs`` holds the SH coefficients past the DC
 term, [N, K - 1, 3]; stages 1-3 leave it at its default [N, 0, 3].
@@ -38,6 +39,10 @@ class Splats:
     def __post_init__(self):
         if self.shs is None:
             self.shs = self.means.new_zeros((self.means.shape[0], 0, 3))
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(self.means.shape[:-1])
 
     @property
     def num_gaussians(self) -> int:
@@ -84,6 +89,38 @@ class Splats:
             shs=torch.zeros((size, gmath.sh_deg2dim(sh_degree) - 1, 3), device=device),
             opacities=torch.full((size, 1), _logit(0.1), device=device),
         )
+
+    @classmethod
+    def from_points(cls, positions: torch.Tensor, colors: torch.Tensor, *, sh_degree: int,
+                    generator: torch.Generator | None = None,
+                    quat_normal: torch.Tensor | None = None) -> "Splats":
+        """Gaussians at a point cloud's ``positions`` [N, 3] with its
+        ``colors`` [N, 3]: isotropic at their mean distance to the 3 nearest
+        others, opacity 0.1, random orientation, on the points' device. The
+        quaternions' normal [N, 4] draws come from ``generator`` or are
+        injected."""
+        size, device = positions.shape[0], positions.device
+        d = mean_knn_distance(positions, k=3)
+        quats = gmath.random_quaternion(
+            (size,), generator=generator, device=device,
+            normal=None if quat_normal is None else quat_normal.to(device))
+        return cls(
+            means=positions,
+            scales=torch.log(torch.clamp(d, min=1e-8))[:, None].repeat(1, 3),
+            quats=quats,
+            colors=colors,
+            shs=torch.zeros((size, gmath.sh_deg2dim(sh_degree) - 1, 3), device=device),
+            opacities=torch.full((size, 1), _logit(0.1), device=device),
+        )
+
+    def cov3d_half(self) -> torch.Tensor:
+        """[N, 3, 3] rotation times the scales: M with cov3d = M M^T."""
+        r = gmath.quat2rot(gmath.safe_normalize(self.quats))
+        return r * torch.exp(self.scales)[..., None, :]
+
+    def cov3d(self) -> torch.Tensor:
+        m = self.cov3d_half()
+        return m @ m.transpose(-1, -2)
 
     def reset_opacities(self, reset_value: float) -> "Splats":
         return self.replace(opacities=torch.clamp(self.opacities, max=_logit(reset_value)))

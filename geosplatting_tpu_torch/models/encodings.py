@@ -108,6 +108,10 @@ class TriplaneEncoding(nn.Module):
             planes.normal_(0.0, 1.0, generator=generator).mul_(init_scale)
         self.planes = nn.Parameter(planes)
 
+    @property
+    def output_dim(self) -> int:
+        return self.planes.shape[-1]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [..., 3] in [-1, 1] -> features [..., C]."""
         return triplane_features(self.planes, x, self.reduce)

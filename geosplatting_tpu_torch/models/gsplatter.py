@@ -12,11 +12,11 @@ The ``classic`` and ``antialiased`` modes render on the pairs rasterizer
 whose ``tile_capacity`` cuts each tile to its front Gaussians and whose
 ``tile_chunk`` (at most 4, as in the JAX model) sizes its chunks on the
 CPU. ``camera_batching="vmap"`` renders a batch of cameras through
-``rasterize_batched`` (every camera binned in one pass, then composited
-camera by camera; ``render_rgba_batched``), "map" (the default) camera by
-camera; both give the same images and densification statistics. 2DGS has
-no pair binning to batch, so it takes "map" only. The JAX model's
-``chunk_size`` and ``backend`` have no meaning here.
+``rasterize_batched`` (``rasterize_2dgs_batched`` in ``2dgs`` mode: every
+camera binned in one pass, then composited camera by camera;
+``render_rgba_batched``), "map" (the default) camera by camera; both give
+the same images, regularisers and densification statistics. The JAX
+model's ``chunk_size`` and ``backend`` have no meaning here.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from ..graphics import gmath
 from ..graphics.cameras import Cameras
 from ..graphics.splats import Splats
 from ..ops.rasterize import camera_matrices, rasterize, rasterize_batched, sh_colors
-from ..ops.rasterize_2dgs import rasterize_2dgs
+from ..ops.rasterize_2dgs import rasterize_2dgs, rasterize_2dgs_batched
 
 MODES = ("classic", "antialiased", "2dgs")
 CAMERA_BATCHING = ("map", "vmap")
@@ -55,9 +55,6 @@ class GSplatter:
             raise ValueError(f"unknown rasterize_mode: {self.rasterize_mode}")
         if self.camera_batching not in CAMERA_BATCHING:
             raise ValueError(f"unknown camera_batching: {self.camera_batching}")
-        if self.camera_batching == "vmap" and self.rasterize_mode == "2dgs":
-            raise ValueError("camera_batching='vmap' batches the pairs rasterizer's binning; "
-                             "2dgs takes 'map'")
         object.__setattr__(self, "device", _kernels.resolve_device(self.device))
 
     def get_background_color(self, training: bool,
@@ -79,6 +76,20 @@ class GSplatter:
         colors = torch.cat((gmath.rgb2sh(splats.colors[:, None, :]), splats.shs), dim=-2)
         return colors[:, :gmath.sh_deg2dim(deg), :], deg
 
+    def _render_2dgs(self, splats: Splats, colors, deg, viewmat, K, width: int, height: int,
+                     means2d_offset, batched: bool) -> tuple[torch.Tensor, dict]:
+        fn = rasterize_2dgs_batched if batched else rasterize_2dgs
+        render, alpha, normal, pseudo_normal, distort, median, info = fn(
+            splats.means, gmath.safe_normalize(splats.quats), torch.exp(splats.scales),
+            torch.sigmoid(splats.opacities[:, 0]), colors, viewmat, K, width, height,
+            sh_degree=deg, render_mode="RGB+ED", offset2d=means2d_offset,
+            tile_size=self.block_width, tile_capacity=self.tile_capacity,
+            pairs_per_gaussian=self.pairs_per_gaussian, tile_chunk=min(self.tile_chunk, 4),
+        )
+        info = dict(info, normal=normal, pseudo_normal=pseudo_normal, distort=distort,
+                    median_depth=median, depth=render[..., -1:], alpha_map=alpha)
+        return torch.cat((render[..., :3], alpha), -1), info
+
     def render_rgba(self, splats: Splats, camera: Cameras, *,
                     max_sh_degree: int | None = None,
                     means2d_offset: torch.Tensor | None = None
@@ -89,17 +100,9 @@ class GSplatter:
         ``depth`` (expected) and ``alpha_map``."""
         colors, deg = self._colors_and_degree(splats, max_sh_degree)
         if self.rasterize_mode == "2dgs":
-            render, alpha, normal, pseudo_normal, distort, median, info = rasterize_2dgs(
-                splats.means, gmath.safe_normalize(splats.quats), torch.exp(splats.scales),
-                torch.sigmoid(splats.opacities[:, 0]), colors, camera.view_matrix,
-                camera.intrinsic_matrix, camera.width, camera.height, sh_degree=deg,
-                render_mode="RGB+ED", offset2d=means2d_offset, tile_size=self.block_width,
-                tile_capacity=self.tile_capacity, pairs_per_gaussian=self.pairs_per_gaussian,
-                tile_chunk=min(self.tile_chunk, 4),
-            )
-            info = dict(info, normal=normal, pseudo_normal=pseudo_normal, distort=distort,
-                        median_depth=median, depth=render[..., -1:], alpha_map=alpha)
-            return torch.cat((render[..., :3], alpha), -1), info
+            return self._render_2dgs(splats, colors, deg, camera.view_matrix,
+                                     camera.intrinsic_matrix, camera.width, camera.height,
+                                     means2d_offset, batched=False)
         render, alpha, info = rasterize(
             splats.means, gmath.safe_normalize(splats.quats), torch.exp(splats.scales),
             torch.sigmoid(splats.opacities[:, 0]), colors, camera.view_matrix,
@@ -113,11 +116,17 @@ class GSplatter:
                             max_sh_degree: int | None = None,
                             means2d_offset: torch.Tensor | None = None
                             ) -> tuple[torch.Tensor, dict]:
-        """A batch of B cameras through ``rasterize_batched`` -> ([B, H, W,
-        4] premultiplied rgba, info with ``radii`` [B, N]); each camera's
-        image is ``render_rgba``'s. ``means2d_offset`` is [B, N, 2]."""
+        """A batch of B cameras binned in one pass (``rasterize_batched``,
+        or ``rasterize_2dgs_batched`` in ``2dgs`` mode) -> ([B, H, W, 4]
+        premultiplied rgba, info with ``radii`` [B, N]; in ``2dgs`` mode
+        the regularisers' maps [B, H, W, ...] as ``render_rgba`` names
+        them); each camera's image is ``render_rgba``'s. ``means2d_offset``
+        is [B, N, 2]."""
         colors, deg = self._colors_and_degree(splats, max_sh_degree)
         viewmats, Ks = camera_matrices(cameras)
+        if self.rasterize_mode == "2dgs":
+            return self._render_2dgs(splats, colors, deg, viewmats, Ks, cameras.width,
+                                     cameras.height, means2d_offset, batched=True)
         if deg is None:
             colors_b = colors.expand(len(cameras), *colors.shape)
         else:

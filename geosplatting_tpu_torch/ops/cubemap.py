@@ -377,24 +377,28 @@ def fg_lut(resolution: int = 256, num_samples: int = 1024) -> tuple:
     nv_g = np.broadcast_to(nv[None, :], (resolution, resolution))
     r_g = np.broadcast_to(rough[:, None], (resolution, resolution))
     a = np.maximum(r_g, 1e-3) ** 2
-    v = np.stack((np.sqrt(np.maximum(1 - nv_g**2, 0.0)), np.zeros_like(nv_g), nv_g), -1)
+    # the view vector (vx, 0, nv): only h's x and z reach v . h and l's z
+    vx = np.sqrt(np.maximum(1 - nv_g**2, 0.0))
     i = np.arange(num_samples)
     u1 = (i + 0.5) / num_samples
     u2 = _radical_inverse(i)
     scale = np.zeros((resolution, resolution))
     bias = np.zeros((resolution, resolution))
+    # the terms that do not change with the sample, each computed as the
+    # loop computed it
+    a2m1 = a**2 - 1
+    kk = a / 2.0
+    one_kk = 1 - kk
+    g_v = nv_g / (nv_g * one_kk + kk)
     for k in range(num_samples):
-        cos_t = np.sqrt((1 - u1[k]) / (1 + (a**2 - 1) * u1[k]))
+        cos_t = np.sqrt((1 - u1[k]) / (1 + a2m1 * u1[k]))
         sin_t = np.sqrt(np.maximum(1 - cos_t**2, 0.0))
         phi = 2 * np.pi * u2[k]
-        h = np.stack((sin_t * np.cos(phi), sin_t * np.sin(phi), cos_t), -1)
-        vh = np.sum(v * h, -1)
-        l = 2 * vh[..., None] * h - v  # noqa: E741
-        nl = np.clip(l[..., 2], 0.0, 1.0)
-        nh = np.clip(h[..., 2], 0.0, 1.0)
+        vh = vx * (sin_t * np.cos(phi)) + nv_g * cos_t
+        nl = np.clip(2 * vh * cos_t - nv_g, 0.0, 1.0)
+        nh = np.clip(cos_t, 0.0, 1.0)
         vh = np.clip(vh, 0.0, 1.0)
-        kk = a / 2.0
-        g = nv_g / (nv_g * (1 - kk) + kk) * (nl / (nl * (1 - kk) + kk))
+        g = g_v * (nl / (nl * one_kk + kk))
         g_vis = np.where(nl > 0, g * vh / np.maximum(nh * nv_g, 1e-8), 0.0)
         fc = (1 - vh) ** 5
         scale += (1 - fc) * g_vis

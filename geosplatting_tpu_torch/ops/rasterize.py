@@ -6,7 +6,8 @@ Counterpart of ``geosplatting_tpu/ops/rasterize.py``: ``rasterize`` and
 max(alpha, 1e-10)), ``_tiles_to_image``, the compositing constants and the
 SH colours of ``sh_degree``; and the dense tile table of the JAX package's
 reference rasterizer: ``TileBins``, ``bin_gaussians``, ``_tile_pixel_grid``
-and ``composite_tiles_reference``.
+and ``composite_tiles_reference``, with ``bin_gaussians_batched`` (a batch of
+cameras' tables in one sort, each the table ``bin_gaussians`` gives it).
 
 The camera-batched front end is ``bin_cameras_batched`` (every camera
 projected, then all binned in one pass by ``bin_pairs_batched``),
@@ -48,6 +49,103 @@ class TileBins(NamedTuple):
     max_tile_pairs: torch.Tensor  # [] the fullest tile's pairs before truncation to K_cap
 
 
+def _gaussian_rects(proj: Projected, tw: int, th: int, tile_size: int):
+    """One camera's per-Gaussian tile rectangles: (tx0, ty0, width in
+    tiles, tile count; 0 tiles where culled)."""
+    means2d = proj.means2d.detach()
+    if proj.extents is not None:
+        rx = proj.extents[:, 0].detach()
+        ry = proj.extents[:, 1].detach()
+    else:
+        rx = ry = proj.radii.to(torch.float32)
+    tx0 = torch.floor((means2d[:, 0] - rx) / tile_size).clamp(0, tw).long()
+    ty0 = torch.floor((means2d[:, 1] - ry) / tile_size).clamp(0, th).long()
+    tx1 = torch.ceil((means2d[:, 0] + rx) / tile_size).clamp(0, tw).long()
+    ty1 = torch.ceil((means2d[:, 1] + ry) / tile_size).clamp(0, th).long()
+    bw = (tx1 - tx0).clamp(min=0)
+    bh = (ty1 - ty0).clamp(min=0)
+    return tx0, ty0, bw, torch.where(proj.radii > 0, bw * bh, 0)
+
+
+def bin_gaussians_batched(
+    proj_b: Projected,
+    width: int,
+    height: int,
+    *,
+    tile_size: int,
+    max_pairs: int,
+    tile_capacity: int,
+    near: float = 0.01,
+    far: float = 1e10,
+) -> TileBins:
+    """B cameras' dense [T, K_cap] tile tables (every field of ``proj_b``
+    with a leading camera axis) in one pass: the pair expansion, one stable
+    sort of all B x ``max_pairs`` keys and the tile search run once for the
+    batch. The camera index sits above each camera's key, and every float
+    of a camera (its tile rectangles, its quantized depths) is computed from
+    that camera alone with ``bin_gaussians``' shapes, so each camera's table
+    is the one ``bin_gaussians`` gives it alone. Returns a ``TileBins``
+    whose ``tile_gid``, ``total_pairs`` and ``max_tile_pairs`` lead with the
+    camera axis."""
+    tw = -(-width // tile_size)
+    th = -(-height // tile_size)
+    num_tiles = tw * th
+    b, n = proj_b.means2d.shape[:2]
+    dev = proj_b.means2d.device
+    rects = [_gaussian_rects(camera_slice(proj_b, i), tw, th, tile_size) for i in range(b)]
+    tx0, ty0, bw, ntiles = (torch.stack(x) for x in zip(*rects))
+
+    offsets = torch.cumsum(ntiles, 1)                 # inclusive
+    total = offsets[:, -1]
+    starts = offsets - ntiles
+    slot = torch.arange(max_pairs, device=dev).expand(b, max_pairs)
+    gid = torch.searchsorted(offsets, slot.contiguous(), right=True).clamp(max=n - 1)
+    local = slot - starts.gather(1, gid)
+    w_g = bw.gather(1, gid).clamp(min=1)
+    tile_id = (ty0.gather(1, gid) + local // w_g) * tw + tx0.gather(1, gid) + local % w_g
+    in_range = slot < torch.clamp(total, max=max_pairs)[:, None]
+    tile_id = torch.where(in_range, tile_id, num_tiles)   # sentinel bucket
+
+    cam = torch.arange(b, device=dev)[:, None]
+    tile_bits = max(int(num_tiles + 1).bit_length(), 1)
+    depth_bits = 31 - tile_bits
+    if depth_bits >= 16:
+        # one packed key: camera-constant log-depth quantization, the
+        # camera above it
+        log_span = float(math.log(max(far / near, 1.0 + 1e-6)))
+        dq = torch.stack([torch.clamp(
+            (torch.log(torch.clamp(proj_b.depths[i].detach()[gid[i]] / near, min=1e-6))
+             / log_span * ((1 << depth_bits) - 1)).to(torch.int32),
+            0, (1 << depth_bits) - 1,
+        ).long() for i in range(b)])
+        packed = ((cam << (tile_bits + depth_bits)) + tile_id * (1 << depth_bits)
+                  + torch.where(in_range, dq, 0))
+        sorted_key, perm = torch.sort(packed.reshape(-1), stable=True)
+        sorted_tile = (sorted_key.view(b, max_pairs) >> depth_bits) - (cam << tile_bits)
+    else:
+        # (camera, tile, float depth bits) lexicographically: minor key
+        # first, stable
+        depth_key = torch.where(
+            in_range, proj_b.depths.detach().view(torch.int32).gather(1, gid).long(),
+            torch.iinfo(torch.int32).max)
+        by_depth = torch.argsort(depth_key.reshape(-1), stable=True)
+        major = (tile_id + cam * (num_tiles + 1)).reshape(-1)
+        perm = by_depth[torch.argsort(major[by_depth], stable=True)]
+        sorted_tile = tile_id.reshape(-1)[perm].view(b, max_pairs)
+    # camera c's keys are the c-th block of max_pairs in sorted order
+    sorted_gid = gid.reshape(-1)[perm].view(b, max_pairs)
+
+    tile_range = torch.arange(num_tiles, device=dev).expand(b, num_tiles).contiguous()
+    seg_start = torch.searchsorted(sorted_tile, tile_range)
+    counts = torch.searchsorted(sorted_tile, tile_range, right=True) - seg_start
+    k = torch.arange(tile_capacity, device=dev)
+    idx = (seg_start[:, :, None] + k).clamp(0, max_pairs - 1)
+    tile_gid = torch.where(k < counts[:, :, None],
+                           sorted_gid.gather(1, idx.view(b, -1)).view(idx.shape), -1)
+    return TileBins(tile_gid=tile_gid, total_pairs=total, num_tiles_xy=(tw, th),
+                    max_tile_pairs=counts.amax(1))
+
+
 def bin_gaussians(
     proj: Projected,
     width: int,
@@ -64,70 +162,14 @@ def bin_gaussians(
     its circular ``radii`` rectangle where ``proj.extents`` is None (2DGS).
     Pairs are generated in Gaussian order inside the static ``max_pairs``
     budget, sorted by a packed (tile, log-depth) key and cut to the front
-    ``tile_capacity`` of each tile."""
-    tw = -(-width // tile_size)
-    th = -(-height // tile_size)
-    num_tiles = tw * th
-    dev = proj.means2d.device
-    n = proj.means2d.shape[0]
-
-    means2d = proj.means2d.detach()
-    valid = proj.radii > 0
-    if proj.extents is not None:
-        rx = proj.extents[:, 0].detach()
-        ry = proj.extents[:, 1].detach()
-    else:
-        rx = ry = proj.radii.to(torch.float32)
-    tx0 = torch.floor((means2d[:, 0] - rx) / tile_size).clamp(0, tw).long()
-    ty0 = torch.floor((means2d[:, 1] - ry) / tile_size).clamp(0, th).long()
-    tx1 = torch.ceil((means2d[:, 0] + rx) / tile_size).clamp(0, tw).long()
-    ty1 = torch.ceil((means2d[:, 1] + ry) / tile_size).clamp(0, th).long()
-    bw = (tx1 - tx0).clamp(min=0)
-    bh = (ty1 - ty0).clamp(min=0)
-    ntiles = torch.where(valid, bw * bh, 0)
-
-    offsets = torch.cumsum(ntiles, 0)                 # inclusive
-    total = offsets[-1]
-    starts = offsets - ntiles
-    slot = torch.arange(max_pairs, device=dev)
-    gid = torch.searchsorted(offsets, slot, right=True).clamp(max=n - 1)
-    local = slot - starts[gid]
-    w_g = bw[gid].clamp(min=1)
-    tile_id = (ty0[gid] + local // w_g) * tw + tx0[gid] + local % w_g
-    in_range = slot < torch.clamp(total, max=max_pairs)
-    tile_id = torch.where(in_range, tile_id, num_tiles)   # sentinel bucket
-
-    depth = proj.depths.detach()
-    tile_bits = max(int(num_tiles + 1).bit_length(), 1)
-    depth_bits = 31 - tile_bits
-    if depth_bits >= 16:
-        # one packed key: camera-constant log-depth quantization
-        log_span = float(math.log(max(far / near, 1.0 + 1e-6)))
-        dq = torch.clamp(
-            (torch.log(torch.clamp(depth[gid] / near, min=1e-6)) / log_span
-             * ((1 << depth_bits) - 1)).to(torch.int32),
-            0, (1 << depth_bits) - 1,
-        ).long()
-        packed = tile_id * (1 << depth_bits) + torch.where(in_range, dq, 0)
-        sorted_key, perm = torch.sort(packed, stable=True)
-        sorted_tile = sorted_key >> depth_bits
-    else:
-        # (tile, float depth bits) lexicographically: minor key first, stable
-        depth_key = torch.where(in_range, depth.view(torch.int32)[gid].long(),
-                                torch.iinfo(torch.int32).max)
-        by_depth = torch.argsort(depth_key, stable=True)
-        perm = by_depth[torch.argsort(tile_id[by_depth], stable=True)]
-        sorted_tile = tile_id[perm]
-    sorted_gid = gid[perm]
-
-    tile_range = torch.arange(num_tiles, device=dev)
-    seg_start = torch.searchsorted(sorted_tile, tile_range)
-    counts = torch.searchsorted(sorted_tile, tile_range, right=True) - seg_start
-    k = torch.arange(tile_capacity, device=dev)
-    idx = (seg_start[:, None] + k).clamp(0, max_pairs - 1)
-    tile_gid = torch.where(k < counts[:, None], sorted_gid[idx], -1)
-    return TileBins(tile_gid=tile_gid, total_pairs=total, num_tiles_xy=(tw, th),
-                    max_tile_pairs=counts.max())
+    ``tile_capacity`` of each tile. ``bin_gaussians_batched`` of a batch of
+    one."""
+    bins = bin_gaussians_batched(
+        Projected(*(None if x is None else x[None] for x in proj)), width, height,
+        tile_size=tile_size, max_pairs=max_pairs, tile_capacity=tile_capacity, near=near,
+        far=far)
+    return bins._replace(tile_gid=bins.tile_gid[0], total_pairs=bins.total_pairs[0],
+                         max_tile_pairs=bins.max_tile_pairs[0])
 
 
 def _tile_pixel_grid(tile_size: int, device=None) -> torch.Tensor:

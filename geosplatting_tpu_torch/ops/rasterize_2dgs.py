@@ -12,7 +12,10 @@ The JAX package composites 2DGS in plain ``jnp`` differentiated by XLA (no
 Pallas kernel); here it is plain PyTorch differentiated by autograd, every
 tile chunk under ``torch.utils.checkpoint`` as every chunk is under
 ``jax.checkpoint`` there. Binning is the dense tile table of
-``rasterize.bin_gaussians`` by the circular radius. Tiles are independent,
+``rasterize.bin_gaussians`` by the circular radius; ``rasterize_2dgs_batched``
+(the JAX model's ``vmap`` of the render) bins a batch of cameras in one
+sort (``bin_gaussians_batched``), then composites each camera as
+``rasterize_2dgs`` does, to the same bits. Tiles are independent,
 so a chunk's tiles are taken in order of falling pair count and the chunk is
 evaluated only as deep as its fullest tile (the padded slots have alpha 0
 and add nothing); on the CPU a chunk holds ``tile_chunk`` tiles' worth of
@@ -28,8 +31,8 @@ from torch.utils.checkpoint import checkpoint
 from ..graphics import gmath
 from .projection import Projected
 from .rasterize import (
-    MAX_ALPHA, MIN_ALPHA, TRANSMITTANCE_EPS, RENDER_MODES, _tile_pixel_grid, _tiles_to_image,
-    bin_gaussians, tile_origins,
+    MAX_ALPHA, MIN_ALPHA, TRANSMITTANCE_EPS, RENDER_MODES, TileBins, _tile_pixel_grid,
+    _tiles_to_image, bin_gaussians, bin_gaussians_batched, tile_origins,
 )
 from .segment_rows import gather_rows
 
@@ -259,6 +262,63 @@ def depth_to_camera_normals(depth: torch.Tensor, alpha: torch.Tensor,
     return torch.where(alpha > 1e-3, n, 0.0)
 
 
+def _project_and_shade(means, quats, scales, colors, viewmat, K, width, height, *, near, far,
+                       sh_degree):
+    """One camera's projection (``project_2dgs``) and its colours (the SH
+    evaluated towards that camera where ``sh_degree`` is given)."""
+    with record_function("rasterize.2dgs_project"):
+        record, center2d, depths, radii = project_2dgs(
+            means, quats, scales, viewmat, K, width, height, near=near, far=far)
+    if sh_degree is not None:
+        campos = -viewmat[:3, :3].T @ viewmat[:3, 3]
+        viewdir = gmath.safe_normalize(means - campos)
+        colors = torch.clamp(gmath.eval_sh(sh_degree, colors, viewdir) + 0.5, min=0.0)
+    return record, center2d, depths, radii, colors
+
+
+def _composite_camera(bins: TileBins, record, center2d, depths, radii, opacities, colors,
+                      offset2d, K, width: int, height: int, *, near: float, tile_size: int,
+                      tile_capacity: int, max_pairs: int, render_mode: str, tile_chunk: int):
+    """One camera's composite from its tile table: ``rasterize_2dgs``'s
+    seven outputs."""
+    tw, th = bins.num_tiles_xy
+    with record_function("rasterize.2dgs_composite"):
+        tiles = composite_tiles_2dgs(
+            bins.tile_gid, tile_origins(tw, th, tile_size, record.device), record, opacities,
+            colors, offset2d, near=near, tile_size=tile_size, tile_chunk=tile_chunk)
+    grid = (tw, th, tile_size, tile_size)
+    img_c, img_a, img_d, img_n, img_dist, img_med = (
+        _tiles_to_image(x if x.dim() == 3 else x[..., None], grid, height, width)
+        for x in tiles)
+
+    ed = img_d / torch.clamp(img_a, min=1e-10)
+    depth = ed if render_mode in ("ED", "RGB+ED") else img_d
+    if render_mode == "RGB":
+        render = img_c
+    elif render_mode in ("ED", "D"):
+        render = depth
+    else:
+        render = torch.cat((img_c, depth), -1)
+
+    normals_from_depth = depth_to_camera_normals(ed, img_a, K)
+    info = {
+        "means2d": record[:, 15:17],
+        "center2d": center2d,
+        "radii": radii,
+        "depths": depths,
+        "total_pairs": bins.total_pairs,
+        "max_pairs": max_pairs,
+        "max_tile_pairs": bins.max_tile_pairs,
+        "tile_capacity": tile_capacity,
+    }
+    return render, img_a, img_n, normals_from_depth, img_dist, img_med, info
+
+
+def _bin_input(center2d, depths, radii, opacities) -> Projected:
+    return Projected(means2d=center2d, depths=depths, conics=center2d.new_zeros((
+        center2d.shape[0], 3)), opacities=opacities, radii=radii)
+
+
 def rasterize_2dgs(
     means: torch.Tensor,
     quats: torch.Tensor,
@@ -289,50 +349,77 @@ def rasterize_2dgs(
     if render_mode not in RENDER_MODES:
         raise ValueError(f"unknown render_mode: {render_mode}")
     n = means.shape[0]
-    with record_function("rasterize.2dgs_project"):
-        record, center2d, depths, radii = project_2dgs(
-            means, quats, scales, viewmat, K, width, height, near=near, far=far)
+    record, center2d, depths, radii, colors = _project_and_shade(
+        means, quats, scales, colors, viewmat, K, width, height, near=near, far=far,
+        sh_degree=sh_degree)
     if offset2d is None:
         offset2d = means.new_zeros((n, 2))
-    if sh_degree is not None:
-        campos = -viewmat[:3, :3].T @ viewmat[:3, 3]
-        viewdir = gmath.safe_normalize(means - campos)
-        colors = torch.clamp(gmath.eval_sh(sh_degree, colors, viewdir) + 0.5, min=0.0)
-
     max_pairs = max(int(pairs_per_gaussian) * n, 1 << 12)
-    proj = Projected(means2d=center2d, depths=depths, conics=means.new_zeros((n, 3)),
-                     opacities=opacities, radii=radii)
     with record_function("rasterize.2dgs_bin"):
-        bins = bin_gaussians(proj, width, height, tile_size=tile_size, max_pairs=max_pairs,
+        bins = bin_gaussians(_bin_input(center2d, depths, radii, opacities), width, height,
+                             tile_size=tile_size, max_pairs=max_pairs,
                              tile_capacity=tile_capacity, near=near, far=far)
-    tw, th = bins.num_tiles_xy
-    with record_function("rasterize.2dgs_composite"):
-        tiles = composite_tiles_2dgs(
-            bins.tile_gid, tile_origins(tw, th, tile_size, means.device), record, opacities,
-            colors, offset2d, near=near, tile_size=tile_size, tile_chunk=tile_chunk)
-    grid = (tw, th, tile_size, tile_size)
-    img_c, img_a, img_d, img_n, img_dist, img_med = (
-        _tiles_to_image(x if x.dim() == 3 else x[..., None], grid, height, width)
-        for x in tiles)
+    return _composite_camera(bins, record, center2d, depths, radii, opacities, colors, offset2d,
+                             K, width, height, near=near, tile_size=tile_size,
+                             tile_capacity=tile_capacity, max_pairs=max_pairs,
+                             render_mode=render_mode, tile_chunk=tile_chunk)
 
-    ed = img_d / torch.clamp(img_a, min=1e-10)
-    depth = ed if render_mode in ("ED", "RGB+ED") else img_d
-    if render_mode == "RGB":
-        render = img_c
-    elif render_mode in ("ED", "D"):
-        render = depth
-    else:
-        render = torch.cat((img_c, depth), -1)
 
-    normals_from_depth = depth_to_camera_normals(ed, img_a, K)
-    info = {
-        "means2d": record[:, 15:17],
-        "center2d": center2d,
-        "radii": radii,
-        "depths": depths,
-        "total_pairs": bins.total_pairs,
-        "max_pairs": max_pairs,
-        "max_tile_pairs": bins.max_tile_pairs,
-        "tile_capacity": tile_capacity,
-    }
-    return render, img_a, img_n, normals_from_depth, img_dist, img_med, info
+def rasterize_2dgs_batched(
+    means: torch.Tensor,
+    quats: torch.Tensor,
+    scales: torch.Tensor,      # linear scales
+    opacities: torch.Tensor,   # [N] in [0, 1]
+    colors: torch.Tensor,      # [N, C], or [N, K_sh, 3] with sh_degree
+    viewmats_b: torch.Tensor,  # [B, 4, 4]
+    Ks_b: torch.Tensor,        # [B, 3, 3]
+    width: int,
+    height: int,
+    *,
+    near: float = 0.01,
+    far: float = 1e10,
+    sh_degree: int | None = None,
+    tile_size: int = 16,
+    tile_capacity: int = 1024,
+    pairs_per_gaussian: int = 8,
+    render_mode: str = "RGB+ED",
+    offset2d: torch.Tensor | None = None,    # [B, N, 2] zeros-valued hook
+    tile_chunk: int = 4,
+):
+    """A batch of cameras: each projected as ``rasterize_2dgs`` projects it,
+    all binned in one pass (``bin_gaussians_batched``: one sort of all B x
+    ``max_pairs`` keys), then composited camera by camera. Returns
+    ``rasterize_2dgs``' seven outputs with a leading camera axis; each
+    camera's are those ``rasterize_2dgs`` gives it alone. In ``info``,
+    ``radii`` is [B, N], ``tile_gid`` the [B, T, K] tables, and
+    ``total_pairs`` and ``max_tile_pairs`` are the batch's largest."""
+    if render_mode not in RENDER_MODES:
+        raise ValueError(f"unknown render_mode: {render_mode}")
+    b, n = viewmats_b.shape[0], means.shape[0]
+    if offset2d is None:
+        offset2d = means.new_zeros((b, n, 2))
+    fronts = [_project_and_shade(means, quats, scales, colors, viewmats_b[i], Ks_b[i], width,
+                                 height, near=near, far=far, sh_degree=sh_degree)
+              for i in range(b)]
+    max_pairs = max(int(pairs_per_gaussian) * n, 1 << 12)
+    with record_function("rasterize.2dgs_bin"):
+        bins_b = bin_gaussians_batched(
+            Projected(*(None if x[0] is None else torch.stack(x) for x in zip(*(
+                _bin_input(f[1], f[2], f[3], opacities) for f in fronts)))),
+            width, height, tile_size=tile_size, max_pairs=max_pairs,
+            tile_capacity=tile_capacity, near=near, far=far)
+    outs = []
+    for i, (record, center2d, depths, radii, cols) in enumerate(fronts):
+        bins = bins_b._replace(tile_gid=bins_b.tile_gid[i], total_pairs=bins_b.total_pairs[i],
+                               max_tile_pairs=bins_b.max_tile_pairs[i])
+        outs.append(_composite_camera(
+            bins, record, center2d, depths, radii, opacities, cols, offset2d[i], Ks_b[i], width,
+            height, near=near, tile_size=tile_size, tile_capacity=tile_capacity,
+            max_pairs=max_pairs, render_mode=render_mode, tile_chunk=tile_chunk))
+    infos = [o[-1] for o in outs]
+    info = {k: torch.stack([x[k] for x in infos])
+            for k in ("means2d", "center2d", "radii", "depths")}
+    info.update(total_pairs=bins_b.total_pairs.max(), max_pairs=max_pairs,
+                max_tile_pairs=bins_b.max_tile_pairs.max(), tile_capacity=tile_capacity,
+                tile_gid=bins_b.tile_gid)
+    return (*(torch.stack(x) for x in zip(*(o[:-1] for o in outs))), info)

@@ -295,13 +295,15 @@ def _pixel_centers(grid: TileGrid, tiles: torch.Tensor):
 
 
 def _alphas(p: torch.Tensor, live: torch.Tensor, px, py):
-    """[G, K, W] pair rows -> per (pair, pixel) dx, dy, sigma, raw alpha, keep."""
+    """[G, K, W] pair rows -> per (pair, pixel) dx, dy, exp(-sigma), raw
+    alpha, keep."""
     dx = p[..., 0:1] - px
     dy = p[..., 1:2] - py
     sigma = 0.5 * (p[..., 2:3] * dx * dx + p[..., 4:5] * dy * dy) + p[..., 3:4] * dx * dy
-    alpha_raw = torch.clamp(p[..., 5:6] * torch.exp(-sigma), max=MAX_ALPHA)
+    falloff = torch.exp(-sigma)
+    alpha_raw = torch.clamp(p[..., 5:6] * falloff, max=MAX_ALPHA)
     keep = (sigma >= 0) & (alpha_raw >= MIN_ALPHA) & live[..., None]
-    return dx, dy, sigma, alpha_raw, keep
+    return dx, dy, falloff, alpha_raw, keep
 
 
 def _colmat(p: torch.Tensor, channels: int) -> torch.Tensor:
@@ -347,7 +349,7 @@ def composite_bwd_plain(pairs, seg_start, grid: TileGrid, channels: int,
     for tiles, idx, live in _tile_groups(seg_start, grid.pixels):
         p = pairs[idx]
         px, py = _pixel_centers(grid, tiles)
-        dx, dy, sigma, alpha_raw, keep = _alphas(p, live, px, py)
+        dx, dy, falloff, alpha_raw, keep = _alphas(p, live, px, py)
         alpha = torch.where(keep, alpha_raw, 0.0)
         one_minus = 1.0 - alpha
         # rank gate: pair k is live for a pixel iff k < its contributor count
@@ -365,7 +367,7 @@ def composite_bwd_plain(pairs, seg_start, grid: TileGrid, channels: int,
         d_alpha = torch.where(keep & (alpha_raw < MAX_ALPHA), d_alpha, 0.0)
         d_sigma = -alpha * d_alpha
         ca, cb, cc = p[..., 2:3], p[..., 3:4], p[..., 4:5]
-        d_op = torch.where(keep, torch.exp(-sigma) * d_alpha, 0.0).sum(-1)
+        d_op = torch.where(keep, falloff * d_alpha, 0.0).sum(-1)
         rows = torch.cat(
             (
                 (d_sigma * (ca * dx + cb * dy)).sum(-1, keepdim=True),
@@ -566,8 +568,12 @@ class _CompositePairs(torch.autograd.Function):
     def forward(ctx, means2d, conics, opacities, colors, depths, bins: PairBins, grid: TileGrid):
         channels = colors.shape[-1]
         pairs = pack_pairs(bins, means2d, conics, opacities, colors, depths)
-        chunks = chunk_list(bins.seg_start, pairs.shape[0])
-        prod = chunk_products(pairs, bins.seg_start, grid, channels, chunks)
+        # the chunk list and the first passes (K1a, K2a) feed only the
+        # kernels' second passes: the plain second passes (CPU) read neither
+        chunks = prod = None
+        if pairs.device.type != "cpu":
+            chunks = chunk_list(bins.seg_start, pairs.shape[0])
+            prod = chunk_products(pairs, bins.seg_start, grid, channels, chunks)
         out, t_final, n_contrib = composite_fwd(pairs, bins.seg_start, grid, channels, chunks,
                                                 prod)
         ctx.save_for_backward(pairs, t_final, n_contrib, prod)
@@ -585,8 +591,8 @@ class _CompositePairs(torch.autograd.Function):
         grad_out = torch.cat(
             (g_color.transpose(1, 2), g_depth[:, None, :], g_alpha[:, None, :]), 1
         ).contiguous()
-        suffix = chunk_suffix(pairs, bins.seg_start, grid, channels, chunks, prod, grad_out,
-                              n_contrib)
+        suffix = None if prod is None else chunk_suffix(
+            pairs, bins.seg_start, grid, channels, chunks, prod, grad_out, n_contrib)
         d_sorted = composite_bwd(pairs, bins.seg_start, grid, channels, grad_out,
                                  t_final, n_contrib, pairs.shape[0], chunks, prod, suffix)
         # generation order is gaussian-major: one contiguous run per gaussian

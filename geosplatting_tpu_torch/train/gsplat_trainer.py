@@ -160,7 +160,7 @@ class GSplatTrainer:
         n = splats.num_gaussians
         for p in self.params.values():
             p.grad = None
-        offsets, rgbs, radii, fills, tile_fills, n_losses, d_losses = [], [], [], [], [], [], []
+        offsets, rgbs, radii, fills, tile_fills, infos = [], [], [], [], [], []
         with record_function("gsplat.forward"):
             if self.model.camera_batching == "vmap":
                 # one [B, N, 2] hook: its gradient is every camera's at once
@@ -171,6 +171,10 @@ class GSplatTrainer:
                 offsets, radii = [off], list(info["radii"])
                 rgbs = list(rgba[..., :3] + (1.0 - rgba[..., 3:4]) * background)
                 fills.append(info["total_pairs"] / max(info["max_pairs"], 1))
+                if is_2dgs:
+                    infos = [{k: info[k][i] for k in ("normal", "pseudo_normal", "alpha_map",
+                                                      "distort")} for i in range(len(cameras))]
+                    tile_fills.append(info["max_tile_pairs"] / info["tile_capacity"])
             else:
                 for i in range(len(cameras)):
                     off = torch.zeros((n, 2), device=splats.means.device, requires_grad=True)
@@ -182,17 +186,17 @@ class GSplatTrainer:
                     radii.append(info["radii"])
                     fills.append(info["total_pairs"] / max(info["max_pairs"], 1))
                     if is_2dgs:
-                        # normal consistency and distortion (gsplat_trainer.py:135-139)
-                        n_losses.append((1.0 - (info["normal"] * (info["pseudo_normal"]
-                                                                  * info["alpha_map"])).sum(-1)
-                                         ).mean())
-                        d_losses.append(info["distort"].mean())
+                        infos.append(info)
                         tile_fills.append(info["max_tile_pairs"] / info["tile_capacity"])
             rgbs = torch.stack(rgbs)
             loss = ssim_l1_loss(rgbs, gt_rgb, ssim_lambda=self.config.ssim_lambda)
             if is_2dgs:
-                normal_loss = torch.stack(n_losses).mean()
-                distort_loss = torch.stack(d_losses).mean()
+                # normal consistency and distortion, each camera's mean
+                # (gsplat_trainer.py:135-139), then the batch's
+                normal_loss = torch.stack([(1.0 - (info["normal"] * (
+                    info["pseudo_normal"] * info["alpha_map"])).sum(-1)).mean()
+                    for info in infos]).mean()
+                distort_loss = torch.stack([info["distort"].mean() for info in infos]).mean()
                 loss = loss + normal_w * normal_loss + distort_w * distort_loss
         with record_function("gsplat.backward"):
             loss.backward()

@@ -223,3 +223,117 @@ def test_2dgs_train_step_matches_jax():
 
     for step in (0, 2999, 3000, 6999, 7000, 9000):
         assert trainer_t.reg_weights_at(step) == trainer_j.reg_weights_at(step)
+
+
+# --- camera batching: the 2DGS render of a batch of cameras -------------------------
+# The batched path bins every camera in one sort and composites each camera
+# as the per-camera path does, so its tables are equal and its images and
+# regularisers are the per-camera ones bit for bit on the CPU; a step's
+# parameter gradients sum the cameras' terms in another order (within 1e-6
+# of each gradient's largest entry). The step is held to the JAX trainer's
+# ``vmap`` step with the tolerances of test_2dgs_train_step_matches_jax
+# above.
+
+
+def batch_inputs(num_cameras=3):
+    x = {k: t(v) for k, v in disks().items()}
+    cams = cameras_from_jax(JCameras.from_orbit(
+        center=jnp.zeros(3), radius=2.2, elevation_degrees=20.0, num_samples=num_cameras,
+        width=W, height=H))
+    vm, ks = zip(*((cams[i].view_matrix, cams[i].intrinsic_matrix) for i in range(len(cams))))
+    return x, torch.stack(vm), torch.stack(ks)
+
+
+@pytest.mark.parametrize("width,height,tile", [(W, H, 16), (2400, 2000, 4)])
+def test_bin_gaussians_batched_equals_per_camera(width, height, tile):
+    """Each camera's dense table, pair total and fullest tile equal to
+    ``bin_gaussians`` alone: the packed (tile, log-depth) key, and at
+    300,000 tiles the (tile, float depth) fallback."""
+    from geosplatting_tpu_torch.ops import rasterize as rz
+
+    x, vm, ks = batch_inputs()
+    projs = [t2d._bin_input(*t2d._project_and_shade(
+        x["means"], x["quats"], x["scales"], x["colors"], vm[i], ks[i], width, height,
+        near=0.01, far=1e10, sh_degree=None)[1:4], x["opacities"]) for i in range(3)]
+    kw = dict(tile_size=tile, max_pairs=4096, tile_capacity=24)
+    proj_b = rz.Projected(*(None if f[0] is None else torch.stack(f) for f in zip(*projs)))
+    batched = rz.bin_gaussians_batched(proj_b, width, height, **kw)
+    assert batched.tile_gid.shape[0] == 3
+    for i, proj in enumerate(projs):
+        alone = rz.bin_gaussians(proj, width, height, **kw)
+        assert int(alone.total_pairs) > 0 and int(alone.max_tile_pairs) > 1
+        assert torch.equal(batched.tile_gid[i], alone.tile_gid)
+        assert torch.equal(batched.total_pairs[i], alone.total_pairs)
+        assert torch.equal(batched.max_tile_pairs[i], alone.max_tile_pairs)
+
+
+def test_rasterize_2dgs_batched_equals_per_camera():
+    """All seven outputs and each camera's offset gradient equal to
+    ``rasterize_2dgs`` camera by camera, with SH colours."""
+    x, vm, ks = batch_inputs()
+    sh = t(np.random.default_rng(4).normal(size=(60, 4, 3)) * 0.3)
+    off = torch.zeros((3, 60, 2), requires_grad=True)
+    outs = t2d.rasterize_2dgs_batched(x["means"], x["quats"], x["scales"], x["opacities"], sh,
+                                      vm, ks, W, H, sh_degree=1, tile_capacity=64, offset2d=off)
+    sum(o.sum() for o in outs[:6]).backward()
+    assert tuple(outs[6]["radii"].shape) == (3, 60)
+    for i in range(3):
+        off_i = torch.zeros((60, 2), requires_grad=True)
+        one = t2d.rasterize_2dgs(x["means"], x["quats"], x["scales"], x["opacities"], sh, vm[i],
+                                 ks[i], W, H, sh_degree=1, tile_capacity=64, offset2d=off_i)
+        sum(o.sum() for o in one[:6]).backward()
+        for name, a, b in zip(OUTPUTS, outs, one):
+            assert torch.equal(a[i], b), name
+        assert torch.equal(outs[6]["radii"][i], one[6]["radii"])
+        assert float(off_i.grad.abs().max()) > 0
+        assert torch.equal(off.grad[i], off_i.grad)
+
+
+def test_2dgs_vmap_train_step_matches_jax_and_map():
+    """One step with both regularisers on and camera_batching="vmap":
+    against the JAX trainer's vmap step (the tolerances of the map step's
+    test above) and against the port's map step (the same losses, fills
+    and densification statistics; the gradients within 1e-6 of their
+    largest entry)."""
+    p = scene(sh_degree=1, seed=2)
+    cams = jcams()
+    gt = np.random.default_rng(7).uniform(0, 1, (2, 32, 32, 4)).astype(np.float32)
+    moments = adam_moments(p, 1, mu_scale=0.0)
+    reg = (5e-2 * 20, 1e-2 * 2000)
+
+    mj = JGSplatter(sh_degree=1, rasterize_mode="2dgs", background_color="black",
+                    camera_batching="vmap")
+    trainer_j = JTrainer(JConfig(batch_size=2), mj, dataset_size=2)
+    state = trainer_j.init_state(jsplats.Splats(**{k: jnp.asarray(v) for k, v in p.items()}))
+    state["opt_state"] = jax_opt_state(trainer_j, state["params"], moments)
+    new_j, metrics_j = trainer_j.train_step(state, cams, jnp.asarray(gt), jax.random.key(0), 1,
+                                            reg_weights=reg)
+    out = {}
+    for batching in ("map", "vmap"):
+        mt = GSplatter(sh_degree=1, rasterize_mode="2dgs", background_color="black",
+                       camera_batching=batching, device="cpu")
+        trainer_t = GSplatTrainer(GSplatTrainerConfig(batch_size=2), mt, dataset_size=2)
+        trainer_t.init_state(splats_from_numpy(p))
+        adam_from_numpy(trainer_t.optimizers, moments)
+        m = trainer_t.train_step(cameras_from_jax(cams), t(gt), max_sh_degree=1,
+                                 reg_weights=reg)
+        out[batching] = (m, trainer_t)
+    (m0, tr0), (m1, tr1) = out["map"], out["vmap"]
+    assert int(m1["nonfinite_grads"]) == 0
+    assert 0 < float(m1["pair_fill"]) <= 1 and 0 < float(m1["tile_fill"]) <= 1
+    for k in ("loss", "psnr", "normal_loss", "distort_loss", "pair_fill", "tile_fill"):
+        assert torch.equal(m1[k], m0[k]), k
+    assert torch.equal(tr1.xys_grad_norm, tr0.xys_grad_norm)
+    assert torch.equal(tr1.vis_counts, tr0.vis_counts)
+    for k in FIELDS:
+        g0, g1 = n(tr0.params[k].grad), n(tr1.params[k].grad)
+        np.testing.assert_allclose(g1, g0, atol=1e-6 * np.abs(g0).max(), rtol=0, err_msg=k)
+
+    np.testing.assert_allclose(float(m1["loss"]), float(metrics_j["loss"]), rtol=1e-4)
+    np.testing.assert_allclose(float(m1["psnr"]), float(metrics_j["psnr"]), atol=1e-2)
+    close_grads("xys_grad_norm", n(tr1.xys_grad_norm), new_j["xys_grad_norm"])
+    np.testing.assert_array_equal(n(tr1.vis_counts), np.asarray(new_j["vis_counts"]))
+    for k in FIELDS:
+        grad_j = np.asarray(new_j["opt_state"][k][0].mu) / (1.0 - 0.9)
+        assert np.abs(grad_j).max() > 0, k
+        close_grads(f"{k} grad", n(tr1.params[k].grad), grad_j)

@@ -62,37 +62,47 @@ def test_textures_match_jax():
     uv = rng.uniform(-0.1, 1.1, size=(50, 2)).astype(np.float32)
     dirs = rng.normal(size=(60, 3)).astype(np.float32)
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-    np.testing.assert_allclose(n(textures.Texture2D(t(img)).sample(t(uv))),
-                               np.asarray(jtex.Texture2D(data=jnp.asarray(img)).sample(uv)),
-                               atol=1e-5)
-    lat_t, lat_j = textures.TextureLatLng(t(img)), jtex.TextureLatLng(data=jnp.asarray(img))
-    np.testing.assert_allclose(n(lat_t.sample(t(dirs))), np.asarray(lat_j.sample(dirs)),
-                               atol=1e-5)
-    pdf_t, pdf_j = lat_t.compute_pdf(), lat_j.compute_pdf()
-    for k in ("pdf", "rows", "cols"):
-        np.testing.assert_allclose(n(getattr(pdf_t, k)), np.asarray(getattr(pdf_j, k)),
-                                   atol=1e-6, err_msg=k)
-    cube_t, cube_j = lat_t.as_cubemap(16), lat_j.as_cubemap(16)
-    np.testing.assert_allclose(n(cube_t.data), np.asarray(cube_j.data), atol=1e-5)
-    np.testing.assert_allclose(n(cube_t.sample(t(dirs))), np.asarray(cube_j.sample(dirs)),
-                               atol=1e-5)
-    np.testing.assert_allclose(n(cube_t.downsample().data),
-                               np.asarray(cube_j.downsample().data), atol=1e-5)
-    np.testing.assert_allclose(n(cube_t.as_latlng(24, 12).data),
-                               np.asarray(cube_j.as_latlng(24, 12).data), atol=1e-5)
-    cam = camera()
-    np.testing.assert_allclose(n(cube_t.render(cameras_from_jax(cam))),
-                               np.asarray(cube_j.render(cam)), atol=1e-5)
-    # the split-sum texture: the JAX defaults (sampled GGX, bilinear, trilinear)
-    ss_t = cube_t.as_splitsum(num_samples=16)
-    ss_j = cube_j.as_splitsum(num_samples=16)
-    np.testing.assert_allclose(n(ss_t.base), np.asarray(ss_j.base), atol=1e-4)
-    for mt, mj in zip(ss_t.mips, ss_j.mips, strict=True):
-        np.testing.assert_allclose(n(mt), np.asarray(mj), atol=1e-4)
     normals = np.roll(dirs, 1, axis=0)
     rough = rng.uniform(0.05, 1.0, size=(60, 1)).astype(np.float32)
-    for a, b in zip(ss_t.sample(t(normals), t(dirs), t(rough)),
-                    ss_j.sample(normals, dirs, rough), strict=True):
+    cam = camera()
+
+    @jax.jit
+    def jax_side(img, uv, dirs, normals, rough):
+        """Every JAX texture function of the test in one compiled program."""
+        lat = jtex.TextureLatLng(data=img)
+        pdf = lat.compute_pdf()
+        cube = lat.as_cubemap(16)
+        return {"tex2d": jtex.Texture2D(data=img).sample(uv), "latlng": lat.sample(dirs),
+                "pdf": pdf.pdf, "rows": pdf.rows, "cols": pdf.cols, "cube": cube.data,
+                "cube_sample": cube.sample(dirs), "down": cube.downsample().data,
+                "as_latlng": cube.as_latlng(24, 12).data, "render": cube.render(cam)}
+
+    want = jax_side(img, uv, dirs, normals, rough)
+    # the split-sum texture, eagerly (the JAX defaults: sampled GGX,
+    # bilinear, trilinear): compiled whole, XLA moves a few texel lookups
+    ss = jtex.TextureLatLng(data=jnp.asarray(img)).as_cubemap(16).as_splitsum(num_samples=16)
+    want.update(ss_base=ss.base, ss_mips=ss.mips, ss_sample=ss.sample(normals, dirs, rough))
+    np.testing.assert_allclose(n(textures.Texture2D(t(img)).sample(t(uv))), want["tex2d"],
+                               atol=1e-5)
+    lat_t = textures.TextureLatLng(t(img))
+    np.testing.assert_allclose(n(lat_t.sample(t(dirs))), want["latlng"], atol=1e-5)
+    pdf_t = lat_t.compute_pdf()
+    for k in ("pdf", "rows", "cols"):
+        np.testing.assert_allclose(n(getattr(pdf_t, k)), np.asarray(want[k]), atol=1e-6,
+                                   err_msg=k)
+    cube_t = lat_t.as_cubemap(16)
+    np.testing.assert_allclose(n(cube_t.data), want["cube"], atol=1e-5)
+    np.testing.assert_allclose(n(cube_t.sample(t(dirs))), want["cube_sample"], atol=1e-5)
+    np.testing.assert_allclose(n(cube_t.downsample().data), want["down"], atol=1e-5)
+    np.testing.assert_allclose(n(cube_t.as_latlng(24, 12).data), want["as_latlng"], atol=1e-5)
+    np.testing.assert_allclose(n(cube_t.render(cameras_from_jax(cam))), want["render"],
+                               atol=1e-5)
+    ss_t = cube_t.as_splitsum(num_samples=16)
+    np.testing.assert_allclose(n(ss_t.base), want["ss_base"], atol=1e-4)
+    for mt, mj in zip(ss_t.mips, want["ss_mips"], strict=True):
+        np.testing.assert_allclose(n(mt), np.asarray(mj), atol=1e-4)
+    for a, b in zip(ss_t.sample(t(normals), t(dirs), t(rough)), want["ss_sample"],
+                    strict=True):
         np.testing.assert_allclose(n(a), np.asarray(b), atol=1e-4)
 
 
