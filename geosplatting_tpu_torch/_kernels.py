@@ -9,11 +9,11 @@ Nothing here runs at import time.
 
 Each kernel wrapper adds one to ``launches[<kernel>]`` right after it
 launches its kernel, and nowhere else, so a run can show that its main path
-went through the kernels.
+went through the kernels; ``launches`` is the counter registry's
+(``counters``).
 """
 from __future__ import annotations
 
-import collections
 import ctypes
 import hashlib
 import os
@@ -23,6 +23,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from .counters import launches
 
 _PKG = Path(__file__).resolve().parent
 SOURCE_DIR = _PKG / "csrc"
@@ -34,7 +36,6 @@ NVCC_FLAGS = (
 
 KERNELS = ("k1_chunk_products", "k1_composite_fwd", "k2_chunk_suffix", "k2_composite_bwd",
            "k3_cumsum_rows")
-launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -43,7 +43,7 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
-from .. import _kernels
+from .. import _kernels, counters
 from ..graphics import gmath
 from ..graphics.cameras import Cameras
 from ..graphics.mesh import TriangleMesh
@@ -329,6 +329,8 @@ class GeoSplatterDefer(nn.Module):
             hw = cam.height * cam.width
             arm = torch.cat((torch.zeros_like(frag_rough), frag_rough, frag_metal), -1)
             draws_i = draws[i] if draws is not None else self.draw_shade(cam, generator, nsx)
+            if counters.recording():
+                counters.count("shade.covered_points", (alpha > 0).sum())
             diff, spec, resi = es.env_shade(
                 frag_pos.reshape(hw, 3), frag_n.reshape(hw, 3), camera_pos,
                 frag_kd.reshape(hw, 3), arm.reshape(hw, 3), light, draws_i,

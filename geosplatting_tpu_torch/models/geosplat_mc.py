@@ -32,7 +32,7 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
-from .. import _kernels
+from .. import _kernels, counters
 from ..graphics import flexicubes as fc
 from ..graphics import gmath
 from ..graphics.cameras import Cameras
@@ -291,6 +291,8 @@ class GeoSplatterMC(nn.Module):
             bend = (attrs.normals.detach() * camera_lookat).sum(-1, keepdim=True) > 1e-3
             frag_n = torch.where(bend, -attrs.normals, attrs.normals)
             draws_i = draws[i] if draws is not None else self.draw_shade(generator)
+            if counters.recording():
+                counters.count("shade.covered_points", valid.sum())
             diff, spec, resi = es.env_shade(
                 mc_positions, frag_n, camera_pos, attrs.kd, arm, light, draws_i,
                 visibility_fn=vis_fn, shadow_scale=self.shadow_scale,

@@ -34,6 +34,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from .. import _kernels
 from .projection import Projected
@@ -585,20 +586,21 @@ class _CompositePairs(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_color, g_alpha, g_depth):
-        pairs, t_final, n_contrib, prod = ctx.saved_tensors
-        bins, grid, chunks = ctx.bins, ctx.grid, ctx.chunks
-        channels = g_color.shape[-1]
-        grad_out = torch.cat(
-            (g_color.transpose(1, 2), g_depth[:, None, :], g_alpha[:, None, :]), 1
-        ).contiguous()
-        suffix = None if prod is None else chunk_suffix(
-            pairs, bins.seg_start, grid, channels, chunks, prod, grad_out, n_contrib)
-        d_sorted = composite_bwd(pairs, bins.seg_start, grid, channels, grad_out,
-                                 t_final, n_contrib, pairs.shape[0], chunks, prod, suffix)
-        # generation order is gaussian-major: one contiguous run per gaussian
-        d_pair = d_sorted[bins.sorted_row_of_slot]
-        d_g = contiguous_segment_sum(d_pair, bins.gs_start, bins.gs_count)[bins.gs_inv]
-        return (d_g[:, 0:2], d_g[:, 2:5], d_g[:, 5], d_g[:, HDR:], d_g[:, 6], None, None)
+        with record_function("rasterize.backward"):
+            pairs, t_final, n_contrib, prod = ctx.saved_tensors
+            bins, grid, chunks = ctx.bins, ctx.grid, ctx.chunks
+            channels = g_color.shape[-1]
+            grad_out = torch.cat(
+                (g_color.transpose(1, 2), g_depth[:, None, :], g_alpha[:, None, :]), 1
+            ).contiguous()
+            suffix = None if prod is None else chunk_suffix(
+                pairs, bins.seg_start, grid, channels, chunks, prod, grad_out, n_contrib)
+            d_sorted = composite_bwd(pairs, bins.seg_start, grid, channels, grad_out,
+                                     t_final, n_contrib, pairs.shape[0], chunks, prod, suffix)
+            # generation order is gaussian-major: one contiguous run per gaussian
+            d_pair = d_sorted[bins.sorted_row_of_slot]
+            d_g = contiguous_segment_sum(d_pair, bins.gs_start, bins.gs_count)[bins.gs_inv]
+            return (d_g[:, 0:2], d_g[:, 2:5], d_g[:, 5], d_g[:, HDR:], d_g[:, 6], None, None)
 
 
 def composite_pairs(bins: PairBins, grid: TileGrid, means2d, conics, opacities,

@@ -23,6 +23,13 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from .. import counters
+
+
+# the live ray-steps are counted on every 64th ray: counting all of them cost
+# 1.3-1.6 % of the trace's device time on an H100
+LIVE_STRIDE = 64
+
 
 def _pack_cells(grid3d: torch.Tensor) -> torch.Tensor:
     """[Z+1, Y+1, X+1] vertex grid -> [Z*Y*X, 8] per-cell corner rows;
@@ -97,7 +104,11 @@ def make_sdf_visibility(
     """Returns ``vis(origins [M, 3], dirs [M, 3]) -> [M]``, the soft
     visibility in [0, 1] (1 = unoccluded) after ``num_steps`` sphere-tracing
     steps from ``t_start`` up to ``t_max`` = 4 scale, each at least
-    scale / num_steps / 2 long."""
+    scale / num_steps / 2 long. Every ray takes every step; while a profiler
+    records, ``vis`` counts them (``sdf_trace.ray_steps``) and those taken
+    by a ray not yet settled (``sdf_trace.live_ray_steps``, see
+    ``counters``), the latter on every ``LIVE_STRIDE``-th ray, scaled to
+    all of them."""
     t_max = 4.0 * scale
     min_step = scale / num_steps * 0.5
     sdf = sdf.detach()
@@ -119,10 +130,20 @@ def make_sdf_visibility(
     def vis(origins: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
         t = torch.full(origins.shape[:-1], t_start, device=origins.device)
         v = torch.ones(origins.shape[:-1], device=origins.device)
+        live = [] if counters.recording() else None
         for _ in range(num_steps):
+            if live is not None:
+                # t <= t_max and v >= 0: the minimum is 0 once the ray is settled
+                tk, vk = t.reshape(-1)[::LIVE_STRIDE], v.reshape(-1)[::LIVE_STRIDE]
+                live.append(torch.count_nonzero(torch.minimum(t_max - tk, vk)))
             d = sample_packed(origins + dirs * t[..., None])
             v = torch.minimum(v, torch.clamp(softness * d / torch.clamp(t, min=1e-4), 0.0, 1.0))
             t = torch.clamp(t + torch.clamp(d, min=min_step), max=t_max)
+        if live is not None:
+            m = t.numel()
+            counters.count("sdf_trace.ray_steps", m * num_steps)
+            counters.count("sdf_trace.live_ray_steps",
+                           torch.stack(live).sum() * m // len(range(0, m, LIVE_STRIDE)))
         return torch.clamp(v, 0.0, 1.0)
 
     return vis

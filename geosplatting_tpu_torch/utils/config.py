@@ -5,7 +5,9 @@ writes a (nested) dataclass instance as a Python script that rebuilds it,
 ``load_dataclass`` runs such a script, and ``run_task_group`` turns named
 task presets into subcommands whose fields are ``--dotted.path`` flags.
 Task-runtime flags: ``--profiling PATH`` (cProfile stats), ``--trace DIR``
-(a ``torch.profiler`` Chrome trace), ``--auto-breakpoint`` (pdb post-mortem
+(a ``torch.profiler`` Chrome trace, ``trace.json``, and beside it the port's
+counters' totals over the traced run, ``counters.json``: see
+``geosplatting_tpu_torch.counters``), ``--auto-breakpoint`` (pdb post-mortem
 on a crash), ``--detach`` (run in a detached subprocess, logging to
 ``--detach-log``) and ``--join-timeout SECONDS``.
 """
@@ -184,12 +186,17 @@ def run_task_group(tasks: dict[str, Any], argv: list[str] | None = None) -> Any:
     def _run():
         if trace is None:
             return task.run()
+        import json
+
         import torch
+
+        from .. import counters
 
         with torch.profiler.profile() as prof:
             result = task.run()
         Path(trace).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(Path(trace) / "trace.json"))
+        (Path(trace) / "counters.json").write_text(json.dumps(counters.totals(), indent=1))
         return result
 
     try:
