@@ -6,7 +6,9 @@
 Phases, one line each (any failed check raises, so the exit code is not 0):
 1. toolchain: torch / CUDA / nvcc versions, the card, and the kernel build
    from csrc/ with ptxas' register / shared-memory / spill report;
-2. K3 (prefix sum) against torch.cumsum at [1.4M, 10];
+2. K3 (prefix sum) against torch.cumsum at [1.4M, 10], and K4 (the SDF
+   sphere trace) against its plain version at the benchmark cells' trace
+   (grid 96, scale 0.8, 2^23 rays, 24 steps), with both versions' times;
 3. K1 / K2 (compositing forward / backward, two passes each over chunks of
    each tile's pairs) against their plain versions on a seeded 2k-Gaussian
    scene at 128x128, 16x16 and 16x8 tiles and 32-pair chunks; then the main
@@ -444,9 +446,9 @@ def toolchain(kernels) -> str:
           max_registers=max((r.get("registers", 0) for r in report), default=0),
           spill_bytes=sum(r["spill_stores"] + r["spill_loads"] for r in report),
           ptxas_c3=shown, ptxas_c14=shown_c14)
-    # K1's two passes and combine and K2's two passes for C = 1..16, and K3
-    if len(report) != 5 * 16 + 1:
-        raise RuntimeError(f"expected 81 compiled kernels in the ptxas report, got {report}")
+    # K1's two passes and combine and K2's two passes for C = 1..16, K3 and K4
+    if len(report) != 5 * 16 + 2:
+        raise RuntimeError(f"expected 82 compiled kernels in the ptxas report, got {report}")
     return smi
 
 
@@ -470,6 +472,72 @@ def check_k3(device, gen) -> dict:
     if not err_k <= 1e-5:
         raise AssertionError(f"K3 error {err_k} > 1e-5 of the running |prefix|")
     return {"max_abs_err": max_abs}
+
+
+# FP32 operations of one sphere-trace step of one ray (benchmark/opcount.py)
+TRACE_OPS_PER_STEP = 88
+
+
+def check_sdf_trace(device, gen) -> dict:
+    """K4 against its plain version at the benchmark cells' trace: grid 96,
+    scale 0.8, the stage-1 SDF sphere of radius 0.45, a stage-2 batch of
+    2^23 rays from a shell about it, 24 steps. Raises past max |dv| 1e-4,
+    mean 1e-7, or where the live ray-steps (every ray) differ. Returns the
+    errors, the counts, the card ms a launch, its bound (the greater of the
+    bytes at 3.35 TB/s and the live ray-steps' operations at 67 TFLOP/s)
+    and the plain version's ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from geosplatting_tpu_torch import _kernels, counters
+    from geosplatting_tpu_torch.ops import sdf_visibility as sv
+
+    r, scale, steps, n = 96, 0.8, 24, 1 << 23
+    a = (torch.arange(r + 1.0, device=device) / r * 2 - 1) * scale
+    z, y, x = torch.meshgrid(a, a, a, indexing="ij")
+    sdf = (torch.sqrt(x * x + y * y + z * z) - 0.45).reshape(-1)
+    unit = lambda: torch.nn.functional.normalize(  # noqa: E731
+        torch.randn((n, 3), generator=gen, device=device), dim=-1)
+    dirs = unit()
+    origins = unit() * (0.44 + 0.1 * torch.rand((n, 1), generator=gen, device=device))
+    vis = sv.make_sdf_visibility(sdf, (r,) * 3, scale, num_steps=steps)
+    plain = sv.make_sdf_visibility_plain(sdf, (r,) * 3, scale, num_steps=steps)
+    stride, sv.LIVE_STRIDE = sv.LIVE_STRIDE, 1
+    try:
+        totals = []
+        with profile(activities=[ProfilerActivity.CPU]):
+            for fn in (vis, plain):
+                counters.reset()
+                totals.append((fn(origins, dirs), counters.totals()))
+        counters.reset()
+    finally:
+        sv.LIVE_STRIDE = stride
+    (got, kern), (want, ref) = totals
+    diff = (got - want).abs()
+    max_abs, mean_abs = float(diff.max()), float(diff.mean())
+    launches = _kernels.launches["sdf_trace"]
+    card_ms = cuda_ms(lambda: vis(origins, dirs), 10)
+    if _kernels.launches["sdf_trace"] - launches < 11:
+        raise AssertionError("K4 did not launch once a call")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain(origins, dirs)
+    end.record()
+    end.synchronize()
+    live = kern["sdf_trace.live_ray_steps"]
+    bound, by = bound_ms(n * (6 + 1) * 4 + r ** 3 * 8 * 4, live * TRACE_OPS_PER_STEP)
+    row = {"shape": [n, 3], "grid": r, "steps": steps, "max_abs_err": max_abs,
+           "mean_abs_err": mean_abs, "bit_equal_share": float((got == want).float().mean()),
+           "ray_steps": kern["sdf_trace.ray_steps"], "live_ray_steps": live,
+           "plain_live_ray_steps": ref["sdf_trace.live_ray_steps"],
+           "issued_ray_steps": kern["sdf_trace.issued_ray_steps"], "card_ms": card_ms,
+           "bound_ms": bound, "bound_by": by, "plain_ms": start.elapsed_time(end),
+           "tol": {"max": 1e-4, "mean": 1e-7}}
+    phase("sdf_trace_vs_plain", **row)
+    if not (max_abs <= 1e-4 and mean_abs <= 1e-7 and live == ref["sdf_trace.live_ray_steps"]
+            and live <= row["issued_ray_steps"] <= row["ray_steps"]):
+        raise AssertionError(f"K4 against its plain version: {row}")
+    return row
 
 
 def small_scene(device, gen, num=2000, width=128, height=128):
@@ -867,7 +935,7 @@ def train_slice(device, seed, kernels) -> tuple[dict, dict]:
     phase("slice_config", **SLICE, max_render_faces=model.max_render_faces,
           parameters=sum(p.numel() for p in model.parameters()))
 
-    totals = {k: 0 for k in kernels.KERNELS}
+    totals = {k: 0 for k in kernels.RASTER_KERNELS}
     # step 0 samples the vertices (warm-up), steps from 200 the faces
     face_seconds, steps = [], [0, 200, 201, 202]
     recorders = [Recorder(rp, "composite_bwd"), Recorder(sr, "cumsum_rows")]
@@ -883,7 +951,7 @@ def train_slice(device, seed, kernels) -> tuple[dict, dict]:
         m = trainer.train_step(cams, gt, float(step), sampling=sampling, generator=gen)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = {k: kernels.launches[k] for k in kernels.KERNELS}
+        counts = {k: kernels.launches[k] for k in kernels.RASTER_KERNELS}
         metrics = {k: float(v) for k, v in m.items()}
         phase("train_step", step=step, sampling=sampling, seconds=round(seconds, 4),
               launches=counts, **{k: metrics[k] for k in (
@@ -893,7 +961,7 @@ def train_slice(device, seed, kernels) -> tuple[dict, dict]:
             raise AssertionError(f"non-finite loss at step {step}: {metrics}")
         if metrics["nonfinite_grads"] != 0 or not metrics["pair_fill"] <= 1.0:
             raise AssertionError(f"step {step}: {metrics}")
-        if not (all(counts[k] == batch for k in kernels.KERNELS[:4])
+        if not (all(counts[k] == batch for k in kernels.RASTER_KERNELS[:4])
                 and counts["k3_cumsum_rows"] >= batch):
             raise AssertionError(f"step {step}: kernel launches {counts} for {batch} cameras")
         for k in totals:
@@ -1094,7 +1162,7 @@ def product(device, seed, kernels, tmp: Path) -> dict:
                                     num_steps=PRODUCT["resume_to"])
         out2 = again.run(resume_dir=run_dir)
         runs.append(out2)
-    launches = {k: kernels.launches[k] for k in kernels.KERNELS}
+    launches = {k: kernels.launches[k] for k in kernels.RASTER_KERNELS}
     log = (run_dir / "log.txt").read_text()
     files = sorted(str(p.relative_to(run_dir)) for p in run_dir.rglob("*") if p.is_file())
     exported = load_export(run_dir)
@@ -1138,7 +1206,7 @@ def product(device, seed, kernels, tmp: Path) -> dict:
             and not mismatched and not extra and summary["resumed"]
             and f"step {PRODUCT['resume_to']}:" in log and need <= set(files)
             and any(f.startswith("dump/val/") for f in files)
-            and all(launches[k] > 0 for k in kernels.KERNELS)):
+            and all(launches[k] > 0 for k in kernels.RASTER_KERNELS)):
         raise AssertionError(f"the product path failed a check: {summary}")
     return summary
 
@@ -1464,7 +1532,7 @@ def gsplat_bench(device, seed, kernels) -> tuple[dict, dict]:
     trainer.init_state(splats)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    seconds, per_step, totals = [], [], {k: 0 for k in kernels.KERNELS}
+    seconds, per_step, totals = [], [], {k: 0 for k in kernels.RASTER_KERNELS}
     recorders = [Recorder(rp, "composite_bwd"), Recorder(sr, "cumsum_rows")]
     n_steps = c["warmup_steps"] + c["timed_steps"]
     for i in range(n_steps):
@@ -1478,13 +1546,13 @@ def gsplat_bench(device, seed, kernels) -> tuple[dict, dict]:
         m = trainer.train_step(cams, gt, max_sh_degree=None, generator=gen)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = {k: kernels.launches[k] for k in kernels.KERNELS}
+        counts = {k: kernels.launches[k] for k in kernels.RASTER_KERNELS}
         metrics = {k: float(v) for k, v in m.items()}
         per_step.append({**metrics, "seconds": dt, "timed": timed})
         if not (math.isfinite(metrics["loss"]) and metrics["nonfinite_grads"] == 0
                 and metrics["pair_fill"] <= 1.0):
             raise AssertionError(f"gsplat step {i}: {metrics}")
-        if not all(counts[k] == b for k in kernels.KERNELS):
+        if not all(counts[k] == b for k in kernels.RASTER_KERNELS):
             raise AssertionError(f"gsplat step {i}: kernel launches {counts} for {b} cameras")
         if timed:
             seconds.append(dt)
@@ -1617,7 +1685,7 @@ def gsplat_task(device, seed, kernels, scene: Path) -> dict:
             again = dataclasses.replace(load_dataclass(run_dir / "task.py"),
                                         num_steps=c["task_resume_to"])
             runs.append(again.run(resume_dir=run_dir))
-    launches = {k: kernels.launches[k] for k in kernels.KERNELS}
+    launches = {k: kernels.launches[k] for k in kernels.RASTER_KERNELS}
     log = (run_dir / "log.txt").read_text()
     exported = load_export(run_dir)
     ckpt = torch.load(run_dir / "ckpts" / f"{c['task_resume_to']}.pt", map_location="cpu")
@@ -1642,7 +1710,7 @@ def gsplat_task(device, seed, kernels, scene: Path) -> dict:
             and all(math.isfinite(v) for v in summary["val_psnr"])
             and summary["resumed"] and f"step {c['task_resume_to']}:" in log
             and not mismatched and sorted(exported) == sorted(params)
-            and all(launches[k] > 0 for k in kernels.KERNELS)):
+            and all(launches[k] > 0 for k in kernels.RASTER_KERNELS)):
         raise AssertionError(f"the 3DGS task failed a check: {summary}")
     return summary
 
@@ -1716,7 +1784,7 @@ def prior_train(device, seed, kernels, hash_field: bool) -> tuple[dict, dict]:
     deform0 = model.deform.detach().clone()
     n_steps = c["hash_steps"] if hash_field else c["warmup_steps"] + c["timed_steps"]
     n_warm = 0 if hash_field else c["warmup_steps"]
-    per_step, seconds, totals = [], [], {k: 0 for k in kernels.KERNELS}
+    per_step, seconds, totals = [], [], {k: 0 for k in kernels.RASTER_KERNELS}
 
     def step(i):
         idx = (torch.arange(b, device=device) + i * b) % c["cameras"]
@@ -1726,13 +1794,13 @@ def prior_train(device, seed, kernels, hash_field: bool) -> tuple[dict, dict]:
         m = trainer.train_step(cams[idx], gt[idx], generator=gen)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = {k: kernels.launches[k] for k in kernels.KERNELS}
+        counts = {k: kernels.launches[k] for k in kernels.RASTER_KERNELS}
         metrics = {k: float(v) for k, v in m.items()}
         per_step.append({**metrics, "seconds": dt, "launches": counts})
         if not (math.isfinite(metrics["loss"]) and math.isfinite(metrics["reg"])
                 and metrics["nonfinite_grads"] == 0 and metrics["pair_fill"] <= 1.0):
             raise AssertionError(f"prior step {i} (hash={hash_field}): {metrics}")
-        if not all(counts[k] == b for k in kernels.KERNELS):
+        if not all(counts[k] == b for k in kernels.RASTER_KERNELS):
             raise AssertionError(f"prior step {i}: kernel launches {counts} for {b} cameras")
         return dt, counts
 
@@ -1824,7 +1892,7 @@ def prior_task(device, seed, kernels, scene: Path, tmp: Path) -> dict:
                                         num_steps=c["task_resume_to"])
             runs.append(again.run(resume_dir=run_dir))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    launches = {k: kernels.launches[k] for k in kernels.KERNELS}
+    launches = {k: kernels.launches[k] for k in kernels.RASTER_KERNELS}
     log = (run_dir / "log.txt").read_text()
     export = prior_export_check(run_dir, base, c["task_resume_to"])
     per_step = [{k: float(m[k]) for k in ("loss", "reg", "nonfinite_grads", "pair_fill",
@@ -1846,7 +1914,7 @@ def prior_task(device, seed, kernels, scene: Path, tmp: Path) -> dict:
             and all(math.isfinite(v) for v in summary["val_psnr"])
             and (summary["resumed"] or len(runs) == 1)
             and f"step {c['task_resume_to']}:" in log
-            and export["export_ok"] and all(launches[k] > 0 for k in kernels.KERNELS)):
+            and export["export_ok"] and all(launches[k] > 0 for k in kernels.RASTER_KERNELS)):
         raise AssertionError(f"the prior task failed a check: {summary}")
     return summary
 
@@ -2035,7 +2103,7 @@ def gsplat2d_depth(device, seed, kernels) -> tuple[dict, dict]:
         covered = depth[..., 1:] > 0.5
         ((depth[..., :1] * w * covered).sum() / covered.sum()).backward()
         torch.cuda.synchronize()
-    launches = {k: kernels.launches[k] for k in kernels.KERNELS}
+    launches = {k: kernels.launches[k] for k in kernels.RASTER_KERNELS}
     channels = bwd.args[3]
     grad_out = bwd.args[4]
     summary.update(launches=launches,
@@ -2044,7 +2112,7 @@ def gsplat2d_depth(device, seed, kernels) -> tuple[dict, dict]:
                    means_grad_max=float(means.grad.abs().max()))
     if not (summary["depth_grad_max"] > 0 and summary["means_grad_finite"]
             and summary["means_grad_max"] > 0
-            and all(launches[k] > 0 for k in kernels.KERNELS)):
+            and all(launches[k] > 0 for k in kernels.RASTER_KERNELS)):
         raise AssertionError(f"the differentiated ED render failed a check: {summary}")
     return summary, {"bwd": bwd.args, "k3": k3.args}
 
@@ -2212,13 +2280,13 @@ class Launches(Timed):
         def wrapped(*args, **kw):
             self.kernels.reset_launches()
             out = inner(*args, **kw)
-            self.launches.append({k: self.kernels.launches[k] for k in self.kernels.KERNELS})
+            self.launches.append({k: self.kernels.launches[k] for k in self.kernels.RASTER_KERNELS})
             return out
 
         return wrapped
 
     def totals(self) -> dict:
-        return {k: sum(c[k] for c in self.launches) for k in self.kernels.KERNELS}
+        return {k: sum(c[k] for c in self.launches) for k in self.kernels.RASTER_KERNELS}
 
 
 def _rot_to_qvec(r):
@@ -2515,8 +2583,8 @@ def captures_stage1(device, seed, kernels, scene: Path, name: str, pairs_budget:
     if not (all(math.isfinite(m["loss"]) and math.isfinite(m["reg"])
                 and m["nonfinite_grads"] == 0 and m["pair_fill"] <= 1 and m["face_fill"] <= 1
                 for m in per_step)
-            and all(all(n[k] == b for k in kernels.KERNELS[:4])
-                    and all(n[k] >= b for k in kernels.KERNELS[4:]) for n in steps.launches)
+            and all(all(n[k] == b for k in kernels.RASTER_KERNELS[:4])
+                    and all(n[k] >= b for k in kernels.RASTER_KERNELS[4:]) for n in steps.launches)
             and len(per_step) == c["num_steps"] and math.isfinite(summary["val_psnr"])):
         raise AssertionError(f"the {name} run failed a check: {summary}")
     return summary, val.outputs
@@ -2816,8 +2884,8 @@ def quality_chain(device, seed, kernels) -> tuple[dict, dict]:
             "finite": all(math.isfinite(m["loss"]) and math.isfinite(m["splat_psnr"])
                           for m in per_step),
             "nonfinite_grads": sum(m["nonfinite_grads"] for m in per_step),
-            "once_per_camera": all(all(n[k] == b for k in kernels.KERNELS[:4])
-                                   and all(n[k] >= b for k in kernels.KERNELS[4:])
+            "once_per_camera": all(all(n[k] == b for k in kernels.RASTER_KERNELS[:4])
+                                   and all(n[k] >= b for k in kernels.RASTER_KERNELS[4:])
                                    for n in steps.launches),
             "launches": steps.totals(), "launches_per_step": b,
         }
@@ -3052,7 +3120,7 @@ def batched_slice(device, seed, kernels) -> tuple[dict, dict]:
             continue
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        totals, seconds = {k: 0 for k in kernels.KERNELS}, []
+        totals, seconds = {k: 0 for k in kernels.RASTER_KERNELS}, []
         recorders = [Recorder(rp, "composite_bwd"), Recorder(sr, "cumsum_rows")]
         steps = BATCHED["timed_steps"]
         for i, step in enumerate(steps):
@@ -3065,12 +3133,12 @@ def batched_slice(device, seed, kernels) -> tuple[dict, dict]:
             m = trainer.train_step(cams, gt, float(step), sampling="face", generator=gen)
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
-            counts = {k: kernels.launches[k] for k in kernels.KERNELS}
+            counts = {k: kernels.launches[k] for k in kernels.RASTER_KERNELS}
             metrics = {k: float(v) for k, v in m.items()}
             if not (math.isfinite(metrics["loss"]) and metrics["nonfinite_grads"] == 0
                     and metrics["pair_fill"] <= 1.0):
                 raise AssertionError(f"batched slice step {step}: {metrics}")
-            if not (all(counts[k] == batch for k in kernels.KERNELS[:4])
+            if not (all(counts[k] == batch for k in kernels.RASTER_KERNELS[:4])
                     and counts["k3_cumsum_rows"] >= batch):
                 raise AssertionError(f"batched slice step {step}: launches {counts}")
             for k in totals:
@@ -3131,7 +3199,7 @@ def batched_gsplat(device, seed, kernels) -> dict:
             m = trainer.train_step(cams, gt, max_sh_degree=None, generator=gen)
         out[batching] = {"rgba": rgba, "xys_grad_norm": trainer.xys_grad_norm.clone(),
                          "vis_counts": trainer.vis_counts.clone(), "loss": m["loss"]}
-    seconds, totals = [], {k: 0 for k in kernels.KERNELS}
+    seconds, totals = [], {k: 0 for k in kernels.RASTER_KERNELS}
     for i in range(c["warmup_steps"] + c["timed_steps"]):
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -3139,7 +3207,7 @@ def batched_gsplat(device, seed, kernels) -> dict:
         m = trainer.train_step(cams, gt, max_sh_degree=None, generator=gen)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = {k: kernels.launches[k] for k in kernels.KERNELS}
+        counts = {k: kernels.launches[k] for k in kernels.RASTER_KERNELS}
         if not (math.isfinite(float(m["loss"])) and float(m["nonfinite_grads"]) == 0
                 and float(m["pair_fill"]) <= 1.0 and all(counts[k] == b for k in counts)):
             raise AssertionError(f"vmap 3DGS step {i}: {m} {counts}")
@@ -3816,7 +3884,7 @@ def _rank_train(name: str, rank: int, device, seed, paths: dict, work: Path,
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     recorders = [Recorder(rp, "composite_bwd"), Recorder(sr, "cumsum_rows")]
     seconds, metrics, grads = [], [], None
-    launches = {k: 0 for k in _kernels.KERNELS}
+    launches = {k: 0 for k in _kernels.RASTER_KERNELS}
     with Timed(dp, "reduce_grads") as reduce:
         for i in range(2):
             record = name == "stage1" and rank == 0 and i == 1
@@ -3833,7 +3901,7 @@ def _rank_train(name: str, rank: int, device, seed, paths: dict, work: Path,
                 torch.cuda.synchronize()
                 seconds.append(time.perf_counter() - t0)
             metrics.append({k: float(v) for k, v in m.items()})
-            launches = {k: launches[k] + _kernels.launches[k] for k in _kernels.KERNELS}
+            launches = {k: launches[k] + _kernels.launches[k] for k in _kernels.RASTER_KERNELS}
             if i == 0 and rank == 0:
                 # copies: the next step reuses .grad and the statistics in place
                 grads = {k: p.grad.detach().clone().cpu()
@@ -4085,6 +4153,7 @@ def main() -> int:
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(args.seed)
     errors = {"k3": check_k3(device, gen)["max_abs_err"], **check_k1_k2(device, gen)}
+    check_sdf_trace(device, gen)
     check_render_card_vs_cpu(device, args.seed)
     seconds["kernel_checks"] = time.perf_counter() - t0
     t0 = time.perf_counter()

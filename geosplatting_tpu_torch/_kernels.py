@@ -34,8 +34,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNELS = ("k1_chunk_products", "k1_composite_fwd", "k2_chunk_suffix", "k2_composite_bwd",
-           "k3_cumsum_rows")
+# the rasterizer's kernels (K1-K3), launched for every camera rendered
+RASTER_KERNELS = ("k1_chunk_products", "k1_composite_fwd", "k2_chunk_suffix",
+                  "k2_composite_bwd", "k3_cumsum_rows")
+# and K4, the shading's SDF sphere trace
+KERNELS = (*RASTER_KERNELS, "sdf_trace")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +52,9 @@ _SIGNATURES = {
     "k2_composite_bwd": (_I, [_P, _P, _P, _P, *[_I] * 7, *[_P] * 6, _L, _P]),
     "k3_cumsum_rows": (_I, [_P, _P, _P, _L, _I, _P]),
     "k3_scratch_floats": (_L, [_L, _I]),
+    # origins, dirs, cells, out, counts, num_rays, rx, ry, rz, scale, inv_scale,
+    # t_start, t_max, min_step, softness, num_steps, stream
+    "sdf_trace": (_I, [*[_P] * 5, _L, *[_I] * 3, *[ctypes.c_float] * 6, _I, _P]),
     "geosplat_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -21,15 +21,21 @@ The counters and what counts them:
 - ``sdf_trace.ray_steps``: the ray-steps the SDF sphere trace
   (``ops.sdf_visibility.make_sdf_visibility``) computes, rays x steps.
 - ``sdf_trace.live_ray_steps``: those of them whose ray was unsettled at
-  the step's start (t < t_max and v > 0). It is counted on every 64th ray
-  (``ops.sdf_visibility.LIVE_STRIDE``) and scaled to all rays: an estimate
-  from a 64th of them. t and v are monotone, so a settled ray stays
-  settled, and its steps leave v as it is: v = 0 falls no further, and at
-  t_max a ray from inside the grid's box samples one point, 2.27 scale or
-  more from the box's centre and outside it, where an SDF positive on the
-  box keeps the step's term at 1.
+  the step's start (t < t_max and v > 0). The card's kernel (K4,
+  ``csrc/sdf_trace.cu``) counts them on every ray, exactly; the plain march
+  on every 64th ray (``ops.sdf_visibility.LIVE_STRIDE``), scaled to all
+  rays. t and v are monotone, so a settled ray stays settled: v = 0 falls
+  no further, and once t = t_max every step samples the same point, 2.27
+  scale or more from the box's centre for a ray from inside the grid's box.
+  That point is sampled once (the step that starts at t_max, not live): an
+  SDF positive on the box keeps the term there at 1, but a learnt SDF need
+  not be, so K4 stops a ray only after that sample, or after its v reached 0.
+- ``sdf_trace.issued_ray_steps``: the lane-steps K4's warps issued: per
+  warp, its lanes holding a ray times the steps of its longest ray; at
+  least the live steps (plus a ray's sample at t_max), at most the ray-steps.
+  The plain march counts none.
 
-Any other implementation of the sphere trace keeps both ``sdf_trace``
+Any other implementation of the sphere trace keeps the ``sdf_trace``
 counters with these meanings. ``--trace DIR`` (``utils.config``) writes the
 totals to ``counters.json``; the benchmark's per-layer metrics read them.
 """

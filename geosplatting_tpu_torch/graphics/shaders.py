@@ -161,7 +161,7 @@ def render_shadow(
     vis = make_sdf_visibility(sdf, resolution, scale)
     flat_pos = pos.reshape(-1, 3)
     v = vis(flat_pos + normals.reshape(-1, 3) * 1e-3,
-            ld.expand(flat_pos.shape)).reshape(pos.shape[:2] + (1,))
+            ld.expand(flat_pos.shape).contiguous()).reshape(pos.shape[:2] + (1,))
     lambert = torch.clamp((normals * ld).sum(-1, keepdim=True), min=0.0)
     rgb = (lambert * v * 0.85 + 0.15) * torch.where(hit[..., None], 1.0, 0.0)
     return _with_alpha(rgb.expand(*rgb.shape[:2], 3), hit)

@@ -5,7 +5,11 @@ Counterpart of ``geosplatting_tpu/ops/sdf_visibility.py`` (``_pack_cells``,
 number of sphere-tracing steps through the trilinearly interpolated SDF, one
 row-gather of a cell's 8 corners per step, with the distance to the grid's
 box added outside it. The trace is gradient-free (the SDF is detached): stage
-2 runs it under ``torch.no_grad``.
+2 runs it under ``torch.no_grad``. For an SDF on the card the march is the
+hand-written CUDA kernel K4 (``csrc/sdf_trace.cu``, one thread a ray, each
+ray stopped once its result can no longer change);
+``make_sdf_visibility_plain``, the plain PyTorch march, serves an SDF on the
+CPU and is the card's check.
 
 The mesh prior has no SDF: ``mesh_occupancy_grid`` deposits area-weighted
 surface samples into the nearest cells of an R^3 grid (a count, clipped to
@@ -23,11 +27,11 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from .. import counters
+from .. import _kernels, counters
 
 
-# the live ray-steps are counted on every 64th ray: counting all of them cost
-# 1.3-1.6 % of the trace's device time on an H100
+# the plain march counts the live ray-steps on every 64th ray: counting all
+# of them cost 1.3-1.6 % of its device time on an H100
 LIVE_STRIDE = 64
 
 
@@ -92,7 +96,7 @@ def sample_sdf_grid(
     return torch.where(d_box > 0, vals + d_box, vals)
 
 
-def make_sdf_visibility(
+def make_sdf_visibility_plain(
     sdf: torch.Tensor,
     resolution: tuple[int, int, int],
     scale: float,
@@ -101,14 +105,11 @@ def make_sdf_visibility(
     softness: float = 8.0,
     t_start: float = 0.02,
 ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
-    """Returns ``vis(origins [M, 3], dirs [M, 3]) -> [M]``, the soft
-    visibility in [0, 1] (1 = unoccluded) after ``num_steps`` sphere-tracing
-    steps from ``t_start`` up to ``t_max`` = 4 scale, each at least
-    scale / num_steps / 2 long. Every ray takes every step; while a profiler
-    records, ``vis`` counts them (``sdf_trace.ray_steps``) and those taken
-    by a ray not yet settled (``sdf_trace.live_ray_steps``, see
-    ``counters``), the latter on every ``LIVE_STRIDE``-th ray, scaled to
-    all of them."""
+    """Plain version of K4 (``make_sdf_visibility``): every ray takes every
+    step. While a profiler records, ``vis`` counts them
+    (``sdf_trace.ray_steps``) and those taken by a ray not yet settled
+    (``sdf_trace.live_ray_steps``, see ``counters``), the latter on every
+    ``LIVE_STRIDE``-th ray, scaled to all of them."""
     t_max = 4.0 * scale
     min_step = scale / num_steps * 0.5
     sdf = sdf.detach()
@@ -145,6 +146,64 @@ def make_sdf_visibility(
             counters.count("sdf_trace.live_ray_steps",
                            torch.stack(live).sum() * m // len(range(0, m, LIVE_STRIDE)))
         return torch.clamp(v, 0.0, 1.0)
+
+    return vis
+
+
+def make_sdf_visibility(
+    sdf: torch.Tensor,
+    resolution: tuple[int, int, int],
+    scale: float,
+    *,
+    num_steps: int = 24,
+    softness: float = 8.0,
+    t_start: float = 0.02,
+) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """Returns ``vis(origins [M, 3], dirs [M, 3]) -> [M]``, the soft
+    visibility in [0, 1] (1 = unoccluded) after ``num_steps`` sphere-tracing
+    steps from ``t_start`` up to ``t_max`` = 4 scale, each at least
+    scale / num_steps / 2 long.
+
+    K4 (``csrc/sdf_trace.cu``) for an SDF on the card: one launch a call,
+    each ray stopped once its result is settled, with the same result as
+    every step taken; the plain version (``make_sdf_visibility_plain``) only
+    for an SDF on the CPU. While a profiler records, the kernel counts
+    ``sdf_trace.ray_steps``, ``sdf_trace.live_ray_steps`` on every ray and
+    ``sdf_trace.issued_ray_steps`` (``counters``)."""
+    if sdf.device.type == "cpu":
+        return make_sdf_visibility_plain(sdf, resolution, scale, num_steps=num_steps,
+                                         softness=softness, t_start=t_start)
+    rx, ry, rz = resolution
+    cells = _pack_cells(sdf.detach().reshape(rz + 1, ry + 1, rx + 1))
+    _kernels.check_cuda_tensor(cells, "sdf_trace.sdf", torch.float32)
+    t_max = 4.0 * scale
+    min_step = scale / num_steps * 0.5
+    # the plain march's p / scale is p * (1 / scale) on the card, 1 / scale
+    # taken in float64 and rounded to float32 (as ctypes passes it)
+    inv_scale = 1.0 / scale
+
+    def vis(origins: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+        _kernels.check_cuda_tensor(origins, "sdf_trace.origins", torch.float32)
+        _kernels.check_cuda_tensor(dirs, "sdf_trace.dirs", torch.float32, tuple(origins.shape))
+        if origins.shape[-1:] != (3,) or origins.device != cells.device:
+            raise ValueError(f"sdf_trace: expected [..., 3] rays on {cells.device}, got "
+                             f"{tuple(origins.shape)} on {origins.device}")
+        out = torch.empty(origins.shape[:-1], device=origins.device)
+        m = out.numel()
+        counts = (torch.zeros(2, dtype=torch.int64, device=origins.device)
+                  if counters.recording() else None)
+        if m:
+            _kernels.launch(
+                "sdf_trace", origins.data_ptr(), dirs.data_ptr(), cells.data_ptr(),
+                out.data_ptr(), None if counts is None else counts.data_ptr(), m, rx, ry, rz,
+                scale, inv_scale, t_start, t_max, min_step, softness, num_steps,
+                _kernels.stream_of(origins),
+            )
+        if counts is not None:
+            counters.count("sdf_trace.ray_steps", m * num_steps)
+            counters.count("sdf_trace.live_ray_steps", counts[0])
+            counters.count("sdf_trace.issued_ray_steps", counts[1])
+        return out
 
     return vis
 

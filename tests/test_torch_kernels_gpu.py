@@ -22,6 +22,8 @@ from geosplatting_tpu_torch.ops.segment_rows import (
     contiguous_segment_sum, cumsum_rows, cumsum_rows_plain,
 )
 
+from .test_torch_sdf_trace import SDFS
+from .test_torch_sdf_trace import rays as trace_rays
 from .torch_parity import cuda_device, n, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.gpu
@@ -247,6 +249,70 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda_device):
     x = torch.randn((10, 3), device=cuda_device, dtype=torch.float64)
     with pytest.raises(ValueError):
         cumsum_rows(x)  # f64 on the card: no kernel, so it raises
+
+
+# --- K4, the SDF sphere trace --------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind,steps,r,scale", [
+    ("sphere", 24, 96, 0.8), ("sphere", 8, 96, 0.8), ("noisy", 24, 96, 0.8),
+    ("noisy", 8, 96, 0.8), ("noisy", 24, 128, 1.05)])
+def test_sdf_trace_matches_plain(cuda_device, monkeypatch, kind, steps, r, scale):
+    """K4 against the plain march on the card at a stage-2 batch: 2^23 rays,
+    grid 96, scale 0.8 (the benchmark cells' trace), and the Shiny Blender
+    preset's grid 128, scale 1.05. K4 rounds as the plain version does on
+    the card, operation by operation (bit-equal when measured); the stated
+    tolerance, max |dv| <= 1e-4 and mean <= 1e-7, leaves room for another
+    PyTorch's order of summation. The live ray-steps, counted on every ray,
+    are the plain recount's; the issued lane-steps lie between them and a
+    full march's."""
+    from geosplatting_tpu_torch import counters
+    from geosplatting_tpu_torch.ops import sdf_visibility as sv
+
+    rays = 1 << 23
+    sdf = SDFS[kind](r, scale, device=cuda_device)
+    origins, dirs = trace_rays(rays, cuda_device)
+    monkeypatch.setattr(sv, "LIVE_STRIDE", 1)
+    counts = []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for make in (sv.make_sdf_visibility, sv.make_sdf_visibility_plain):
+            counters.reset()
+            before = _kernels.launches["sdf_trace"]
+            out = make(sdf, (r,) * 3, scale, num_steps=steps)(origins, dirs)
+            counts.append((counters.totals(), _kernels.launches["sdf_trace"] - before, out))
+    counters.reset()
+    (kern, launched, got), (plain, plain_launched, want) = counts
+    assert (launched, plain_launched) == (1, 0)
+    diff = (got - want).abs()
+    assert float(diff.max()) <= 1e-4 and float(diff.mean()) <= 1e-7, (diff.max(), diff.mean())
+    assert kern["sdf_trace.ray_steps"] == plain["sdf_trace.ray_steps"] == rays * steps
+    assert kern["sdf_trace.live_ray_steps"] == plain["sdf_trace.live_ray_steps"]
+    assert kern["sdf_trace.live_ray_steps"] <= kern["sdf_trace.issued_ray_steps"] \
+        <= kern["sdf_trace.ray_steps"]
+    assert bool(((got >= 0) & (got <= 1)).all())
+
+
+def test_sdf_trace_one_launch_a_call_and_what_it_refuses(cuda_device):
+    from geosplatting_tpu_torch.ops.sdf_visibility import make_sdf_visibility
+
+    r = 8
+    sdf = SDFS["sphere"](r, device=cuda_device)
+    vis = make_sdf_visibility(sdf, (r,) * 3, 0.8)
+    origins, dirs = trace_rays(1000, cuda_device)
+    before = _kernels.launches["sdf_trace"]
+    got = vis(origins.reshape(10, 100, 3), dirs.reshape(10, 100, 3))
+    vis(origins, dirs)
+    assert got.shape == (10, 100) and _kernels.launches["sdf_trace"] == before + 2
+    for o, d in ((origins.double(), dirs.double()),               # another dtype
+                 (origins.t().contiguous().t(), dirs),            # not contiguous
+                 (origins, dirs[:, :1].expand(-1, 3)),            # a stride-0 view
+                 (origins.cpu(), dirs.cpu()),                     # not on the card
+                 (origins, dirs[:500])):                          # shapes differ
+        with pytest.raises(ValueError):
+            vis(o, d)
+    with pytest.raises(ValueError):
+        make_sdf_visibility(sdf.double(), (r,) * 3, 0.8)
+    assert _kernels.launches["sdf_trace"] == before + 2
 
 
 # --- stage 2 on the card against the CPU path -------------------------------------
@@ -538,7 +604,7 @@ def test_gsplat_step_card_vs_cpu(cuda_device):
                                background=torch.tensor([0.2, 0.5, 0.7], device=dev))
         out.append((trainer, {k: float(v) for k, v in m.items()},
                     {k: n(p.grad) for k, p in trainer.params.items() if p.grad is not None}))
-    assert all(_kernels.launches[k] == 2 for k in _kernels.KERNELS)
+    assert all(_kernels.launches[k] == 2 for k in _kernels.RASTER_KERNELS)
     (_, m_cpu, g_cpu), (trainer, m_gpu, g_gpu) = out
     assert m_gpu["nonfinite_grads"] == 0 and m_gpu["pair_fill"] <= 1
     for k in ("loss", "psnr", "pair_fill"):
@@ -647,7 +713,7 @@ def test_prior_step_card_vs_cpu(cuda_device, field):
             cams.to(dev), gt.to(dev), background=bg.to(dev), jitter_noise=jitter.to(dev),
             surface_draws=tuple(x.to(dev) for x in surface), draws=[d.to(dev) for d in draws])
         out.append((float(loss), float(reg), {k: n(p.grad) for k, p in m.named_parameters()}))
-    assert all(_kernels.launches[k] == 2 for k in _kernels.KERNELS)
+    assert all(_kernels.launches[k] == 2 for k in _kernels.RASTER_KERNELS)
     (l_cpu, r_cpu, g_cpu), (l_gpu, r_gpu, g_gpu) = out
     np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-3)
     np.testing.assert_allclose(r_gpu, r_cpu, rtol=1e-4)
@@ -688,7 +754,7 @@ def test_depth_render_kernels_match_plain(cuda_device, monkeypatch):
         (r * w.to(dev) * (a > 0.5)).sum().backward()
         grads.append([n(x.grad) for x in leaves])
     torch.cuda.synchronize()
-    assert all(_kernels.launches[k] == 1 for k in _kernels.KERNELS)
+    assert all(_kernels.launches[k] == 1 for k in _kernels.RASTER_KERNELS)
     pairs, seg_start, grid, channels, g = recorded[-1][:5]
     assert g.is_cuda and float(g[:, channels].abs().max()) > 0
     chunks = rp.chunk_list(seg_start, pairs.shape[0])
