@@ -13,11 +13,14 @@ reads them all at the end with one.
 
 The counters and what counts them:
 
-- ``shade.points``: the rows ``ops.envshade.env_shade`` shades (a shape).
+- ``shade.points``: the rows ``ops.envshade.env_shade`` shades, and the rows
+  of stage 1's split-sum shading (``models.geosplat.shade_colors_splitsum``),
+  once a camera (shapes).
 - ``shade.covered_points``: those of the rows that can reach the image, as
-  each caller knows them: stage 2 (``models.geosplat_mc``) its valid, not
-  padding, Gaussians; stage 3 (``models.geosplat_defer``) its pixels with
-  alpha > 0.
+  each caller knows them: stage 1 (``models.geosplat``) its Gaussians at or
+  over the compositing's alpha cutoff, and stage 2 (``models.geosplat_mc``)
+  its valid ones, both the Gaussians that are not padding; stage 3
+  (``models.geosplat_defer``) its pixels with alpha > 0.
 - ``sdf_trace.ray_steps``: the ray-steps the SDF sphere trace
   (``ops.sdf_visibility.make_sdf_visibility``) computes, rays x steps.
 - ``sdf_trace.live_ray_steps``: those of them whose ray was unsettled at
@@ -38,12 +41,17 @@ The counters and what counts them:
 Any other implementation of the sphere trace keeps the ``sdf_trace``
 counters with these meanings. ``--trace DIR`` (``utils.config``) writes the
 totals to ``counters.json``; the benchmark's per-layer metrics read them.
+
+``BackwardSpan`` marks a region's backward on autograd's thread as a span
+(``envshade.loop_backward``, ``geosplat.light_backward``); its callers make
+one only while ``recording()``.
 """
 from __future__ import annotations
 
 import collections
 
 import torch
+from torch.profiler import record_function
 
 launches: collections.Counter = collections.Counter()
 _host: collections.Counter = collections.Counter()
@@ -86,3 +94,59 @@ def reset() -> None:
     """Clears the counted names (``launches`` has ``_kernels.reset_launches``)."""
     _host.clear()
     _device.clear()
+
+
+class BackwardSpan:
+    """The range ``name`` on autograd's thread around the backward of a
+    region of the graph: it opens when the first gradient reaches the
+    region's output (``open_at``) and closes once the nodes of
+    ``first_out``'s part of the region with an edge out of it, the last to
+    run, have handed on every gradient they make for the region's
+    ``inputs`` (for a loop, ``first_out`` is its first step's output).
+    Hooks on the graph's nodes mark both ends; they read no gradient and
+    change none, so the gradients are an untraced run's bit for bit (an
+    identity ``autograd.Function`` on the inputs would sum an input's
+    gradients from inside and outside the region in another order). Every
+    differentiable tensor entering the region has to be among ``inputs``."""
+
+    def __init__(self, name: str, first_out: tuple, inputs: tuple):
+        # the nodes with an edge out of the region: to an input's node, or
+        # to a leaf input's gradient accumulator
+        stop = {x.grad_fn for x in inputs if x.grad_fn is not None}
+        todo = [x.grad_fn for x in first_out if x.grad_fn is not None]
+        seen, last = set(), []
+        while todo:
+            node = todo.pop()
+            if node in seen:
+                continue
+            seen.add(node)
+            leaves = False
+            for nxt, _ in node.next_functions:
+                if nxt is None:
+                    continue
+                if nxt in stop or type(nxt).__name__ == "AccumulateGrad":
+                    leaves = True
+                else:
+                    todo.append(nxt)
+            if leaves:
+                last.append(node)
+        self.name = name
+        self.pending = len(last)
+        self.range = None
+        for node in last:
+            node.register_hook(self._close)
+
+    def open_at(self, out: tuple) -> None:
+        for x in out:
+            if x.grad_fn is not None:
+                x.grad_fn.register_prehook(self._open)
+
+    def _open(self, grad_outputs):
+        if self.range is None:
+            self.range = record_function(self.name)
+            self.range.__enter__()
+
+    def _close(self, grad_inputs, grad_outputs):
+        self.pending -= 1
+        if self.pending == 0 and self.range is not None:
+            self.range.__exit__(None, None, None)

@@ -30,7 +30,7 @@ from torch import nn
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from .. import _kernels
+from .. import _kernels, counters
 from ..graphics import flexicubes as fc
 from ..graphics import gmath
 from ..graphics.cameras import Cameras
@@ -39,6 +39,7 @@ from ..graphics.splats import Splats
 from ..ops import cubemap as cm
 from ..ops.hashgrid import HashGridConfig, hashgrid_encode
 from ..ops.rasterize import camera_matrices, rasterize, rasterize_batched
+from ..ops.rasterize_pairs import MIN_ALPHA
 from ..ops.segment_rows import gather_rows
 from .encodings import TriplaneEncoding, triplane_features
 from .mlp import MLP
@@ -541,26 +542,39 @@ def shade_colors_splitsum(
     """Per-Gaussian split-sum GGX radiance. ``env_quality="fast"`` (training)
     takes the analytic FG term and the nearest environment lookup,
     ``"exact"`` the FG LUT and bilinear / trilinear lookups. Returns
-    (colors [N, 3], opacities [N])."""
+    (colors [N, 3], opacities [N]). Runs under the span ``geosplat.splitsum``;
+    while a profiler records, counts ``shade.points`` (the N rows) and
+    ``shade.covered_points`` (those at or over the compositing's alpha cutoff:
+    the valid Gaussians, not padding) and marks the backward of the colours
+    as ``geosplat.light_backward``."""
     if env_quality not in ("fast", "exact"):
         raise ValueError(f"env_quality: {env_quality!r}")
     fast = env_quality == "fast"
-    wo = gmath.safe_normalize(camera_pos - splats.means)
-    opacities = torch.sigmoid(splats.opacities[:, 0])
-    roughness = attrs.ks[:, 0:1] * (1 - min_roughness) + min_roughness
-    metallic = attrs.ks[:, 1:2] * max_metallic
-    specular = (1.0 - metallic) * 0.04 + attrs.kd * metallic
-    diffuse = attrs.kd * (1.0 - metallic)
-    n_dot_v = torch.clamp((attrs.normals * wo).sum(-1, keepdim=True), min=1e-6)
-    fg = cm.fg_analytic(n_dot_v, roughness) if fast else cm.sample_fg_lut(n_dot_v, roughness)
-    inv_wi = 2.0 * (wo * attrs.normals).sum(-1, keepdim=True) * attrs.normals - wo
-    _, l_spec = cm.sample_splitsum(
-        env_base, env_mips, attrs.normals, inv_wi, roughness, with_diffuse=False,
-        filter_mode="nearest" if fast else "bilinear",
-        mip_filter="nearest" if fast else "trilinear",
-    )
-    reflectance = specular * fg[:, 0:1] + fg[:, 1:2]
-    return diffuse + l_spec * reflectance, opacities
+    with record_function("geosplat.splitsum"):
+        wo = gmath.safe_normalize(camera_pos - splats.means)
+        opacities = torch.sigmoid(splats.opacities[:, 0])
+        roughness = attrs.ks[:, 0:1] * (1 - min_roughness) + min_roughness
+        metallic = attrs.ks[:, 1:2] * max_metallic
+        specular = (1.0 - metallic) * 0.04 + attrs.kd * metallic
+        diffuse = attrs.kd * (1.0 - metallic)
+        n_dot_v = torch.clamp((attrs.normals * wo).sum(-1, keepdim=True), min=1e-6)
+        fg = cm.fg_analytic(n_dot_v, roughness) if fast else cm.sample_fg_lut(n_dot_v, roughness)
+        inv_wi = 2.0 * (wo * attrs.normals).sum(-1, keepdim=True) * attrs.normals - wo
+        _, l_spec = cm.sample_splitsum(
+            env_base, env_mips, attrs.normals, inv_wi, roughness, with_diffuse=False,
+            filter_mode="nearest" if fast else "bilinear",
+            mip_filter="nearest" if fast else "trilinear",
+        )
+        reflectance = specular * fg[:, 0:1] + fg[:, 1:2]
+        colors = diffuse + l_spec * reflectance
+    if counters.recording():
+        counters.count("shade.points", opacities.shape[0])
+        counters.count("shade.covered_points", (opacities >= MIN_ALPHA).sum())
+        if colors.grad_fn is not None:
+            inputs = (splats.means, splats.opacities, attrs.kd, attrs.ks, attrs.normals,
+                      env_base, *env_mips)
+            counters.BackwardSpan("geosplat.light_backward", (colors,), inputs).open_at((colors,))
+    return colors, opacities
 
 
 def shade_splitsum(
@@ -698,10 +712,15 @@ class GeoSplatter(nn.Module):
 
     def get_envmap(self, method: str = "conv"):
         """(diffuse base, specular mips, white-balance regularization);
-        ``method`` is the specular prefilter's ("conv" or "sampled")."""
+        ``method`` is the specular prefilter's ("conv" or "sampled"). While
+        a profiler records, the prefilter's backward is marked as
+        ``geosplat.light_backward``."""
         cubemap = self.cubemap
         white_balance_reg = gmath.abs_(cubemap - cubemap.mean(-1, keepdim=True)).mean()
         base, mips = cm.prefilter_splitsum(cubemap, method=method)
+        if counters.recording() and mips[0].grad_fn is not None:
+            # the prefilter's backward, from the mips the lookups read
+            counters.BackwardSpan("geosplat.light_backward", mips, (cubemap,)).open_at(mips)
         return base, mips, white_balance_reg
 
     def num_field_points(self, mesh: TriangleMesh) -> int:

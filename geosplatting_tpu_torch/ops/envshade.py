@@ -418,59 +418,7 @@ def env_shade(
             else:
                 acc = step(*args)
             if mark_backward and k == 0:
-                span = _LoopBackwardSpan(acc, inputs)
+                span = counters.BackwardSpan("envshade.loop_backward", acc, inputs)
         if mark_backward:
             span.open_at(acc)
     return acc
-
-
-class _LoopBackwardSpan:
-    """The range ``envshade.loop_backward`` on autograd's thread: it opens
-    when the first gradient reaches the loop's output and closes once the
-    backward of the loop's first step, the last to run, has handed on every
-    gradient it makes for the loop's inputs. Hooks on the graph's nodes
-    mark both ends; they read no gradient and change none, so the gradients
-    are an untraced run's bit for bit (an identity ``autograd.Function`` on
-    the inputs would sum an input's gradients from inside and outside the
-    loop in another order)."""
-
-    def __init__(self, first_step_out: tuple, inputs: tuple):
-        # the first step's nodes with an edge out of the step: to an input's
-        # node, or to a leaf input's gradient accumulator
-        stop = {x.grad_fn for x in inputs if x.grad_fn is not None}
-        todo = [x.grad_fn for x in first_step_out if x.grad_fn is not None]
-        seen, last = set(), []
-        while todo:
-            node = todo.pop()
-            if node in seen:
-                continue
-            seen.add(node)
-            leaves = False
-            for nxt, _ in node.next_functions:
-                if nxt is None:
-                    continue
-                if nxt in stop or type(nxt).__name__ == "AccumulateGrad":
-                    leaves = True
-                else:
-                    todo.append(nxt)
-            if leaves:
-                last.append(node)
-        self.pending = len(last)
-        self.range = None
-        for node in last:
-            node.register_hook(self._close)
-
-    def open_at(self, out: tuple) -> None:
-        for x in out:
-            if x.grad_fn is not None:
-                x.grad_fn.register_prehook(self._open)
-
-    def _open(self, grad_outputs):
-        if self.range is None:
-            self.range = record_function("envshade.loop_backward")
-            self.range.__enter__()
-
-    def _close(self, grad_inputs, grad_outputs):
-        self.pending -= 1
-        if self.pending == 0 and self.range is not None:
-            self.range.__exit__(None, None, None)
