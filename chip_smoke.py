@@ -8,7 +8,9 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
    from csrc/ with ptxas' register / shared-memory / spill report;
 2. K3 (prefix sum) against torch.cumsum at [1.4M, 10], and K4 (the SDF
    sphere trace) against its plain version at the benchmark cells' trace
-   (grid 96, scale 0.8, 2^23 rays, 24 steps), with both versions' times;
+   (grid 96, scale 0.8, 2^23 rays, 24 steps), and K5 (the Monte-Carlo
+   shading loop, forward and backward) against the plain loop at stage 2's
+   and stage 3's shapes, with both versions' times;
 3. K1 / K2 (compositing forward / backward, two passes each over chunks of
    each tile's pairs) against their plain versions on a seeded 2k-Gaussian
    scene at 128x128, 16x16 and 16x8 tiles and 32-pair chunks; then the main
@@ -446,9 +448,10 @@ def toolchain(kernels) -> str:
           max_registers=max((r.get("registers", 0) for r in report), default=0),
           spill_bytes=sum(r["spill_stores"] + r["spill_loads"] for r in report),
           ptxas_c3=shown, ptxas_c14=shown_c14)
-    # K1's two passes and combine and K2's two passes for C = 1..16, K3 and K4
-    if len(report) != 5 * 16 + 2:
-        raise RuntimeError(f"expected 82 compiled kernels in the ptxas report, got {report}")
+    # K1's two passes and combine and K2's two passes for C = 1..16, K3, K4 and
+    # K5's forward and backward
+    if len(report) != 5 * 16 + 4:
+        raise RuntimeError(f"expected 84 compiled kernels in the ptxas report, got {report}")
     return smi
 
 
@@ -476,6 +479,147 @@ def check_k3(device, gen) -> dict:
 
 # FP32 operations of one sphere-trace step of one ray (benchmark/opcount.py)
 TRACE_OPS_PER_STEP = 88
+
+
+# FP32 operations of one Monte-Carlo sample's evaluation
+# (benchmark/opcount.py EVAL_SAMPLE_OPS); a step takes two, the backward
+# twice the forward's
+EVAL_SAMPLE_OPS = 150
+# K5's bytes a step and point: two directions, MIS weights and visibilities,
+# the int64 bank entry and texel
+MC_STEP_BYTES = 56
+
+
+def mc_shade_inputs(device, gen, n: int, steps: int, live_share: float,
+                    light_hw: tuple = (256, 512), light_bank: int = 2048):
+    """K5's operands as ``env_shade`` makes them, for n points on a shell
+    about the origin seen from (0.3, 0.6, 2.8): ([kd, arm, normals, wo, the
+    bank's colours, the light's rows], the samples of ``_draw_samples``
+    under a visibility that is 0, 1 and between, upstream gradients of
+    (diffuse, specular, residual) that are zero past the first live_share of
+    the rows: stage 2's padding, stage 3's empty pixels). Every 16th of the
+    rows sits on a branch of the step: back-facing normals, n = wo,
+    roughness under its clamp, roughness 1."""
+    import torch
+    import torch.nn.functional as F
+
+    from geosplatting_tpu_torch.graphics import gmath
+    from geosplatting_tpu_torch.ops import envshade as es
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    d = F.normalize(torch.randn((n, 3), generator=gen, device=device), dim=-1)
+    pos = d * (0.36 + 0.2 * rand(n, 1))
+    wo = gmath.safe_normalize(torch.tensor([0.3, 0.6, 2.8], device=device) - pos)
+    nrm = F.normalize(0.3 * d + wo, dim=-1)
+    k = n // 16
+    nrm[:k] = -nrm[:k]
+    nrm[k:2 * k] = wo[k:2 * k]
+    kd = 0.05 + 0.9 * rand(n, 3)
+    arm = torch.stack((0.3 * rand(n), 0.02 + 0.98 * rand(n), rand(n)), -1)
+    arm[2 * k:3 * k, 1] = 0.05
+    arm[3 * k:4 * k, 1] = 1.0
+    h, w = light_hw
+    i, j = torch.meshgrid(torch.arange(h, device=device) + 0.5,
+                          torch.arange(w, device=device) + 0.5, indexing="ij")
+    th, ph = i / h * math.pi, j / w * 2 * math.pi
+    lobe = torch.exp(-((th - 0.9) ** 2 + (ph - 2.0) ** 2) * 8.0)
+    table = (0.3 + 0.15 * torch.sin(th) * (1 + torch.cos(ph)) + 8.0 * lobe)[..., None] \
+        + torch.tensor([0.0, 0.07, 0.14], device=device)
+    light = es.compute_light_pdf(table)
+    draws = es.draw_shade(n, num_samples_x=round(steps ** 0.5), light_bank=light_bank,
+                          generator=gen, device=device)
+    m = round(draws.ub.shape[0] ** 0.5)
+    cell = torch.arange(m * m, device=device)
+    bank_dirs = es.sample_light(light, ((cell % m).float() + draws.ub) / m,
+                                ((cell // m).float() + draws.vb) / m)
+    bank_pdf = es.light_pdf_at(light, bank_dirs)
+    smp = es._draw_samples(light, pos, nrm, wo, kd, arm, bank_dirs, bank_pdf, draws,
+                           lambda o, dirs: torch.clamp(0.5 + 0.8 * dirs[..., 1], 0.0, 1.0), 1.0)
+    ups = [torch.randn(shape, generator=gen, device=device) for shape in ((n, 3), (n, 3), (n, 2))]
+    for u in ups:
+        u[int(n * live_share):] = 0
+    operands = [kd, arm, nrm, wo, es.eval_light(light, bank_dirs), table.reshape(-1, 3)]
+    return operands, smp, ups
+
+
+def mc_shade_gaps(got, want) -> dict:
+    """Forward outputs or gradients of K5 against its plain version: the
+    share of entries bit-equal and the largest gap over the tensor's
+    largest magnitude."""
+    import torch
+
+    if got is None or want is None:
+        return {"none": got is None and want is None}
+    got, want = got.detach(), want.detach()
+    scale = float(want.abs().max()) or 1.0
+    return {"bit_equal_share": float((got == want).float().mean()),
+            "max_rel_gap": float((got - want).abs().max()) / scale}
+
+
+# K5 against the plain loop on the card: the forward's three outputs bit for
+# bit; each gradient within this share of its largest magnitude (the two sum
+# a point's 128 terms, and the light's atomics, in other orders)
+TOL_K5_GRAD = 1e-4
+
+
+def check_mc_shade(device, gen) -> dict:
+    """K5 against its plain version at the cells' shapes: stage 2 (786,432
+    rows, 42 % live) and stage 3 (640,000 pixels, 12.6 % live), 64 steps, a
+    256 x 512 light and a bank of 2,025 directions. Raises where the forward
+    is not bit-equal to the plain loop, a gradient's gap passes TOL_K5_GRAD,
+    or a call does not launch each kernel once. Returns per shape the gaps,
+    the card ms a launch forward and backward, their bounds, and the plain
+    loop's ms forward and forward + backward (CUDA events around one call)."""
+    import torch
+
+    from geosplatting_tpu_torch import _kernels
+    from geosplatting_tpu_torch.ops import envshade as es
+
+    rows = {}
+    for name, n, live in (("stage2", 786_432, 0.42), ("stage3", 640_000, 0.126)):
+        operands, smp, ups = mc_shade_inputs(device, gen, n, 64, live)
+        leaves = [x.requires_grad_() for x in operands]
+        before = (_kernels.launches["mc_shade_fwd"], _kernels.launches["mc_shade_bwd"])
+        out = es.mc_shade(*leaves, smp)
+        grads = torch.autograd.grad(out, leaves, ups, retain_graph=True)
+        launched = (_kernels.launches["mc_shade_fwd"] - before[0],
+                    _kernels.launches["mc_shade_bwd"] - before[1])
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        events[0].record()
+        want, _ = es.mc_shade_plain(*leaves, smp)
+        events[1].record()
+        want_grads = torch.autograd.grad(want, leaves, ups)
+        events[2].record()
+        events[2].synchronize()
+        names = ("diffuse", "specular", "residual", "kd", "arm", "normals", "wo", "bank_cols",
+                 "light_rows")
+        gaps = {k: mc_shade_gaps(a, b) for k, a, b in zip(names, (*out, *grads),
+                                                            (*want, *want_grads))}
+        del want, want_grads
+        detached = [x.detach() for x in leaves]
+        fwd_ms = cuda_ms(lambda: es.mc_shade(*detached, smp), 5)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, ups, retain_graph=True), 5)
+        # the backward needs the steps of the rows with an upstream gradient only
+        s, live_rows = smp.bidx.shape[0], int(torch.cat(ups, -1).ne(0).any(-1).sum())
+        fwd_bound, fwd_by = bound_ms(n * (s * MC_STEP_BYTES + 12 * 4 + 8 * 4),
+                                     n * s * 2 * EVAL_SAMPLE_OPS)
+        bwd_bound, bwd_by = bound_ms(live_rows * s * MC_STEP_BYTES + n * (12 * 4 + 8 * 4 + 12 * 4),
+                                     2 * live_rows * s * 2 * EVAL_SAMPLE_OPS)
+        row = {"points": n, "steps": s, "live_share": live, "launches": launched, "gaps": gaps,
+               "card_fwd_ms": fwd_ms, "card_bwd_ms": bwd_ms, "fwd_bound_ms": fwd_bound,
+               "fwd_bound_by": fwd_by, "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by,
+               "plain_fwd_ms": events[0].elapsed_time(events[1]),
+               "plain_fwd_bwd_ms": events[0].elapsed_time(events[2]), "tol_grad": TOL_K5_GRAD}
+        phase("mc_shade_vs_plain", shape=name, **row)
+        rows[name] = row
+        fwd_equal = all(gaps[k]["bit_equal_share"] == 1.0 for k in names[:3])
+        grads_close = all(g.get("none") or g["max_rel_gap"] <= TOL_K5_GRAD
+                          for g in (gaps[k] for k in names[3:]))
+        if launched != (1, 1) or not (fwd_equal and grads_close):
+            raise AssertionError(f"K5 against its plain version at {name}: {row}")
+    return rows
 
 
 def check_sdf_trace(device, gen) -> dict:
@@ -4154,6 +4298,7 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     errors = {"k3": check_k3(device, gen)["max_abs_err"], **check_k1_k2(device, gen)}
     check_sdf_trace(device, gen)
+    check_mc_shade(device, gen)
     check_render_card_vs_cpu(device, args.seed)
     seconds["kernel_checks"] = time.perf_counter() - t0
     t0 = time.perf_counter()

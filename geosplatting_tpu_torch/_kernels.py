@@ -37,8 +37,8 @@ NVCC_FLAGS = (
 # the rasterizer's kernels (K1-K3), launched for every camera rendered
 RASTER_KERNELS = ("k1_chunk_products", "k1_composite_fwd", "k2_chunk_suffix",
                   "k2_composite_bwd", "k3_cumsum_rows")
-# and K4, the shading's SDF sphere trace
-KERNELS = (*RASTER_KERNELS, "sdf_trace")
+# K4, the shading's SDF sphere trace, and K5, its Monte-Carlo loop
+KERNELS = (*RASTER_KERNELS, "sdf_trace", "mc_shade_fwd", "mc_shade_bwd")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,6 +55,12 @@ _SIGNATURES = {
     # origins, dirs, cells, out, counts, num_rays, rx, ry, rz, scale, inv_scale,
     # t_start, t_max, min_step, softness, num_steps, stream
     "sdf_trace": (_I, [*[_P] * 5, _L, *[_I] * 3, *[ctypes.c_float] * 6, _I, _P]),
+    # kd, arm, nrm, wo, bank_cols, light_rows, the 8 sample arrays, then the
+    # forward's 3 outputs, or the backward's 3 upstream gradients and 6
+    # gradients; n, steps, mode, frac, third, exponent (the backward: bank
+    # rows), stream
+    "mc_shade_fwd": (_I, [*[_P] * 17, _L, _I, _I, *[ctypes.c_float] * 3, _P]),
+    "mc_shade_bwd": (_I, [*[_P] * 23, _L, _I, _I, *[ctypes.c_float] * 3, _I, _P]),
     "geosplat_error_string": (ctypes.c_char_p, [_I]),
 }
 

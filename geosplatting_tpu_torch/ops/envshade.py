@@ -15,16 +15,25 @@ MIS pdf sum, the visibility and the normal offset of the shadow-ray origin
 are constants of the backward; differentiating them overflows the f32
 gradients. Here that makes all of the sampling gradient-free, so it runs
 under ``torch.no_grad`` ahead of the sample loop, in batches of steps, and
-the sphere trace with it; each step of the loop that autograd records is
-rematerialised in the backward (``torch.utils.checkpoint``).
+the sphere trace with it.
+
+The sample loop over the precomputed samples is K5 (``csrc/mc_shade.cu``)
+for tensors on the card: one ``torch.autograd.Function`` whose forward and
+backward are one kernel launch each (``mc_shade``), the backward
+recomputing every step in registers. For tensors on the CPU it is
+``mc_shade_plain``, the S steps of ``_mc_step``, each rematerialised in the
+backward (``torch.utils.checkpoint``); the card's tests hold K5 to it.
 
 Randomness is injected: ``env_shade`` takes its draws as tensors
 (``ShadeDraws``); ``draw_shade`` makes them from a ``torch.Generator``.
 
-Spans: ``envshade.sample``, ``envshade.visibility``, ``envshade.mc_step``
-and ``envshade.loop`` (the sample loop's forward); while a profiler records,
-also ``envshade.loop_backward`` (the loop's backward on autograd's thread)
-and the counter ``shade.points``.
+Spans: ``envshade.sample`` (the bank and each batch of steps' samples),
+``envshade.visibility`` (their shadow rays), ``envshade.loop`` around the
+sample loop's forward and ``envshade.mc_step`` inside it: on the card K5's
+forward launch, on the CPU each step (and its recomputation in the
+backward); while a profiler records, also ``envshade.loop_backward``, the
+loop's backward on autograd's thread (K5's backward launch on the card), and
+the counter ``shade.points``.
 """
 from __future__ import annotations
 
@@ -32,11 +41,13 @@ import functools
 import math
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from .. import counters
+from .. import _kernels, counters
 from ..graphics import gmath
 from .segment_rows import gather_rows
 
@@ -362,6 +373,92 @@ def _mc_step(sample_frac, bsdf, kd, arm, normals, wo, bank_cols, light_rows,
         return d_acc + d1 + d2, s_acc + s1 + s2, r_acc + r1 + r2
 
 
+def mc_shade_plain(kd, arm, normals, wo, bank_cols, light_rows, smp: _Samples,
+                   bsdf: str = "pbr"):
+    """Plain version of K5: the S steps of ``_mc_step``, each checkpointed
+    while autograd records, for tensors on the CPU (and the card's check).
+    Returns ((diffuse, specular, residual), the first step's output)."""
+    s, n_pts = smp.bidx.shape
+    step = functools.partial(_mc_step, 1.0 / s, bsdf)
+    acc = first = (kd.new_zeros((n_pts, 3)), kd.new_zeros((n_pts, 3)), kd.new_zeros((n_pts, 2)))
+    for k in range(s):
+        args = (kd, arm, normals, wo, bank_cols, light_rows, *(x[k] for x in smp), *acc)
+        if torch.is_grad_enabled():
+            # the draws are tensors, so the recomputation needs no RNG state
+            acc = checkpoint(step, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            acc = step(*args)
+        if k == 0:
+            first = acc
+    return acc, first
+
+
+# K5 (csrc/mc_shade.cu): the sample loop for tensors on the card
+_MODES = {"pbr": 0, "diffuse": 1, "white": 1}
+_FRESNEL_POWER = 5.0
+
+
+class _MCShade(torch.autograd.Function):
+    """The S steps of ``_mc_step`` in one launch each way: the forward
+    kernel gives the plain loop's (diffuse, specular, residual), the
+    backward kernel recomputes each step and sends the gradients to kd, arm,
+    the normals, wo, the bank's colours and the light's rows."""
+
+    @staticmethod
+    def forward(ctx, kd, arm, normals, wo, bank_cols, light_rows, smp, bsdf):
+        n, s = kd.shape[0], smp.bidx.shape[0]
+        for name, x in (("kd", kd), ("arm", arm), ("normals", normals), ("wo", wo)):
+            _kernels.check_cuda_tensor(x, f"mc_shade.{name}", torch.float32, (n, 3))
+        _kernels.check_cuda_tensor(bank_cols, "mc_shade.bank_cols", torch.float32,
+                                   (bank_cols.shape[0], 3))
+        _kernels.check_cuda_tensor(light_rows, "mc_shade.light_rows", torch.float32,
+                                   (light_rows.shape[0], 3))
+        for name, x in zip(_Samples._fields, smp):
+            _kernels.check_cuda_tensor(
+                x, f"mc_shade.{name}", torch.int64 if name in ("bidx", "tex_b") else torch.float32,
+                (s, n, 3) if name in ("wi_l", "wi_b") else (s, n))
+        out = (torch.empty_like(kd), torch.empty_like(kd), kd.new_empty((n, 2)))
+        ctx.args = (n, s, _MODES[bsdf], 1.0 / s, float(np.float32(n) / np.float32(3 * n)),
+                    _FRESNEL_POWER)
+        ctx.smp = smp
+        ptrs = [x.data_ptr() for x in (kd, arm, normals, wo, bank_cols, light_rows, *smp, *out)]
+        _kernels.launch("mc_shade_fwd", *ptrs, *ctx.args, _kernels.stream_of(kd))
+        ctx.save_for_backward(kd, arm, normals, wo, bank_cols, light_rows)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_diffuse, g_specular, g_residual):
+        kd, arm, normals, wo, bank_cols, light_rows = ctx.saved_tensors
+        ups = [g.contiguous() for g in (g_diffuse, g_specular, g_residual)]
+        grads = [torch.empty_like(kd) for _ in range(4)]
+        needs = ctx.needs_input_grad
+        g_bank = torch.zeros_like(bank_cols) if needs[4] else None
+        g_light = torch.zeros_like(light_rows) if needs[5] else None
+        ptrs = [x.data_ptr() for x in (kd, arm, normals, wo, bank_cols, light_rows, *ctx.smp,
+                                       *ups, *grads)]
+        _kernels.launch("mc_shade_bwd", *ptrs, *(0 if g is None else g.data_ptr()
+                                                 for g in (g_bank, g_light)),
+                        *ctx.args, bank_cols.shape[0], _kernels.stream_of(kd))
+        # the white lobe reads neither kd, arm nor wo
+        pbr = ctx.args[2] == _MODES["pbr"]
+        g_kd, g_arm, g_nrm, g_wo = grads
+        return (g_kd if pbr else None, g_arm if pbr else None, g_nrm, g_wo if pbr else None,
+                g_bank, g_light, None, None)
+
+
+def mc_shade(kd, arm, normals, wo, bank_cols, light_rows, smp: _Samples, bsdf: str = "pbr"):
+    """K5: ``env_shade``'s sample loop over the precomputed samples for
+    tensors on the card, one kernel launch forward and one backward
+    (``launches["mc_shade_fwd"]`` / ``["mc_shade_bwd"]``). Raises for a
+    tensor that is not a contiguous float32 (int64 indices) CUDA tensor of
+    the expected shape. Returns (diffuse [N, 3], specular [N, 3], residual
+    [N, 2])."""
+    if bsdf not in _MODES:
+        raise ValueError(f"bsdf: {bsdf!r}")
+    return _MCShade.apply(kd, arm, normals, wo, bank_cols, light_rows, smp, bsdf)
+
+
 def env_shade(
     positions: torch.Tensor,     # [N, 3]
     normals: torch.Tensor,       # [N, 3]
@@ -383,9 +480,8 @@ def env_shade(
     summed-pdf balance heuristic. ``bsdf="diffuse"`` or ``"white"``
     evaluates a white Lambertian lobe (cos / pi, no specular) at the same
     samples."""
-    if bsdf not in ("pbr", "diffuse", "white"):
+    if bsdf not in _MODES:
         raise ValueError(f"bsdf: {bsdf!r}")
-    s = draws.bidx.shape[0]
     m = int(round(draws.ub.shape[0] ** 0.5))
     wo = gmath.safe_normalize(view_pos - positions)
     with record_function("envshade.sample"):
@@ -400,7 +496,6 @@ def env_shade(
         bank_cols = eval_light(light, bank_dirs)
     smp = _draw_samples(light, positions.detach(), normals.detach(), wo.detach(), kd.detach(),
                         arm.detach(), bank_dirs, bank_pdf, draws, visibility_fn, shadow_scale)
-    step = functools.partial(_mc_step, 1.0 / s, bsdf)
     light_rows = light.data.reshape(-1, light.data.shape[-1])
     n_pts = positions.shape[0]
     counters.count("shade.points", n_pts)
@@ -408,17 +503,13 @@ def env_shade(
     mark_backward = (counters.recording() and torch.is_grad_enabled()
                      and any(x.requires_grad for x in inputs))
     with record_function("envshade.loop"):
-        acc = (positions.new_zeros((n_pts, 3)), positions.new_zeros((n_pts, 3)),
-               positions.new_zeros((n_pts, 2)))
-        for k in range(s):
-            args = (*inputs, *(x[k] for x in smp), *acc)
-            if torch.is_grad_enabled():
-                # the draws are tensors, so the recomputation needs no RNG state
-                acc = checkpoint(step, *args, use_reentrant=False, preserve_rng_state=False)
-            else:
-                acc = step(*args)
-            if mark_backward and k == 0:
-                span = counters.BackwardSpan("envshade.loop_backward", acc, inputs)
+        if positions.device.type == "cuda":
+            inputs = tuple(x.contiguous() for x in inputs)
+            with record_function("envshade.mc_step"):
+                acc = mc_shade(*inputs, smp, bsdf)
+            first = acc
+        else:
+            acc, first = mc_shade_plain(*inputs, smp, bsdf)
         if mark_backward:
-            span.open_at(acc)
+            counters.BackwardSpan("envshade.loop_backward", first, inputs).open_at(acc)
     return acc

@@ -315,6 +315,118 @@ def test_sdf_trace_one_launch_a_call_and_what_it_refuses(cuda_device):
     assert _kernels.launches["sdf_trace"] == before + 2
 
 
+# --- K5, the Monte-Carlo shading loop ----------------------------------------------
+
+
+def k5_and_plain(operands, smp, ups, bsdf):
+    """(outputs, gradients of the six operands) of K5 and of the plain loop
+    from the same operands and upstream gradients, and K5's launches."""
+    from geosplatting_tpu_torch.ops import envshade as es
+
+    res = []
+    for shade in (es.mc_shade, lambda *a: es.mc_shade_plain(*a)[0]):
+        leaves = [x.detach().requires_grad_() for x in operands]
+        before = (_kernels.launches["mc_shade_fwd"], _kernels.launches["mc_shade_bwd"])
+        out = shade(*leaves, smp, bsdf)
+        sum((o * u).sum() for o, u in zip(out, ups)).backward()
+        torch.cuda.synchronize()
+        launched = (_kernels.launches["mc_shade_fwd"] - before[0],
+                    _kernels.launches["mc_shade_bwd"] - before[1])
+        res.append(([o.detach() for o in out], [x.grad for x in leaves], launched))
+    return res
+
+
+@pytest.mark.parametrize("bsdf", ["pbr", "diffuse", "white"])
+@pytest.mark.parametrize("shape,n,live,steps,bank", [
+    ("stage2", 6 * 8192, 0.42, 64, 2048), ("stage3", 200 * 200, 0.126, 64, 2048),
+    ("prior", 30_000, 1.0, 16, 2048), ("bank_past_smem", 8192, 1.0, 4, 20_000)])
+def test_mc_shade_matches_the_plain_loop(cuda_device, shape, n, live, steps, bank, bsdf):
+    """K5 against the plain loop on the card, at stage 2's and stage 3's
+    shapes scaled down (their shares of rows with a gradient), the prior's
+    16 steps, and a bank of 19,881 directions whose gradient (238 KB) takes
+    global atomics: the forward bit for bit, each gradient within
+    chip_smoke.TOL_K5_GRAD of its largest magnitude (the two sum in other
+    orders). The rows include back-facing points, roughness at and under
+    its clamp and wo = n; the white lobe gives kd, arm and wo no gradient."""
+    from chip_smoke import TOL_K5_GRAD, mc_shade_gaps, mc_shade_inputs
+
+    gen = torch.Generator(cuda_device).manual_seed(n + steps)
+    operands, smp, ups = mc_shade_inputs(cuda_device, gen, n, steps, live, light_hw=(64, 128),
+                                         light_bank=bank)
+    (out, grads, launched), (want, want_grads, plain_launched) = k5_and_plain(
+        operands, smp, ups, bsdf)
+    assert launched == (1, 1) and plain_launched == (0, 0)
+    for name, a, b in zip(("diffuse", "specular", "residual"), out, want):
+        assert torch.equal(a, b), (name, mc_shade_gaps(a, b))
+    assert float(want[2].max()) > 1e-3  # shadowed samples reach the residual
+    for name, a, b in zip(("kd", "arm", "normals", "wo", "bank_cols", "light_rows"), grads,
+                          want_grads):
+        if bsdf != "pbr" and name in ("kd", "arm", "wo"):
+            assert a is None and b is None, name
+            continue
+        gap = mc_shade_gaps(a, b)
+        assert bool(torch.isfinite(a).all()) and gap["max_rel_gap"] <= TOL_K5_GRAD, (name, gap)
+        if name in ("kd", "arm", "normals", "wo"):
+            assert bool((a[int(n * live):] == 0).all()), name  # rows with no upstream gradient
+
+
+def test_env_shade_launches_k5_once_each_way(cuda_device):
+    """One forward launch per env_shade call on the card, one backward launch
+    per call that gets gradients, none under no_grad; the no_grad forward
+    gives the same bits."""
+    from geosplatting_tpu_torch.ops import envshade as es
+
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    n = 4096
+    pos = torch.nn.functional.normalize(
+        torch.randn((n, 3), generator=gen, device=cuda_device), dim=-1) * 0.4
+    nrm = torch.nn.functional.normalize(pos + 0.3, dim=-1)
+    kd = torch.rand((n, 3), generator=gen, device=cuda_device)
+    arm = torch.rand((n, 3), generator=gen, device=cuda_device)
+    table = 0.2 + torch.rand((32, 64, 3), generator=gen, device=cuda_device)
+    draws = es.draw_shade(n, num_samples_x=4, generator=gen, device=cuda_device)
+    view = torch.tensor([0.3, 0.6, 2.8], device=cuda_device)
+    before = (_kernels.launches["mc_shade_fwd"], _kernels.launches["mc_shade_bwd"])
+    leaves = [x.clone().requires_grad_() for x in (pos, nrm, kd, arm, table)]
+    out = es.env_shade(leaves[0], leaves[1], view, leaves[2], leaves[3],
+                       es.compute_light_pdf(leaves[4]), draws)
+    sum(o.sum() for o in out).backward()
+    with torch.no_grad():
+        again = es.env_shade(pos, nrm, view, kd, arm, es.compute_light_pdf(table), draws)
+    # a non-contiguous kd (stage 3 reads it from its G-buffer) is made contiguous first
+    wide = torch.cat((kd, arm), -1)
+    sliced = es.env_shade(pos, nrm, view, wide[:, :3], arm, es.compute_light_pdf(table), draws)
+    torch.cuda.synchronize()
+    assert (_kernels.launches["mc_shade_fwd"] - before[0],
+            _kernels.launches["mc_shade_bwd"] - before[1]) == (3, 1)
+    for a, b, c in zip(out, again, sliced):
+        assert torch.equal(a.detach(), b) and torch.equal(b, c)
+    assert all(bool(torch.isfinite(x.grad).all()) for x in leaves)
+
+
+def test_mc_shade_refuses_what_it_cannot_take(cuda_device):
+    """A CUDA tensor never takes the plain loop: K5 raises for a
+    non-contiguous operand, another dtype, a tensor on the CPU or an unknown
+    lobe, and launches nothing."""
+    from chip_smoke import mc_shade_inputs
+    from geosplatting_tpu_torch.ops import envshade as es
+
+    gen = torch.Generator(cuda_device).manual_seed(9)
+    operands, smp, _ = mc_shade_inputs(cuda_device, gen, 1024, 4, 1.0, light_hw=(16, 32))
+    kd = operands[0]
+    before = (_kernels.launches["mc_shade_fwd"], _kernels.launches["mc_shade_bwd"])
+    for bad in (kd.t().contiguous().t(), kd.double(), kd.cpu(), kd[:, :1].expand(-1, 3)):
+        with pytest.raises(ValueError):
+            es.mc_shade(bad, *operands[1:], smp)
+    with pytest.raises(ValueError):
+        es.mc_shade(*operands, smp._replace(bidx=smp.bidx.int()))
+    with pytest.raises(ValueError):
+        es.mc_shade(*operands, smp, "glossy")
+    with pytest.raises(ValueError):
+        es.mc_shade(*[x.double() for x in operands], smp)
+    assert (_kernels.launches["mc_shade_fwd"], _kernels.launches["mc_shade_bwd"]) == before
+
+
 # --- stage 2 on the card against the CPU path -------------------------------------
 
 
