@@ -12,6 +12,8 @@ unrecorded step's bit for bit. Tiny shapes, no JAX.
 
 Run it alone: ``python -m pytest tests/test_bench_stage1.py -q``.
 """
+import functools
+
 import pytest
 import torch
 from torch.profiler import profile
@@ -43,18 +45,27 @@ def tiny_run() -> dict:
 
 
 def tiny_step(batched: bool, record: bool):
-    """One step of the cell's program at the tiny size: (the run, its
-    metrics, the profiler or None)."""
+    """One step of the cell's program at the tiny size, from fresh counters:
+    (the run, its metrics, the profiler or None, the counters' totals right
+    after the step)."""
     c = harness.cell(CELL, dict(TINY_CONFIG, batched_binning=batched), TINY_TRAFFIC)
     device = torch.device("cpu")
     run = harness.TrainRun(c, package(PROGRAM), SEED, device)
     gt = tr.ground_truth(tr.orbit(package(REFERENCE), c["traffic"], device),
                          list(range(c["traffic"]["views"])))
+    counters.reset()
     if not record:
-        return run, run.step(0, gt), None
+        m = run.step(0, gt)
+        return run, m, None, counters.totals()
     with profile() as prof:
         m = run.step(0, gt)
-    return run, m, prof
+    return run, m, prof, counters.totals()
+
+
+@pytest.fixture(scope="module")
+def tiny_steps():
+    """``tiny_step``, each (batched, record) stepped once for the module."""
+    return functools.cache(tiny_step)
 
 
 def test_cell_agrees_with_the_reference_at_a_tiny_size():
@@ -73,8 +84,8 @@ def test_state_left_unchanged_is_not_correct():
 
 
 @pytest.mark.parametrize("batched", [False, True], ids=["per_camera", "batched"])
-def test_lighting_spans_and_split_sum_counters(batched):
-    run, m, prof = tiny_step(batched, record=True)
+def test_lighting_spans_and_split_sum_counters(tiny_steps, batched):
+    run, m, prof, tot = tiny_steps(batched, record=True)
     batch = TINY_TRAFFIC["batch"]
     events = prof.events()
 
@@ -92,7 +103,6 @@ def test_lighting_spans_and_split_sum_counters(batched):
     raster = ranges("rasterize.backward")
     assert len(raster) == batch
     assert not any(ls <= rs < le for ls, le in light for rs, _ in raster)
-    tot = counters.totals()
     rows = 6 * run.shapes["jitter"][0]   # 6 Gaussians a face of the static budget
     assert tot["shade.points"] == batch * rows
     assert tot["shade.covered_points"] == batch * int(m["num_gaussians"])
@@ -100,9 +110,9 @@ def test_lighting_spans_and_split_sum_counters(batched):
 
 
 @pytest.mark.parametrize("batched", [False, True], ids=["per_camera", "batched"])
-def test_gradients_bit_equal_with_the_profiler_recording(batched):
-    plain, m_plain, _ = tiny_step(batched, record=False)
-    traced, m_traced, _ = tiny_step(batched, record=True)
+def test_gradients_bit_equal_with_the_profiler_recording(tiny_steps, batched):
+    plain, m_plain, _, _ = tiny_steps(batched, record=False)
+    traced, m_traced, _, _ = tiny_steps(batched, record=True)
     assert float(m_plain["loss"]) == float(m_traced["loss"])
     for (name, a), b in zip(plain.trainer.model.named_parameters(),
                             traced.trainer.model.parameters()):
@@ -111,9 +121,9 @@ def test_gradients_bit_equal_with_the_profiler_recording(batched):
     assert plain.trainer.model.cubemap.grad.abs().sum() > 0
 
 
-def test_no_profiler_no_lighting_counts():
-    tiny_step(False, record=False)
-    assert not any(k.startswith("shade.") for k in counters.totals())
+def test_no_profiler_no_lighting_counts(tiny_steps):
+    _, _, _, tot = tiny_steps(False, record=False)
+    assert not any(k.startswith("shade.") for k in tot)
 
 
 def test_lighting_metrics_on_a_hand_built_trace():

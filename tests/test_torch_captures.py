@@ -25,7 +25,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import write_sphere_scene
 from geosplatting_tpu.data import dataset as jdataset
 from geosplatting_tpu.data import selector as jselector
 from geosplatting_tpu.data.io import dump_float32_image
@@ -39,6 +38,7 @@ from geosplatting_tpu_torch.ops.rasterize import rasterize
 from .test_dataparsers_extended import _cube_mesh, _write_idr, _write_llff, _write_orb
 from .test_points_colmap import write_colmap_fixture
 from .torch_parity import n, one_torch_thread, t  # noqa: F401
+from .torch_scenes import write_sphere_scene
 
 # the off-centre capture: 180 x 130 images at the IDR scale 0.4 -> 72 x 52
 OFF_W, OFF_H = 180, 130

@@ -30,7 +30,7 @@ def lookups(num=500, seed=1):
 @pytest.mark.parametrize("res", [32, 64])
 def test_prefilter_conv_matches_jax(res):
     cube = env(res)
-    base_j, mips_j = jcm.prefilter_splitsum(jnp.asarray(cube), method="conv")
+    base_j, mips_j = jax.jit(lambda c: jcm.prefilter_splitsum(c, method="conv"))(cube)
     base_t, mips_t = cm.prefilter_splitsum(t(cube))
     np.testing.assert_allclose(n(base_t), np.asarray(base_j), rtol=1e-5, atol=1e-5)
     assert len(mips_t) == len(mips_j)

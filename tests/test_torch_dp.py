@@ -36,7 +36,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import write_sphere_scene
 from geosplatting_tpu.parallel.gs_sharding import rasterize_gs_sharded as jax_gs_sharded
 from geosplatting_tpu.parallel.sharding import make_mesh
 from geosplatting_tpu.parallel.tile_sharding import rasterize_tile_sharded as jax_tile_sharded
@@ -46,6 +45,7 @@ from geosplatting_tpu_torch.parallel import sharding
 
 from . import torch_dp_workers as w
 from .torch_parity import one_torch_thread  # noqa: F401
+from .torch_scenes import write_sphere_scene
 
 TOL = {"stage1": (1e-3, 2e-5), "gsplat": (1e-3, 2e-5), "stage2": (2e-3, 2e-5),
        "stage3": (2e-3, 2e-5)}

@@ -74,14 +74,14 @@ def points():
 
 def test_light_tables_sampling_and_lookup_match_jax():
     data = light_table()
-    lj = jes.compute_light_pdf(jnp.asarray(data))
+    lj = jax.jit(jes.compute_light_pdf)(data)
     lt = es.compute_light_pdf(t(data))
     for f in ("pdf", "rows", "cols"):
         np.testing.assert_allclose(n(getattr(lt, f)), np.asarray(getattr(lj, f)),
                                    rtol=1e-5, atol=1e-7, err_msg=f)
     rng = np.random.default_rng(1)
     u, v = rng.uniform(size=(2, 500)).astype(np.float32)
-    dj = jes.sample_light(lj, jnp.asarray(u), jnp.asarray(v))
+    dj = jax.jit(jes.sample_light)(lj, u, v)
     dt = es.sample_light(lt, t(u), t(v))
     np.testing.assert_allclose(n(dt), np.asarray(dj), atol=1e-5)
     np.testing.assert_allclose(n(es.light_pdf_at(lt, dt)), np.asarray(jes.light_pdf_at(lj, dj)),
@@ -182,7 +182,7 @@ def test_sdf_visibility_matches_jax():
     origins = (d * rng.uniform(0.35, 0.8, (m, 1))).astype(np.float32)
     dirs = rng.normal(size=(m, 3)).astype(np.float32)
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-    vj = jvis(jnp.asarray(sdf), GRID, 1.0, num_steps=24)(jnp.asarray(origins), jnp.asarray(dirs))
+    vj = jax.jit(lambda s, o, d: jvis(s, GRID, 1.0, num_steps=24)(o, d))(sdf, origins, dirs)
     vt = make_sdf_visibility(t(sdf), GRID, 1.0, num_steps=24)(t(origins), t(dirs))
     np.testing.assert_allclose(n(vt), np.asarray(vj), rtol=1e-5, atol=1e-5)
     assert (n(vt) < 0.5).any() and (n(vt) > 0.99).any()  # some rays hit, some escape

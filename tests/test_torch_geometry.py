@@ -16,7 +16,6 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from chip_smoke import uv_sphere
 from geosplatting_tpu.graphics import dpsr as jdpsr
 from geosplatting_tpu.graphics import gmath as jgmath
 from geosplatting_tpu.graphics import marching as jmarch
@@ -28,6 +27,7 @@ from geosplatting_tpu_torch.graphics import dpsr, marching, mesh_ops, points
 from geosplatting_tpu_torch.graphics.mesh import TriangleMesh
 
 from .torch_parity import cameras_from_jax, n, one_torch_thread, t  # noqa: F401
+from .torch_scenes import uv_sphere
 
 
 def rel_close(got, want, rtol, name=""):
@@ -71,6 +71,7 @@ def test_marching_and_its_gradient_match_jax():
     assert float(st.grad.abs().sum()) > 0
     # marching cubes is the same core over the grid
     grid = np.linalg.norm(np.asarray(gj.vertices), axis=-1).reshape(r + 1, r + 1, r + 1) - 0.6
+    # op by op: compiled whole, XLA flips two of its face masks
     cj = jmarch.marching_cubes(jnp.asarray(grid, jnp.float32), r)
     ct = marching.marching_cubes(t(grid), r)
     np.testing.assert_array_equal(n(ct.face_mask), np.asarray(cj.face_mask))
@@ -81,8 +82,9 @@ def test_dpsr_matches_jax():
     d = np.asarray(jgmath.safe_normalize(jax.random.normal(jax.random.key(1), (1500, 3))))
     pts = (d * 0.3 + 0.5).astype(np.float32)
     res = 16
-    np.testing.assert_allclose(n(dpsr.point_rasterize(t(pts), t(d), res)),
-                               np.asarray(jdpsr.point_rasterize(pts, d, res)), atol=1e-5)
+    np.testing.assert_allclose(
+        n(dpsr.point_rasterize(t(pts), t(d), res)),
+        np.asarray(jax.jit(jdpsr.point_rasterize, static_argnums=2)(pts, d, res)), atol=1e-5)
     w = np.random.default_rng(2).normal(size=(res, res, res)).astype(np.float32)
 
     def loss_j(p, nrm):
@@ -98,7 +100,7 @@ def test_dpsr_matches_jax():
     assert float(chi_t[8, 8, 8].detach()) * float(chi_t[1, 1, 1].detach()) < 0   # inside and outside differ
     rel_close(pt_.grad, gp_j, 1e-3, "points")
     rel_close(nt_.grad, gn_j, 1e-3, "normals")
-    mj = jdpsr.psr_to_mesh(pts, d, resolution=res)
+    mj = jax.jit(lambda p, nrm: jdpsr.psr_to_mesh(p, nrm, resolution=res))(pts, d)
     mt = dpsr.psr_to_mesh(t(pts), t(d), resolution=res)
     np.testing.assert_array_equal(n(mt.face_mask), np.asarray(mj.face_mask))
     assert int(mt.face_mask.sum()) > 50
@@ -121,15 +123,21 @@ def test_subdivide_matches_jax():
 
 
 def test_tsdf_fusion_matches_jax():
-    cams_j = JCameras.from_orbit(center=jnp.zeros(3), radius=2.0, elevation_degrees=20.0,
-                                 num_samples=6, width=40, height=32)
-    origins, dirs = cams_j.generate_rays()
-    b = jnp.sum(origins * dirs, -1)
-    disc = b * b - (jnp.sum(origins * origins, -1) - 0.25)
-    hit = disc > 0
-    tt = -b - jnp.sqrt(jnp.maximum(disc, 0.0))
-    zdepth = tt * jnp.sum(dirs * -cams_j.c2w[:, None, None, :, 2], -1)
-    dmap = np.asarray(jnp.stack((jnp.where(hit, zdepth, 0.0), hit.astype(jnp.float32)), -1))
+    @jax.jit
+    def depth_views():
+        """The sphere's depth maps from six orbit cameras, one program."""
+        cams_j = JCameras.from_orbit(center=jnp.zeros(3), radius=2.0, elevation_degrees=20.0,
+                                     num_samples=6, width=40, height=32)
+        origins, dirs = cams_j.generate_rays()
+        b = jnp.sum(origins * dirs, -1)
+        disc = b * b - (jnp.sum(origins * origins, -1) - 0.25)
+        hit = disc > 0
+        tt = -b - jnp.sqrt(jnp.maximum(disc, 0.0))
+        zdepth = tt * jnp.sum(dirs * -cams_j.c2w[:, None, None, :, 2], -1)
+        return cams_j, jnp.stack((jnp.where(hit, zdepth, 0.0), hit.astype(jnp.float32)), -1)
+
+    cams_j, dmap = depth_views()
+    dmap = np.asarray(dmap)
     mj = jax.jit(lambda d, c: jops.tsdf_fusion(d, c, resolution=24, scale=0.8))(dmap, cams_j)
     mt = mesh_ops.tsdf_fusion(t(dmap), cameras_from_jax(cams_j), resolution=24, scale=0.8)
     np.testing.assert_array_equal(n(mt.face_mask), np.asarray(mj.face_mask))
@@ -153,13 +161,20 @@ def test_ambient_occlusion_matches_jax():
     key, num, res = jax.random.key(0), 8, 96
     ao_j = jax.jit(lambda m, k: jops.ambient_occlusion(m, k, num_samples=num, resolution=res,
                                                       scale=1.5))(pj, key)
-    k_vox, k_dirs = jax.random.split(key)
-    _, areas = pj.face_normals_and_areas()
-    k1, k2 = jax.random.split(k_vox)
-    surface = (torch.as_tensor(np.array(jax.random.categorical(
-        k1, jnp.log(areas + 1e-20), shape=(1 << 17,)))), t(jax.random.uniform(k2, (1 << 17, 2))))
-    hemi = np.stack([np.asarray(jgmath.sample_hemisphere_cosine(k, (pair.num_faces,)))
-                     for k in jax.random.split(k_dirs, num)])
+
+    @jax.jit
+    def draws(m, key):
+        """ambient_occlusion's draws from its key, one program."""
+        k_vox, k_dirs = jax.random.split(key)
+        _, areas = m.face_normals_and_areas()
+        k1, k2 = jax.random.split(k_vox)
+        return (jax.random.categorical(k1, jnp.log(areas + 1e-20), shape=(1 << 17,)),
+                jax.random.uniform(k2, (1 << 17, 2)),
+                jnp.stack([jgmath.sample_hemisphere_cosine(k, (pair.num_faces,))
+                           for k in jax.random.split(k_dirs, num)]))
+
+    faces, uniforms, hemi = jax.device_get(draws(pj, key))
+    surface = (torch.as_tensor(np.array(faces)), t(uniforms))
     ao_t = mesh_ops.ambient_occlusion(pair, surface_draws=surface, hemisphere=t(hemi),
                                       num_samples=num, resolution=res, scale=1.5)
     np.testing.assert_allclose(n(ao_t), np.asarray(ao_j), atol=1e-5)

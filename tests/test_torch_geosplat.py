@@ -16,7 +16,6 @@ import numpy as np
 import pytest
 import torch
 
-from geosplatting_tpu.graphics.cameras import Cameras as JCameras
 from geosplatting_tpu.models.encodings import TriplaneEncoding as JTriplane
 from geosplatting_tpu.models.geosplat import GeoSplatter as JGeoSplatter
 from geosplatting_tpu.models.geosplat import SharedField as JSharedField
@@ -24,7 +23,7 @@ from geosplatting_tpu.ops import rasterize_pairs as jrp
 from geosplatting_tpu_torch.convert import params_from_numpy, params_to_numpy
 from geosplatting_tpu_torch.models.geosplat import GeoSplatter
 
-from .torch_parity import cameras_from_jax, n, one_torch_thread, t  # noqa: F401
+from .torch_parity import cameras_from_jax, jax_orbit, n, one_torch_thread, t  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -70,8 +69,7 @@ def setup():
     r = params["cubemap"].shape[1]
     params["cubemap"] = jnp.asarray(0.3 + 0.3 * (i + j) / (2 * r) + 0.05 * f + 0.1 * c * c,
                                     jnp.float32)
-    cams = JCameras.from_orbit(center=jnp.zeros(3), radius=2.0, elevation_degrees=10.0,
-                               num_samples=2, width=W, height=H)
+    cams = jax_orbit(radius=2.0, elevation_degrees=10.0, num_samples=2, width=W, height=H)
     return mj, params, cams
 
 

@@ -27,7 +27,6 @@ import torch
 
 from geosplatting_tpu.graphics import gmath as jgmath
 from geosplatting_tpu.graphics import splats as jsplats
-from geosplatting_tpu.graphics.cameras import Cameras as JCameras
 from geosplatting_tpu.models.gsplatter import GSplatter as JGSplatter
 from geosplatting_tpu.ops.rasterize import rasterize as jrasterize
 from geosplatting_tpu.train.gsplat_trainer import GSplatTrainer as JTrainer
@@ -43,7 +42,7 @@ from geosplatting_tpu_torch.ops.rasterize import rasterize
 from geosplatting_tpu_torch.train.gsplat_trainer import GSplatTrainer, GSplatTrainerConfig
 
 from .test_torch_geosplat import close_grads
-from .torch_parity import cameras_from_jax, n, one_torch_thread, t  # noqa: F401
+from .torch_parity import cameras_from_jax, jax_orbit, n, one_torch_thread, t  # noqa: F401
 
 W = H = 32
 N = 300
@@ -65,8 +64,7 @@ def scene(sh_degree=3, seed=0) -> dict:
 
 
 def jcams():
-    return JCameras.from_orbit(center=jnp.zeros(3), radius=2.5, elevation_degrees=15.0,
-                               num_samples=2, width=W, height=H)
+    return jax_orbit(radius=2.5, elevation_degrees=15.0, num_samples=2, width=W, height=H)
 
 
 @pytest.mark.parametrize("deg", [0, 1, 2, 3])
@@ -272,7 +270,8 @@ def test_densify_and_cull_match_jax(scale_thresh):
                                    atol=1e-7, err_msg=k)
     # split alone, from the same draws
     sub = {k: v[:40] for k, v in p.items()}
-    ch_j = jsplats.split(jsplats.Splats(**{k: jnp.asarray(v) for k, v in sub.items()}), key, 2)
+    ch_j = jax.jit(jsplats.split, static_argnums=2)(
+        jsplats.Splats(**{k: jnp.asarray(v) for k, v in sub.items()}), key, 2)
     ch_t = tsplats.split(splats_from_numpy(sub), 2, randn=t(jax.random.normal(key, (2, 40, 3))))
     for k in FIELDS:
         np.testing.assert_allclose(n(getattr(ch_t, k)), np.asarray(getattr(ch_j, k)),

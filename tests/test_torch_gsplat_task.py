@@ -15,7 +15,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import write_sphere_scene
 from geosplatting_tpu_torch.engine.train_task import (
     PAIRS_PER_GAUSSIAN, PAIRS_PER_GAUSSIAN_2DGS, TILE_CAPACITY_2DGS, GeoSplatTrainTask,
     GSplatTrainTask,
@@ -26,6 +25,7 @@ from geosplatting_tpu_torch.train import gsplat_trainer
 from geosplatting_tpu_torch.utils.config import load_dataclass
 
 from .torch_parity import one_torch_thread  # noqa: F401
+from .torch_scenes import write_sphere_scene
 
 ROOT = Path(__file__).resolve().parents[1]
 RES = 32

@@ -40,7 +40,8 @@ def test_resize_matches_jax(method):
     rng = np.random.default_rng(len(method))
     for lead, h, w, height, width in SHAPES:
         img = rng.uniform(0.0, 1.0, lead + (h, w, 3)).astype(np.float32)
-        want = np.asarray(jimages.resize(jnp.asarray(img), height, width, method))
+        want = np.asarray(jax.jit(jimages.resize, static_argnums=(1, 2, 3))(
+            img, height, width, method))
         got = n(images.resize(t(img), height, width, method))
         assert got.shape == want.shape == lead + (height, width, 3)
         if method == "nearest":

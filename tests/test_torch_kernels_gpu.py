@@ -12,7 +12,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import uv_sphere
 from geosplatting_tpu_torch import _kernels
 from geosplatting_tpu_torch.graphics.cameras import Cameras
 from geosplatting_tpu_torch.ops import rasterize_pairs as rp
@@ -25,6 +24,7 @@ from geosplatting_tpu_torch.ops.segment_rows import (
 from .test_torch_sdf_trace import SDFS
 from .test_torch_sdf_trace import rays as trace_rays
 from .torch_parity import cuda_device, n, one_torch_thread  # noqa: F401
+from .torch_scenes import uv_sphere
 
 pytestmark = pytest.mark.gpu
 

@@ -1,6 +1,6 @@
 """Port parity: the TensoIR, Shiny Blender and DepthBlender layouts against
 the JAX package on the CPU, on tiny scenes written here from the Blender
-scene of ``chip_smoke.write_sphere_scene`` (nothing is downloaded):
+scene of ``torch_scenes.write_sphere_scene`` (nothing is downloaded):
 cameras, image paths, near / far, images and meta of every split, and the
 layout that recognition picks, in the JAX package's order. Also the suite
 scripts that run them, checked by ``bash -n``.
@@ -13,13 +13,13 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from chip_smoke import write_sphere_scene
 from geosplatting_tpu.data import dataset as jdataset
 from geosplatting_tpu.data.dataparsers import blender_family as jbf
 from geosplatting_tpu_torch.data import dataset as tdataset
 from geosplatting_tpu_torch.data.dataparsers import blender_family as tbf
 
 from .torch_parity import n, one_torch_thread  # noqa: F401
+from .torch_scenes import write_sphere_scene
 
 ROOT = Path(__file__).resolve().parents[1]
 RES = 16

@@ -1,10 +1,10 @@
-"""Port parity: the mesh-prior variant (GeoSplatterPrior, its trainer, task
-and CLI) against the JAX package on the CPU.
+"""Port parity: the mesh-prior variant (GeoSplatterPrior and its trainer)
+against the JAX package on the CPU (its task and CLI:
+tests/test_torch_prior_task.py).
 
 A jittered UV sphere of 60 faces (360 Gaussians) as the prior mesh, a
 16-texel shared field with the occ head, 2 x 2 Monte-Carlo sample steps with
-the 16^3 visibility grid and denoising, two cameras at 24x24 (the task:
-32x32). JAX renders
+the 16^3 visibility grid and denoising, two cameras at 24x24. JAX renders
 through its pairs backend with the Pallas kernels in interpret mode; the port
 through its kernels' plain versions. The draws come from jax.random and
 are handed to both (tests/torch_parity.py replays the key splits). ONE
@@ -17,24 +17,14 @@ flips), loss terms rtol 1e-4, gradient groups close_grads (1 % in L2, 2 %
 of the largest entry). The first Adam step moves every entry by the lr
 against its gradient's sign: the updated parameters agree exactly where
 the JAX gradient is clear of zero (1e-3 of its group's largest entry) and
-within 2 lr elsewhere. The task's resume and its export against the
-checkpoint are held to equality, the export against the JAX
-``export_model`` to atol 1e-5."""
-import dataclasses
-import importlib.util
-import os
-from pathlib import Path
-
+within 2 lr elsewhere."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import write_sphere_scene
-from geosplatting_tpu.engine import stage_io as jstage_io
 from geosplatting_tpu.graphics import images as jimages
-from geosplatting_tpu.graphics.cameras import Cameras as JCameras
 from geosplatting_tpu.graphics.mesh import TriangleMesh as JMesh
 from geosplatting_tpu.models.encodings import TriplaneEncoding as JTriplane
 from geosplatting_tpu.models.geosplat import SharedField as JSharedField
@@ -47,21 +37,18 @@ from geosplatting_tpu.train.geosplat_prior_trainer import (
     GeoSplatPriorTrainerConfig as JConfig,
 )
 from geosplatting_tpu_torch.convert import params_from_numpy, params_to_numpy
-from geosplatting_tpu_torch.engine import stage_io as tstage_io
-from geosplatting_tpu_torch.engine.train_task import GeoSplatPriorTrainTask
 from geosplatting_tpu_torch.graphics.mesh import TriangleMesh
-from geosplatting_tpu_torch.graphics.mesh_io import save_mesh
 from geosplatting_tpu_torch.models.geosplat_prior import GeoSplatterPrior, z_up_to_y_up
 from geosplatting_tpu_torch.train.geosplat_prior_trainer import (
     GeoSplatPriorTrainer, GeoSplatPriorTrainerConfig,
 )
-from geosplatting_tpu_torch.utils.config import load_dataclass, run_task_group
 
 from .test_torch_geosplat import close_grads
 from .test_torch_hashgrid import sphere_mesh
 from .test_torch_trainer import sphere_gt
 from .torch_parity import (  # noqa: F401
-    cameras_from_jax, jax_prior_step_draws, jax_shade_draws, n, one_torch_thread, shade_draws, t,
+    cameras_from_jax, jax_orbit, jax_prior_step_draws, jax_shade_draws, n, one_torch_thread,
+    shade_draws, t,
 )
 
 W = H = 24
@@ -118,8 +105,7 @@ def deformed(params):
 
 
 def jcams():
-    return JCameras.from_orbit(center=jnp.zeros(3), radius=2.0, elevation_degrees=20.0,
-                               num_samples=2, width=W, height=H)
+    return jax_orbit(radius=2.0, elevation_degrees=20.0, num_samples=2, width=W, height=H)
 
 
 @pytest.fixture(scope="module")
@@ -262,120 +248,3 @@ def test_train_step_matches_jax(jax_ref):
         for x, y in zip(a, b):
             assert np.abs(x - y).max() <= 2.001 * lrs[head] + 1e-6, head
             assert np.mean(np.abs(x - y) > 1e-6) < 0.02, head
-
-
-# --- the task and the CLI ------------------------------------------------------------
-
-TW = 32                 # the task's images: 800 / TW pixels replicated
-SF = TW / 800.0
-
-
-def prior_task(scene, mesh_path, steps, name="t-prior"):
-    return GeoSplatPriorTrainTask(
-        dataset_path=scene, mesh_path=mesh_path, experiment_name=name, seed=0,
-        num_steps=steps, batch_size=2, num_steps_per_save=1, num_steps_per_val=2,
-        num_val_images=1, scale_factor=SF, scene_scale=1.0, num_samples_x=2,
-        triplane_resolution=TRI, device="cpu",
-    )
-
-
-@pytest.fixture(scope="module")
-def task_runs(tmp_path_factory):
-    """The prior task on a Blender-layout sphere scene with the UV-sphere
-    prior as a binary PLY: 1 step, a resume to 2, and an uninterrupted
-    2-step run."""
-    torch.set_num_threads(1)
-    root = tmp_path_factory.mktemp("prior_task")
-    write_sphere_scene(root / "scene", {"train": 4, "val": 1, "test": 1}, TW, "cpu")
-    v, f = base_mesh()
-    save_mesh(root / "prior.ply", v, f)
-    cwd = os.getcwd()
-    os.chdir(root)
-    try:
-        out = prior_task(root / "scene", root / "prior.ply", 1).run()
-        run_dir = Path(out["output_dir"]).resolve()
-        resumed = dataclasses.replace(load_dataclass(run_dir / "task.py"), num_steps=2)
-        out2 = resumed.run(resume_dir=run_dir)
-        whole = Path(prior_task(root / "scene", root / "prior.ply", 2, "t-prior-whole")
-                     .run()["output_dir"]).resolve()
-    finally:
-        os.chdir(cwd)
-    return {"root": root, "run_dir": run_dir, "out": out, "out2": out2, "whole": whole}
-
-
-def test_task_resumes_and_exports_like_jax(task_runs):
-    run_dir = task_runs["run_dir"]
-    for fname in ("task.py", "export.npz", "log.txt", "ckpts/1.pt", "ckpts/2.pt"):
-        assert (run_dir / fname).exists(), fname
-    out, out2 = task_runs["out"], task_runs["out2"]
-    assert np.isfinite(out["val_psnr"]) and np.isfinite(out2["loss"])
-    assert out["nonfinite_grads"] == 0 == out2["nonfinite_grads"]
-    log = (run_dir / "log.txt").read_text()
-    assert "resumed from step 1" in log and "step 2:" in log
-    # the resumed run is the uninterrupted run: same batches, draws and state
-    resumed, whole = (torch.load(d / "ckpts" / "2.pt") for d in (run_dir, task_runs["whole"]))
-    for k, val in whole["model"].items():
-        assert torch.equal(resumed["model"][k], val), k
-    assert torch.equal(resumed["generator"], whole["generator"])
-    # the export against the checkpoint, and against the JAX export_model of
-    # the checkpoint's parameters, written and read by the JAX stage_io
-    params = params_to_numpy(resumed["model"])
-    exported = tstage_io.load_export(run_dir)
-    np.testing.assert_array_equal(exported["latlng"], params["latlng"])
-    np.testing.assert_array_equal(exported["exposure"], params["exposure"])
-    for k, val in params["field"]["ks"].items():
-        np.testing.assert_array_equal(exported["ks_enc"]["ks"][k], val)
-    np.testing.assert_array_equal(exported["ks_enc"]["planes"], params["field"]["planes"])
-    v, f = base_mesh()
-    np.testing.assert_array_equal(exported["mc_vertices"], v + params["deform"])
-    mj = jax_model()
-    bm = JMesh(vertices=jnp.asarray(v), indices=jnp.asarray(f))
-    want = mj.export_model(params, bm, jax.random.key(0))
-    jstage_io.save_export(run_dir.parent / "jax_export.npz", want)
-    fj, ft = np.load(run_dir.parent / "jax_export.npz"), np.load(run_dir / "export.npz")
-    assert sorted(ft.files) == sorted(fj.files)
-    for k in fj.files:
-        assert (ft[k].shape, ft[k].dtype) == (fj[k].shape, fj[k].dtype), k
-        if ft[k].dtype.kind == "f":
-            np.testing.assert_allclose(ft[k], fj[k], atol=1e-5, err_msg=k)
-        else:
-            np.testing.assert_array_equal(ft[k], fj[k], err_msg=k)
-    loaded = jstage_io.load_export(run_dir)
-    assert loaded["sdf"] is None and loaded["mc_face_mask"] is None
-    assert loaded["means"].shape == (360, 3)
-
-
-def test_cli_presets_match_jax(tmp_path, monkeypatch):
-    """The CLI's preset table equals the JAX script's, field by field, and
-    --mesh_path reaches the task."""
-    from geosplatting_tpu_torch.scripts.train_geosplat_prior import TASKS
-
-    spec = importlib.util.spec_from_file_location(
-        "jax_train_geosplat_prior",
-        Path(__file__).resolve().parents[1] / "scripts" / "train_geosplat_prior.py")
-    jmod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(jmod)
-    assert sorted(TASKS) == sorted(jmod.TASKS)
-    for name, jtask in jmod.TASKS.items():
-        ttask = TASKS[name]
-        assert type(ttask).__name__ == type(jtask).__name__, name
-        for fld in dataclasses.fields(jtask):
-            if hasattr(ttask, fld.name):
-                assert getattr(ttask, fld.name) == getattr(jtask, fld.name), (name, fld.name)
-    shared = {f.name for f in dataclasses.fields(jmod.TASKS["object"])} & {
-        f.name for f in dataclasses.fields(TASKS["object"])}
-    assert {"mesh_path", "scene_scale", "tile_capacity", "num_samples_x", "backend",
-            "num_steps", "batch_size"} <= shared
-    monkeypatch.chdir(tmp_path)
-    calls = []
-    monkeypatch.setattr(GeoSplatPriorTrainTask, "run",
-                        lambda self, resume_dir=None, resume_step=None: calls.append(self) or {})
-    run_task_group(TASKS, ["object", "--dataset_path", "scene", "--mesh_path", "m.ply",
-                           "--device", "cpu"])
-    assert (calls[-1].mesh_path, calls[-1].batch_size) == (Path("m.ply"), 8)
-    with pytest.raises(ValueError, match="pairs path"):
-        dataclasses.replace(TASKS["custom"], backend="dense").build(None, None)
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            v, f = base_mesh()
-            GeoSplatterPrior(TriangleMesh(vertices=t(v), indices=t(f, torch.long)))

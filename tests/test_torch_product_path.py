@@ -16,7 +16,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import write_sphere_scene
 from geosplatting_tpu.data.dataset import Dataset as JDataset
 from geosplatting_tpu.engine import stage_io as jio
 from geosplatting_tpu.engine.train_task import GeoSplatMCTrainTask
@@ -28,6 +27,7 @@ from geosplatting_tpu_torch.utils.config import (
 )
 
 from .torch_parity import n, one_torch_thread  # noqa: F401
+from .torch_scenes import write_sphere_scene
 
 RES = 32
 SF = RES / 800.0

@@ -46,6 +46,7 @@ def rays(rng, num):
 
 def test_scene_closed_forms_match_jax():
     o, d = rays(np.random.default_rng(0), 4096)
+    # op by op: compiled whole, XLA moves two hit points by 2e-5
     hit_j, pos_j, nrm_j, obj_j = jq.scene_hit(jnp.asarray(o), jnp.asarray(d))
     hit_t, pos_t, nrm_t, obj_t = q.scene_hit(t(o), t(d))
     np.testing.assert_array_equal(n(hit_t), np.asarray(hit_j))
@@ -54,7 +55,7 @@ def test_scene_closed_forms_match_jax():
     np.testing.assert_allclose(n(pos_t), np.asarray(pos_j), atol=1e-5)
     np.testing.assert_allclose(n(nrm_t), np.asarray(nrm_j), atol=1e-5)
     np.testing.assert_allclose(n(q.scene_kd(pos_t, obj_t)),
-                               np.asarray(jq.scene_kd(pos_j, obj_j)), atol=1e-5)
+                               np.asarray(jax.jit(jq.scene_kd)(pos_j, obj_j)), atol=1e-5)
     np.testing.assert_array_equal(n(q.scene_roughness(obj_t)),
                                   np.asarray(jq.scene_roughness(obj_j)))
     # shadow rays from the surface points along random directions
@@ -62,26 +63,28 @@ def test_scene_closed_forms_match_jax():
     s /= np.linalg.norm(s, axis=-1, keepdims=True)
     origins = n(pos_t) + n(nrm_t) * 1e-3
     v_t = n(q.visibility(t(origins), t(s)))
-    np.testing.assert_array_equal(v_t, np.asarray(jq.visibility(jnp.asarray(origins),
-                                                                jnp.asarray(s))))
+    np.testing.assert_array_equal(v_t, np.asarray(jax.jit(jq.visibility)(origins, s)))
     assert 0.0 < v_t.mean() < 1.0
     for kind in ("train", "relight"):
-        np.testing.assert_allclose(n(q.make_envmap(kind=kind, device="cpu")),
-                                   np.asarray(jq.make_envmap(kind=kind)), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(
+            n(q.make_envmap(kind=kind, device="cpu")),
+            np.asarray(jax.jit(jq.make_envmap, static_argnames="kind")(kind=kind)), rtol=1e-5,
+            atol=1e-5)
     with pytest.raises(ValueError):
         q.make_envmap(kind="studio", device="cpu")
 
 
 @pytest.mark.parametrize("kind, num", [("train", 10), ("test", 2), ("train", 3)])
 def test_cameras_and_material_maps_match_jax(kind, num):
-    cj = jq.make_cameras(kind, num, width=RES, height=RES)
+    cj = jax.jit(jq.make_cameras, static_argnums=(0, 1),
+                 static_argnames=("width", "height"))(kind, num, width=RES, height=RES)
     ct = q.make_cameras(kind, num, width=RES, height=RES, device="cpu")
     assert ct.shape == tuple(cj.shape) and (ct.width, ct.height) == (RES, RES)
     for f in ("c2w", "fx", "fy", "cx", "cy"):
         np.testing.assert_allclose(n(getattr(ct, f)), np.asarray(getattr(cj, f)), atol=1e-5,
                                    err_msg=f)
     if kind == "test":
-        alb_j, rough_j = jq.gt_material_maps(cj)
+        alb_j, rough_j = jax.jit(jq.gt_material_maps)(cj)
         alb_t, rough_t = q.gt_material_maps(cameras_from_jax(cj))
         np.testing.assert_allclose(n(alb_t), np.asarray(alb_j), atol=1e-5)
         np.testing.assert_allclose(n(rough_t), np.asarray(rough_j), atol=1e-5)
@@ -94,16 +97,22 @@ def test_gt_views_match_jax_with_its_draws():
     float32 rounding, so that the port's own float32 render of this view
     differs from its float64 render by up to 1.1e-3 there (on a CPU)."""
     spp_x = 2
-    cj = jq.make_cameras("test", 2, width=RES, height=RES)
+
+    @jax.jit
+    def cameras_and_objects():
+        cj = jq.make_cameras("test", 2, width=RES, height=RES)
+        rays = (r.reshape(-1, 3) for r in cj.generate_rays())
+        return cj, jq.scene_hit(*rays)[3].reshape(2, RES, RES)
+
+    cj, obj = cameras_and_objects()
     ct = cameras_from_jax(cj)
     key = jax.random.key(8)
     draws = [shade_draws(jax_shade_draws(jax.random.fold_in(key, i), RES * RES, spp_x))
              for i in range(2)]
-    glossy = np.stack([np.asarray(jq.scene_hit(*(r.reshape(-1, 3) for r in cj[i].generate_rays()))
-                                  [3]).reshape(RES, RES) == 1 for i in range(2)])
+    glossy = np.asarray(obj) == 1
     assert 0 < glossy.sum() < glossy.size // 4
     for kind, shadows in (("train", True), ("relight", False)):
-        env = jq.make_envmap(kind=kind)
+        env = jax.jit(jq.make_envmap, static_argnames="kind")(kind=kind)
         want = np.asarray(jq.render_gt_views(cj, env, key, spp_x, shadows=shadows))
         got = n(q.render_gt_views(ct, t(env), spp_x=spp_x, shadows=shadows, draws=draws))
         assert got.shape == (2, RES, RES, 4)

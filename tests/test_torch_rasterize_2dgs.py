@@ -36,7 +36,7 @@ from geosplatting_tpu_torch.train.gsplat_trainer import GSplatTrainer, GSplatTra
 
 from .test_torch_geosplat import close_grads
 from .test_torch_gsplat import FIELDS, adam_moments, jax_opt_state, scene
-from .torch_parity import cameras_from_jax, n, one_torch_thread, t  # noqa: F401
+from .torch_parity import cameras_from_jax, jax_orbit, n, one_torch_thread, t  # noqa: F401
 
 W = H = 40
 OUTPUTS = ("render", "alpha", "normals", "normals_from_depth", "distort", "median_depth")
@@ -58,8 +58,7 @@ def disks(n_gauss=60, seed=3):
 
 
 def cam(w=W, h=H):
-    return JCameras.from_orbit(center=jnp.zeros(3), radius=2.2, elevation_degrees=20.0,
-                               num_samples=3, width=w, height=h)[0]
+    return jax_orbit(radius=2.2, elevation_degrees=20.0, num_samples=3, width=w, height=h)[0]
 
 
 def weights(seed=0):
@@ -135,7 +134,8 @@ def test_project_and_depth_normals_match_jax():
     x = disks(seed=5)
     args = [x[k].astype(np.float32) for k in ("means", "quats", "scales")]
     got = t2d.project_2dgs(*map(t, args), tc.view_matrix, tc.intrinsic_matrix, W, H)
-    want = j2d.project_2dgs(*map(jnp.asarray, args), c.view_matrix, c.intrinsic_matrix, W, H)
+    want = jax.jit(j2d.project_2dgs, static_argnums=(5, 6))(
+        *args, c.view_matrix, c.intrinsic_matrix, W, H)
     for a, b, name in zip(got, want, ("record", "center2d", "depths", "radii")):
         np.testing.assert_allclose(n(a), np.asarray(b), rtol=1e-5, atol=1e-4, err_msg=name)
     rng = np.random.default_rng(1)

@@ -122,7 +122,8 @@ def test_rgb_mode_and_unknown_mode():
 def projection(width=WIDTH, height=HEIGHT, seed=0, num=300) -> JProjected:
     viewmat, K = cam(width, height)
     x = scene(seed, num)
-    return jproject(*(jnp.asarray(x[k]) for k in INPUTS), viewmat, K, width, height)
+    return jax.jit(jproject, static_argnums=(len(INPUTS) + 2, len(INPUTS) + 3))(
+        *(jnp.asarray(x[k]) for k in INPUTS), viewmat, K, width, height)
 
 
 @pytest.mark.parametrize("case", ["extents", "radii", "truncated", "over_budget", "two_key"])
@@ -139,7 +140,9 @@ def test_bin_gaussians_matches_jax(case):
         kw["max_pairs"] = 600
     if case == "two_key":   # 32,768 tiles leave the packed key < 16 depth bits
         kw.update(max_pairs=1 << 16, tile_capacity=16)
-    bins_j = jr.bin_gaussians(pj, width, height, **kw)
+    bin_j = jax.jit(jr.bin_gaussians, static_argnums=(1, 2),
+                    static_argnames=("tile_size", "max_pairs", "tile_capacity"))
+    bins_j = bin_j(pj, width, height, **kw)
     pt = Projected(*(None if v is None else t(v, torch.int32 if k == "radii" else torch.float32)
                      for k, v in pj._asdict().items()))
     bins = tr.bin_gaussians(pt, width, height, **kw)
@@ -150,7 +153,7 @@ def test_bin_gaussians_matches_jax(case):
     assert (31 - int(tw * th + 1).bit_length() < 16) == (case == "two_key")
     # the fullest tile, counted before truncation
     full_cap = 512
-    full = jr.bin_gaussians(pj, width, height, **dict(kw, tile_capacity=full_cap))
+    full = bin_j(pj, width, height, **dict(kw, tile_capacity=full_cap))
     fullest = int((np.asarray(full.tile_gid) >= 0).sum(1).max())
     assert int(bins.max_tile_pairs) == fullest and 0 < fullest < full_cap
     if case == "truncated":

@@ -3,14 +3,13 @@ the JAX package on the CPU: Radiance HDR written and read by either package,
 the EXR refusal where this OpenCV has no EXR codec, and
 ``Syn4RelightDataparser`` (cameras, image stacks with the HDR frames
 sRGB-encoded under their masks, the test split's meta paths) and the
-dataset's splits on a tiny scene written by ``chip_smoke.write_s4r_scene``.
+dataset's splits on a tiny scene written by ``torch_scenes.write_s4r_scene``.
 
 Tolerances: none. Both packages decode through the same OpenCV and Pillow,
 so every array is compared for equality."""
 import numpy as np
 import pytest
 
-from chip_smoke import S4R_ALBEDO, write_s4r_scene
 from geosplatting_tpu.data import io as jio
 from geosplatting_tpu.data.dataparsers.blender_family import (
     Syn4RelightDataparser as JSyn4Relight,
@@ -21,6 +20,7 @@ from geosplatting_tpu_torch.data.dataparsers.blender_family import Syn4RelightDa
 from geosplatting_tpu_torch.data.dataset import Dataset, recognize_dataparser
 
 from .torch_parity import n, one_torch_thread  # noqa: F401
+from .torch_scenes import S4R_ALBEDO, write_s4r_scene
 
 RES = 32
 SF = RES / 800.0

@@ -15,7 +15,7 @@
   ``RFMaskedRealDataparser`` reads the layout back; a tile past
   ``--tile_capacity`` raises (the JAX script's default 256 does here).
 - ``run_pipeline --device cpu`` at a few steps on the S4R fixture of the
-  stage-3 task tests (``chip_smoke.write_s4r_scene``): finite losses, no
+  stage-3 task tests (``torch_scenes.write_s4r_scene``): finite losses, no
   non-finite gradient, a finite ``reliteval``; each stage's export has the
   keys, shapes and dtypes of the export the port's stage task writes (the
   next stage's task builds from it), and the JAX ``load_export`` reads the
@@ -36,7 +36,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import uv_sphere, write_s4r_scene
 from geosplatting_tpu.data.dataset import Dataset as JDataset
 from geosplatting_tpu.engine import stage_io as jio
 from geosplatting_tpu.graphics.cameras import Cameras as JCameras
@@ -53,6 +52,7 @@ from geosplatting_tpu_torch.scripts import premask
 from geosplatting_tpu_torch.scripts import run_pipeline
 
 from .torch_parity import one_torch_thread  # noqa: F401
+from .torch_scenes import uv_sphere, write_s4r_scene
 
 REPO = Path(__file__).resolve().parents[1]
 N_TRAIN, N_TEST, RES, SPP, SEED = 3, 2, 160, 2, 11

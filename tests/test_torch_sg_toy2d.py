@@ -6,7 +6,8 @@ are the JAX package's draws, given to the port.
 Tolerances: the SG algebra 1e-5 relative; the cubemap fit (60 Adam steps
 on the mean L1 error, torch.optim.Adam against optax's Adam) 2e-3 relative
 on each parameter and its loss; the 2D toy 1e-5 (rays, renders) and equal
-splits and batches."""
+splits and batches. Each test's JAX side is one compiled program (op by op,
+every JAX function of the file compiles each of its ops on its own)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,22 +35,31 @@ def to_t(s):
 
 
 def test_sg_algebra_matches_jax():
-    a_j, b_j = jsg.random_sg(jax.random.key(0), 6), jsg.random_sg(jax.random.key(1), 6)
-    a, b = to_t(a_j), to_t(b_j)
     dirs = np.array(jax.random.normal(jax.random.key(2), (40, 3)))
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-    rel(a.evaluate(t(dirs)), a_j.evaluate(dirs), 1e-5, "evaluate")
-    rel(a.integral(), a_j.integral(), 1e-5, "integral")
-    for x, y in zip(a.product(b), a_j.product(b_j), strict=True):
-        rel(x, y, 1e-5, "product")
-    rel(a.inner_product(b), a_j.inner_product(b_j), 1e-5, "inner_product")
-    rel(a.cosine_integral(t(dirs[:10].reshape(2, 5, 3))),
-        a_j.cosine_integral(dirs[:10].reshape(2, 5, 3)), 1e-5, "cosine_integral")
     wo = np.roll(dirs, 3, axis=0)
     normals = dirs * np.sign((dirs * wo).sum(-1, keepdims=True))
     rough = np.linspace(0.1, 0.9, 40, dtype=np.float32)[:, None]
-    for x, y in zip(sg.sg_brdf_lobe(t(normals), t(wo), t(rough)),
-                    jsg.sg_brdf_lobe(normals, wo, rough), strict=True):
+
+    @jax.jit
+    def jax_side(dirs, normals, wo, rough):
+        a_j, b_j = jsg.random_sg(jax.random.key(0), 6), jsg.random_sg(jax.random.key(1), 6)
+        return {"a": a_j, "b": b_j, "evaluate": a_j.evaluate(dirs), "integral": a_j.integral(),
+                "product": a_j.product(b_j), "inner_product": a_j.inner_product(b_j),
+                "cosine_integral": a_j.cosine_integral(dirs[:10].reshape(2, 5, 3)),
+                "brdf lobe": jsg.sg_brdf_lobe(normals, wo, rough)}
+
+    want = jax_side(dirs, normals, wo, rough)
+    a, b = to_t(want["a"]), to_t(want["b"])
+    rel(a.evaluate(t(dirs)), want["evaluate"], 1e-5, "evaluate")
+    rel(a.integral(), want["integral"], 1e-5, "integral")
+    for x, y in zip(a.product(b), want["product"], strict=True):
+        rel(x, y, 1e-5, "product")
+    rel(a.inner_product(b), want["inner_product"], 1e-5, "inner_product")
+    rel(a.cosine_integral(t(dirs[:10].reshape(2, 5, 3))), want["cosine_integral"], 1e-5,
+        "cosine_integral")
+    for x, y in zip(sg.sg_brdf_lobe(t(normals), t(wo), t(rough)), want["brdf lobe"],
+                    strict=True):
         rel(x, y, 1e-5, "brdf lobe")
 
 
@@ -79,8 +89,6 @@ def test_fit_sg_to_cubemap_matches_jax():
 
 
 def test_texture_sg_matches_jax():
-    tex_j = jsg.TextureSG.from_random(jax.random.key(7), 5)
-    tex = sg.TextureSG(*(t(x) for x in tex_j))
     rng = np.random.default_rng(0)
     m = 30
     normals = rng.normal(size=(m, 3)).astype(np.float32)
@@ -90,11 +98,21 @@ def test_texture_sg_matches_jax():
     albedo = rng.uniform(size=(m, 3)).astype(np.float32)
     rough = rng.uniform(0.1, 0.9, size=(m, 1)).astype(np.float32)
     metal = rng.uniform(size=(m, 1)).astype(np.float32)
-    rel(tex.sample(t(normals)), tex_j.sample(normals), 1e-5, "sample")
-    rel(tex.visualize(width=16, height=8), tex_j.visualize(width=16, height=8), 1e-5,
-        "visualize")
+
+    @jax.jit
+    def jax_side(normals):
+        tex_j = jsg.TextureSG.from_random(jax.random.key(7), 5)
+        return {"tex": tex_j, "sample": tex_j.sample(normals),
+                "visualize": tex_j.visualize(width=16, height=8)}
+
+    want = jax_side(normals)
+    tex_j = want["tex"]
+    tex = sg.TextureSG(*(t(x) for x in tex_j))
+    rel(tex.sample(t(normals)), want["sample"], 1e-5, "sample")
+    rel(tex.visualize(width=16, height=8), want["visualize"], 1e-5, "visualize")
     got = tex.integral(t(normals), t(wo), albedo=t(albedo), roughness=t(rough),
                        metallic=t(metal))
+    # the integral op by op: compiled whole, XLA moves its specular term by ulps
     want = jsg.TextureSG.integral(tex_j, normals, wo, albedo=albedo, roughness=rough,
                                   metallic=metal)
     for name, x, y in zip(("diffuse", "specular"), got, want, strict=True):
@@ -104,23 +122,31 @@ def test_texture_sg_matches_jax():
 
 
 def test_toy2d_matches_jax():
-    cj = jtoy.Cameras2D.from_orbit(center=(0.1, -0.2), radius=1.3, num_samples=5, width=32,
-                                   hfov_degrees=70.0, far=3.0)
+    @jax.jit
+    def jax_side():
+        cj = jtoy.Cameras2D.from_orbit(center=(0.1, -0.2), radius=1.3, num_samples=5,
+                                       width=32, hfov_degrees=70.0, far=3.0)
+        shape_j = jtoy.CircleShape2D.random(jax.random.key(3), 4)
+        return {"cams": cj, "rays": cj.generate_rays(), "shape": shape_j,
+                "render": shape_j.render(cj), "visualize": shape_j.visualize(width=20, height=14),
+                "shading2d": jtoy.shading2d(cj.c2w[:, :, 2])}
+
+    want = jax_side()
+    cj, shape_j = want["cams"], want["shape"]
     ct = toy2d.Cameras2D.from_orbit(center=(0.1, -0.2), radius=1.3, num_samples=5, width=32,
                                     hfov_degrees=70.0, far=3.0, device="cpu")
     rel(ct.c2w, cj.c2w, 1e-5, "c2w")
     rel(ct.focal, cj.focal, 1e-6, "focal")
-    for x, y in zip(ct.generate_rays(), cj.generate_rays(), strict=True):
+    for x, y in zip(ct.generate_rays(), want["rays"], strict=True):
         np.testing.assert_allclose(n(x), np.asarray(y), atol=1e-5)
-    shape_j = jtoy.CircleShape2D.random(jax.random.key(3), 4)
     shape = toy2d.CircleShape2D(t(shape_j.origins), t(shape_j.radius))
     img = shape.render(ct)
-    np.testing.assert_allclose(n(img), np.asarray(shape_j.render(cj)), atol=1e-5)
+    np.testing.assert_allclose(n(img), np.asarray(want["render"]), atol=1e-5)
     assert 0 < float(img[..., 3].mean()) < 1
     np.testing.assert_allclose(n(shape.visualize(width=20, height=14)),
-                               np.asarray(shape_j.visualize(width=20, height=14)), atol=1e-6)
+                               np.asarray(want["visualize"]), atol=1e-6)
     np.testing.assert_allclose(n(toy2d.shading2d(t(np.asarray(cj.c2w[:, :, 2])))),
-                               np.asarray(jtoy.shading2d(cj.c2w[:, :, 2])), atol=1e-6)
+                               np.asarray(want["shading2d"]), atol=1e-6)
 
 
 def test_syn2d_dataset_matches_jax(monkeypatch):
@@ -133,6 +159,9 @@ def test_syn2d_dataset_matches_jax(monkeypatch):
                 torch.as_tensor(np.array(jax.random.permutation(k_perm, num_views))))
 
     monkeypatch.setattr(ttoyp, "_scene_draws", jax_draws)
+    # the JAX parser runs eagerly: jitted whole, each split compiles once
+    monkeypatch.setattr(jtoyp.Synthetic2DDataparser, "parse2d",
+                        jax.jit(jtoyp.Synthetic2DDataparser.parse2d, static_argnums=(0, 1)))
     dj = jtoyp.MultiView2DDataset(jtoyp.Synthetic2DDataparser(**kw))
     dt = ttoyp.MultiView2DDataset(ttoyp.Synthetic2DDataparser(**kw), device="cpu")
     for split, size in (("train", 12), ("val", 6), ("test", 4)):

@@ -1,7 +1,7 @@
 """Port parity: graphics/textures, every shader of graphics/shaders and the
 four rendered layouts (MeshViewSynthesis, MeshDR, MeshPBR, ShapeNet)
 against the JAX package on the CPU. The mesh is a UV sphere
-(``chip_smoke.uv_sphere``), the cameras JAX's: the rendered layouts' random
+(``torch_scenes.uv_sphere``), the cameras JAX's: the rendered layouts' random
 view directions are replaced by the JAX package's draws, and ssao's
 hemisphere samples by JAX's.
 
@@ -16,7 +16,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import uv_sphere
 from geosplatting_tpu.data.dataparsers import synthetic_meshes as jsm
 from geosplatting_tpu.graphics import gmath as jgmath
 from geosplatting_tpu.graphics import shaders as jshaders
@@ -30,6 +29,7 @@ from geosplatting_tpu_torch.data.io import dump_float32_image
 from geosplatting_tpu_torch.graphics import shaders, textures
 
 from .torch_parity import cameras_from_jax, n, one_torch_thread, t  # noqa: F401
+from .torch_scenes import uv_sphere
 
 W, H = 56, 40
 
@@ -78,10 +78,12 @@ def test_textures_match_jax():
                 "as_latlng": cube.as_latlng(24, 12).data, "render": cube.render(cam)}
 
     want = jax_side(img, uv, dirs, normals, rough)
-    # the split-sum texture, eagerly (the JAX defaults: sampled GGX,
-    # bilinear, trilinear): compiled whole, XLA moves a few texel lookups
+    # the split-sum texture's prefilter, eagerly (the JAX defaults: sampled
+    # GGX, bilinear, trilinear): compiled whole, XLA moves a few texel
+    # lookups; its lookup compiled whole
     ss = jtex.TextureLatLng(data=jnp.asarray(img)).as_cubemap(16).as_splitsum(num_samples=16)
-    want.update(ss_base=ss.base, ss_mips=ss.mips, ss_sample=ss.sample(normals, dirs, rough))
+    want.update(ss_base=ss.base, ss_mips=ss.mips, ss_sample=jax.jit(
+        lambda ss, *a: ss.sample(*a))(ss, normals, dirs, rough))
     np.testing.assert_allclose(n(textures.Texture2D(t(img)).sample(t(uv))), want["tex2d"],
                                atol=1e-5)
     lat_t = textures.TextureLatLng(t(img))
@@ -206,6 +208,8 @@ def test_rendered_layouts_match_jax(mesh_layouts, monkeypatch, folder, parser, e
     for name in ("render_pretty", "render_depth", "render_pbr", "render_pure"):
         monkeypatch.setattr(jshaders, name, jax.jit(getattr(jshaders, name)))
     monkeypatch.setattr(jcm, "prefilter_splitsum", jax.jit(jcm.prefilter_splitsum))
+    monkeypatch.setattr(jtex.TextureLatLng, "as_cubemap",
+                        jax.jit(jtex.TextureLatLng.as_cubemap, static_argnums=1))
     path = mesh_layouts / folder
     pj, pt = getattr(jsm, parser)(**kw), getattr(tsm, parser)(device="cpu", **kw)
     for split in ("train", "val", "test"):

@@ -20,7 +20,6 @@ import pytest
 import torch
 
 from geosplatting_tpu.graphics import images as jimages
-from geosplatting_tpu.graphics.cameras import Cameras as JCameras
 from geosplatting_tpu.models.encodings import TriplaneEncoding as JTriplane
 from geosplatting_tpu.models.geosplat import GeoSplatter as JGeoSplatter
 from geosplatting_tpu.models.geosplat import SharedField as JSharedField
@@ -39,7 +38,7 @@ from geosplatting_tpu_torch.train.geosplat_mc_trainer import (
 from .test_torch_geosplat import close_grads
 from .test_torch_trainer import sphere_gt
 from .torch_parity import (  # noqa: F401
-    cameras_from_jax, jax_step_draws, n, one_torch_thread, shade_draws, t,
+    cameras_from_jax, jax_orbit, jax_step_draws, n, one_torch_thread, shade_draws, t,
 )
 
 W = H = 32
@@ -80,8 +79,7 @@ def make_stage2():
     export = jax.tree.map(np.asarray, jexport_stage1(s1, p1))
     mj = JGeoSplatterMC(field=jax_field(True), backend="pairs", **CFG)
     params = jax.jit(mj.init_from_stage1)(export, jax.random.key(12))
-    cams = JCameras.from_orbit(center=jnp.zeros(3), radius=2.0, elevation_degrees=20.0,
-                               num_samples=2, width=W, height=H)
+    cams = jax_orbit(radius=2.0, elevation_degrees=20.0, num_samples=2, width=W, height=H)
     return mj, params, cams, export
 
 

@@ -18,7 +18,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import write_sphere_scene
 from geosplatting_tpu.engine import stage_io as jio
 from geosplatting_tpu.engine.train_task import GeoSplatDeferTrainTask
 from geosplatting_tpu.models.geosplat_mc import GeoSplatterMC as JGeoSplatterMC
@@ -32,6 +31,7 @@ from geosplatting_tpu_torch.utils.config import load_dataclass, run_task_group
 
 from .test_torch_stage2 import CFG, FACES, TRI, W, jax_field
 from .torch_parity import one_torch_thread  # noqa: F401
+from .torch_scenes import write_sphere_scene
 
 SF = W / 800.0
 

@@ -1,7 +1,7 @@
 """Port parity: the eval.sh chain through the port's CLIs on the CPU — stage
 1, stage 2 and stage 3 with their s4r-twosphere presets (cut to resolution
 10, 32x32 images and 2 steps by flag overrides) and reliteval — on a tiny
-Syn4Relight-layout scene written by ``chip_smoke.write_s4r_scene``; the
+Syn4Relight-layout scene written by ``torch_scenes.write_s4r_scene``; the
 stage-3 run's resume, its export against its checkpoint, the clamps of its
 export, and the hand-offs across packages: the JAX ``load_export`` reads
 the port's stage-3 export key by key, and the port's stage 3 starts from a
@@ -17,7 +17,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import write_s4r_scene
 from geosplatting_tpu.engine import stage_io as jio
 from geosplatting_tpu_torch.convert import params_to_numpy
 from geosplatting_tpu_torch.data.dataset import Dataset
@@ -29,6 +28,7 @@ from geosplatting_tpu_torch.scripts import train_geosplat_mc as cli2
 from geosplatting_tpu_torch.utils.config import run_task_group
 
 from .torch_parity import one_torch_thread  # noqa: F401
+from .torch_scenes import write_s4r_scene
 
 SF = ["--scale_factor", str(32 / 800)]
 TINY = ["--resolution", "10", "--device", "cpu", "--batch_size", "2", "--num_val_images", "1",

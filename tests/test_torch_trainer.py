@@ -38,7 +38,7 @@ from .torch_parity import cameras_from_jax, n, one_torch_thread, t  # noqa: F401
 
 def sphere_gt(cams):
     """sRGB rgba views of a shaded sphere of radius 0.5 (analytic ray hits)."""
-    origins, dirs = (np.asarray(a) for a in cams.generate_rays())
+    origins, dirs = (np.asarray(a) for a in jax.jit(lambda c: c.generate_rays())(cams))
     b = (origins * dirs).sum(-1)
     c = (origins * origins).sum(-1) - 0.25
     disc = b * b - c
@@ -48,7 +48,7 @@ def sphere_gt(cams):
     shade = np.clip((nrm * np.array([0.577, 0.577, 0.577])).sum(-1), 0.1, 1.0)
     rgb = np.where(hit[..., None], shade[..., None] * np.full(3, 0.8), 0.0).astype(np.float32)
     a = hit[..., None].astype(np.float32)
-    return np.concatenate((np.asarray(jimages.rgb2srgb(jnp.asarray(rgb))) * a, a), -1)
+    return np.concatenate((np.asarray(jax.jit(jimages.rgb2srgb)(rgb)) * a, a), -1)
 
 
 def jax_preacts(mj, params, noise, jitter_std) -> dict:
@@ -139,13 +139,14 @@ def test_optimizer_matches_optax():
     mj, params, _ = setup()
     trainer_j = JTrainer(JConfig(), mj)
     groups = trainer_j._groups(params)
-    opt_state = trainer_j.optimizers.init(groups)
+    opt_state = jax.jit(trainer_j.optimizers.init)(groups)
+    update = jax.jit(trainer_j.optimizers.update)
     mt = torch_model(jax.tree.map(np.asarray, params))
     trainer_t = GeoSplatTrainer(GeoSplatTrainerConfig(), mt)
     rng = np.random.default_rng(0)
     for _ in range(3):
         g_np = jax.tree.map(lambda x: rng.normal(size=x.shape).astype(np.float32), groups)
-        groups, opt_state = trainer_j.optimizers.update(g_np, opt_state, groups)
+        groups, opt_state = update(g_np, opt_state, groups)
         for name, ps in trainer_t.param_groups().items():
             for gj, p in zip(jax.tree_util.tree_leaves(g_np[name]), ps):
                 p.grad = t(gj)

@@ -219,7 +219,7 @@ def test_console_charts_and_screen(monkeypatch):
 
 @pytest.fixture(scope="module")
 def scene(tmp_path_factory):
-    from chip_smoke import write_sphere_scene
+    from .torch_scenes import write_sphere_scene
 
     root = tmp_path_factory.mktemp("scene")
     write_sphere_scene(root, {"train": 4, "val": 1, "test": 1}, 32, "cpu")

@@ -26,7 +26,7 @@ def _cameras(n: int, size: int = W):
 
 
 def _sphere_views(cams):
-    from chip_smoke import sphere_gt
+    from tests.torch_scenes import sphere_gt
 
     return sphere_gt(cams)
 

@@ -4,6 +4,8 @@ The same numpy inputs go through the JAX package and its PyTorch
 counterpart on the CPU. JAX runs f32 at 'highest' matmul precision
 (tests/conftest.py); the port's CPU matmuls are plain f32.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -38,6 +40,19 @@ def n(x) -> np.ndarray:
     return np.asarray(x)
 
 
+@functools.lru_cache(maxsize=None)
+def jax_orbit(**kw):
+    """The JAX ``Cameras.from_orbit`` around the origin as one compiled
+    program, made once a process (op by op, each of its ops compiles on its
+    own)."""
+    import jax
+    import jax.numpy as jnp
+
+    from geosplatting_tpu.graphics.cameras import Cameras as JCameras
+
+    return jax.jit(lambda: JCameras.from_orbit(center=jnp.zeros(3), **kw))()
+
+
 def cameras_from_jax(cams):
     """JAX Cameras -> the port's Cameras with identical tensors."""
     from geosplatting_tpu_torch.graphics.cameras import Cameras
@@ -56,24 +71,36 @@ def cameras_from_jax(cams):
 # the top: the card-only tests import this file where there is no JAX.
 
 
+@functools.lru_cache(maxsize=None)
+def _shade_draws_program(num_points: int, num_samples_x: int, m2: int):
+    """``jax_shade_draws`` as one compiled program a shape (random bits are
+    the same under jit; op by op, each of its ops compiles on its own)."""
+    import jax
+
+    def draws(key):
+        kb, key = jax.random.split(key)
+
+        def step(sk):
+            k1, _, k3, _ = jax.random.split(sk, 4)
+            return (jax.random.randint(k1, (num_points,), 0, m2),
+                    jax.random.uniform(k3, (num_points, 3)))
+
+        bidx, u = jax.vmap(step)(jax.random.split(key, num_samples_x * num_samples_x))
+        return {"ub": jax.random.uniform(kb, (m2,)),
+                "vb": jax.random.uniform(jax.random.fold_in(kb, 1), (m2,)),
+                "bidx": bidx, "u": u}
+
+    return jax.jit(draws)
+
+
 def jax_shade_draws(key, num_points: int, num_samples_x: int, light_bank: int = 2048) -> dict:
     """``env_shade``'s draws from ``key``: the bank's uniform jitter ``ub``,
     ``vb`` [m*m], and per step the bank entries ``bidx`` [S, N] and the BSDF
     sample's uniforms ``u`` [S, N, 3]."""
     import jax
 
-    kb, key = jax.random.split(key)
     m2 = int(round(light_bank ** 0.5)) ** 2
-
-    def step(sk):
-        k1, _, k3, _ = jax.random.split(sk, 4)
-        return (jax.random.randint(k1, (num_points,), 0, m2),
-                jax.random.uniform(k3, (num_points, 3)))
-
-    bidx, u = jax.vmap(step)(jax.random.split(key, num_samples_x * num_samples_x))
-    return {"ub": np.asarray(jax.random.uniform(kb, (m2,))),
-            "vb": np.asarray(jax.random.uniform(jax.random.fold_in(kb, 1), (m2,))),
-            "bidx": np.asarray(bidx), "u": np.asarray(u)}
+    return jax.device_get(_shade_draws_program(num_points, num_samples_x, m2)(key))
 
 
 def jax_render_draws(key, num_faces: int, num_points: int, num_cameras: int,
